@@ -1,0 +1,363 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (`src/repro_torch`) on one NVIDIA GPU.
+
+    python3 chip_smoke.py          # from the root of a checkout
+
+Phases, each printing its own lines:
+
+1. device   nvidia-smi's name and power limit, torch's device name; TF32
+            off for convolutions and matrix products.
+2. build    nvcc builds the kernels in src/repro_torch/csrc/ (sm_90a).
+3. kernels  each kernel's wrapper on CUDA tensors against its plain
+            PyTorch version on the same inputs: K1 exit_gate and K2
+            calib_nll within the tolerances below, K3 encode / K4 decode
+            bit-exact. Times are device times from CUDA events around a
+            replayed CUDA graph of back-to-back calls (no host overhead).
+4. serving  the B-AlexNet offload path at full width with random seeded
+            weights: validation logits, make_plan, a K2 temperature fit,
+            select_partition, the plan's JSON round trip, and
+            convnet_engine(...).infer over 8 batches of 512 at codec
+            levels 0/1/2 on branch 1 and level 2 on branch 2. The launch
+            counts are set to 0 just before and read just after; every
+            kernel must have run. edge_forward on the card is held
+            against the same port on the CPU.
+5. result   one JSON line with every kernel's numbers, the nvidia-smi
+            line, and last {"ok": true, "device": {...}}.
+
+Any failure raises, so the process exits non-zero and prints no result;
+without a GPU it exits 2 before doing anything. Imports neither jax nor
+the JAX package.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+# H100 SXM published peaks (NVIDIA data sheet): memory rate and float32
+# rate outside the tensor cores -- the roofline every bound_ms is against
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+
+# tolerances (K1 as tests/test_kernels.py; K2 as the calib_stats tests)
+K1_CONF = dict(rtol=2e-5, atol=1e-6)
+K1_ENT = dict(rtol=2e-5, atol=2e-5)
+K2_NLL = dict(rtol=1e-5, atol=1e-6)
+K2_D1 = dict(rtol=5e-3, atol=1e-5)
+K2_D2 = dict(rtol=5e-3, atol=1e-3)
+
+KERNEL_ROWS = {
+    "exit_gate": ("src/repro_torch/csrc/exit_gate.cu", "src/repro/kernels/exit_gate.py:88"),
+    "calib_nll": ("src/repro_torch/csrc/calib_nll.cu", "src/repro/kernels/calib_nll.py:81"),
+    "encode": ("src/repro_torch/csrc/codec.cu", "src/repro/kernels/compress.py:122"),
+    "decode": ("src/repro_torch/csrc/codec.cu", "src/repro/kernels/compress.py:158"),
+}
+
+
+def bound_ms(nbytes: float, flops: float):
+    """Least time for the work: the larger of bytes over the memory rate
+    and operations over the float32 rate. Returns (ms, "bytes"|"operations")."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available; nothing was run", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch.utils._pytree as pytree
+
+    from repro_torch.core import metrics
+    from repro_torch.core.calibration import fit_temperature
+    from repro_torch.core.exits import gate_statistics
+    from repro_torch.core.partition import select_partition
+    from repro_torch.core.policy import OffloadPlan, make_plan
+    from repro_torch.data.synthetic import cifar_like
+    from repro_torch.kernels import _build, calib_nll, compress, exit_gate, ops, ref
+    from repro_torch.models import convnet
+    from repro_torch.offload import latency
+    from repro_torch.offload.engine import EngineStats, convnet_engine
+
+    kernels = {"exit_gate": exit_gate.KERNEL, "calib_nll": calib_nll.KERNEL,
+               "encode": compress.ENCODE, "decode": compress.DECODE}
+    cuda = torch.device("cuda")
+
+    # ---------------------------------------------------------------- 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    name = torch.cuda.get_device_name(0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"[device] nvidia-smi: {smi}")
+    print(f"[device] torch {torch.__version__} cuda {torch.version.cuda} device {name} "
+          f"count {torch.cuda.device_count()}; TF32 off")
+
+    # ---------------------------------------------------------------- 2
+    t0 = time.perf_counter()
+    _build.library()
+    print(f"[build] nvcc sm_90a -> {os.path.relpath(_build.build(), ROOT)} "
+          f"in {time.perf_counter() - t0:.1f} s")
+    for line in _build.build_log().splitlines():
+        if "Used" in line or "spill" in line:
+            print("[build] " + line.strip())
+
+    # ---------------------------------------------------------------- 3
+    def device_ms(fn, calls=20, reps=5):
+        """Median device ms of one call: `calls` calls captured in a CUDA
+        graph, replayed `reps` times between CUDA events."""
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(calls):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            graph.replay()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b) / calls)
+        del graph
+        torch.cuda.synchronize()
+        return float(np.median(times))
+
+    def calls_for(nbytes):
+        return 20 if nbytes < 64e6 else 3
+
+    rng = np.random.default_rng(0)
+    rows_out = {k: {"cases": []} for k in kernels}
+
+    def record(kernel, case, err, ms, plain_ms, nbytes, flops, path=False):
+        bms, by = bound_ms(nbytes, flops)
+        row = dict(case=case, max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
+                   bound_ms=bms, bound_by=by)
+        rows_out[kernel]["cases"].append(row)
+        if path:
+            rows_out[kernel].update(max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
+                                    bound_ms=bms, bound_by=by)
+        print(f"[kernels] {kernel} {case}: max_abs_err {err:.3g}  kernel {ms * 1e3:.2f} us  "
+              f"plain {plain_ms * 1e3:.2f} us  bound {bms * 1e3:.2f} us ({by})")
+
+    def maxdiff(a, b):
+        return float((a.double() - b.double()).abs().max())
+
+    # K1 -- exit_gate: the serving gate shape, then the large-vocab check
+    for shape, dtype, temp in [((512, 10), torch.float32, 1.37),
+                               ((256, 151_936), torch.float32, 1.3),
+                               ((256, 151_936), torch.bfloat16, 1.3)]:
+        zn = (rng.standard_normal(shape) * 6).astype(np.float32)
+        if shape[1] > 10:
+            zn[0, :4] = [1e4, -1e4, 0.0, 500.0]
+            zn[1, :] = -1e4
+            zn[2, :] = 1e4
+        z = torch.as_tensor(zn, device=cuda).to(dtype)
+        t_dev = torch.tensor(temp, device=cuda)
+        conf, ent, idx = exit_gate.exit_gate_kernel(z, temp)
+        rconf, rent, ridx = ref.exit_gate_ref(z, t_dev)
+        torch.testing.assert_close(conf, rconf, **K1_CONF)
+        torch.testing.assert_close(ent, rent, **K1_ENT)
+        assert torch.equal(idx, ridx), "K1 argmax differs from the plain version"
+        rows, vocab = shape
+        nbytes = rows * vocab * z.element_size() + rows * 12
+        calls = calls_for(nbytes)
+        ms = device_ms(lambda: exit_gate.exit_gate_kernel(z, temp), calls)
+        pms = device_ms(lambda: ref.exit_gate_ref(z, t_dev), calls)
+        record("exit_gate", f"{shape} {str(dtype)[6:]}", max(maxdiff(conf, rconf), maxdiff(ent, rent)),
+               ms, pms, nbytes, 6.0 * rows * vocab, path=(shape == (512, 10)))
+
+    # K2 -- calib_nll: the calibration shape, then the large-vocab check
+    for shape, temp in [((2000, 10), 2.7), ((1024, 151_936), 1.3)]:
+        rows, vocab = shape
+        z = torch.as_tensor((rng.standard_normal(shape) * 4).astype(np.float32), device=cuda)
+        y = torch.as_tensor(rng.integers(0, vocab, rows).astype(np.int32), device=cuda)
+        t_dev = torch.tensor(temp, device=cuda)
+        got = calib_nll.calib_nll_kernel(z, y, t_dev)
+        want = ref.calib_nll_ref(z, y, t_dev)
+        assert torch.equal(got[2], want[2]), "K2 label logit differs from the plain version"
+        s_got, s_want = ops.newton_stats(*got, t_dev), ops.newton_stats(*want, t_dev)
+        for a, b, tol in zip(s_got, s_want, (K2_NLL, K2_D1, K2_D2)):
+            torch.testing.assert_close(a, b, **tol)
+        nbytes = rows * vocab * 4 + rows * 4 + 4 + rows * 16
+        calls = calls_for(nbytes)
+        ms = device_ms(lambda: calib_nll.calib_nll_kernel(z, y, t_dev), calls)
+        pms = device_ms(lambda: ref.calib_nll_ref(z, y, t_dev), calls)
+        record("calib_nll", str(shape), max(maxdiff(a, b) for a, b in zip(s_got, s_want)),
+               ms, pms, nbytes, 10.0 * rows * vocab, path=(shape == (2000, 10)))
+    # the kernel Newton fit against the plain fitter on a planted T* = 2.5
+    zn = (rng.standard_normal((2000, 10)) * 3).astype(np.float32)
+    p = np.exp(zn / 2.5)
+    p /= p.sum(1, keepdims=True)
+    yn = (p.cumsum(1) > rng.random((2000, 1))).argmax(1).astype(np.int32)
+    zc, yc = torch.as_tensor(zn, device=cuda), torch.as_tensor(yn, device=cuda)
+    t_k, _ = ops.fit_temperature_kernel(zc, yc)
+    t_r, _ = fit_temperature(zc, yc)
+    print(f"[kernels] calib_nll Newton fit: kernel T {float(t_k):.5f}  plain fitter T "
+          f"{float(t_r):.5f}  (planted 2.5)")
+    assert abs(float(t_k) - float(t_r)) < 0.05 and 2.2 < float(t_k) < 2.9
+
+    # K3 / K4 -- codec, bit-exact on words, scales and decoded floats
+    def bits_equal(a, b):
+        return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+    zero_half = np.zeros((8, 512), np.float32)
+    zero_half[:, 256:] = rng.standard_normal((8, 256)) * 3
+    nonfinite = (rng.standard_normal((8, 512)) * 3).astype(np.float32)
+    nonfinite[0, 5], nonfinite[3, 200], nonfinite[7, 300] = np.inf, -np.inf, np.nan
+    codec_cases = [((512, 16, 16, 64), 1, None), ((512, 16, 16, 64), 2, None),
+                   ((256, 8, 8, 96), 1, None), ((256, 8, 8, 96), 2, None),
+                   ((3, 700), 1, None), ((3, 700), 2, None),
+                   ((8, 512), 2, zero_half), ((8, 512), 1, nonfinite), ((8, 512), 2, nonfinite)]
+    for shape, level, fixed in codec_cases:
+        xn = fixed if fixed is not None else (rng.standard_normal(shape) * 3).astype(np.float32)
+        x = torch.as_tensor(xn, device=cuda)
+        bits = ref.CODEC_BITS[level]
+        rows, cols = ref._codec_layout(shape)
+        x2 = x.reshape(rows, cols)
+        words, scales = compress.encode_kernel(x2, bits)
+        rwords, rscales = ref.encode_codec_ref(x, level)
+        assert bits_equal(words, rwords), f"K3 words differ at {shape} level {level}"
+        assert bits_equal(scales, rscales), f"K3 scales differ at {shape} level {level}"
+        out = compress.decode_kernel(words, scales, cols, bits).reshape(shape)
+        rout = ref.decode_codec_ref(words, scales, shape, level)
+        assert bits_equal(out, rout), f"K4 floats differ at {shape} level {level}"
+        assert torch.isfinite(out).all()
+        if fixed is None and shape[0] == 512:
+            wbytes = words.numel() * 4 + scales.numel() * 4
+            nbytes = rows * cols * 4 + wbytes
+            calls = calls_for(nbytes)
+            case = f"{shape} level {level}"
+            record("encode", case, 0.0,
+                   device_ms(lambda: compress.encode_kernel(x2, bits), calls),
+                   device_ms(lambda: ref.encode_codec_ref(x, level), calls),
+                   nbytes, 5.0 * rows * cols, path=(level == 2))
+            record("decode", case, 0.0,
+                   device_ms(lambda: compress.decode_kernel(words, scales, cols, bits), calls),
+                   device_ms(lambda: ref.decode_codec_ref(words, scales, shape, level), calls),
+                   nbytes, 3.0 * rows * cols, path=(level == 2))
+    print(f"[kernels] codec bit-exact on {len(codec_cases)} cases (words, scales, floats)")
+
+    # ---------------------------------------------------------------- 4
+    data = cifar_like(n_train=64, n_val=2000, n_test=4096, seed=1)
+    params = convnet.init_params(torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    val_x = torch.as_tensor(data.val_x, device=cuda)
+    val_y = torch.as_tensor(data.val_y, device=cuda)
+    test_x = torch.as_tensor(data.test_x, device=cuda)
+    with torch.no_grad():
+        outs = [convnet.forward(params, val_x[i:i + 512]) for i in range(0, len(val_x), 512)]
+    v1 = torch.cat([o["exit_logits"][0] for o in outs])
+    v2 = torch.cat([o["exit_logits"][1] for o in outs])
+    profile = latency.paper_2020()
+
+    for k in kernels.values():
+        k.launches = 0
+    t_path = time.perf_counter()
+    plan = make_plan([v1, v2], val_y, p_tar=0.8)
+    t_fit, _ = ops.fit_temperature_kernel(v1, val_y)  # calibrating on the card: K2
+    print(f"[serving] temperatures {plan.temperatures}; K2 Newton fit of branch 1 "
+          f"{float(t_fit):.5f}")
+    assert abs(float(t_fit) - plan.temperatures[0]) < 0.05
+    conf1, _, _ = gate_statistics(v1, plan.temperatures[0])
+    plan = plan.with_p_tar(float(np.median(conf1.cpu().numpy())))
+    plan, cands = select_partition(
+        plan, [v1, v2],
+        edge_times_s=[latency.edge_time(profile, b) for b in (1, 2)],
+        cloud_times_s=[latency.cloud_time(profile, b) for b in (1, 2)],
+        payload_bytes=[latency.payload_bytes_for(b) for b in (1, 2)],
+        exit_layer_indices=[0, 1], uplink_bps=profile.uplink_bps,
+    )
+    text = plan.to_json()
+    plan = OffloadPlan.from_json(text)
+    assert plan.to_json() == text
+    print(f"[serving] p_tar {plan.p_tar:.6f}; partition exit {plan.exit_index} "
+          f"(offload probs {[round(c.offload_prob, 4) for c in cands]}); JSON round trip ok")
+
+    test_y = data.test_y
+    for branch, level in [(1, 0), (1, 1), (1, 2), (2, 2)]:
+        engine = convnet_engine(params, plan.with_compression(level), branch=branch,
+                                use_kernel=True)
+        engine.infer({"images": test_x[:512]})  # warm-up: cuDNN picks its algorithms
+        engine.stats = EngineStats()
+        before = {n: k.launches for n, k in kernels.items()}
+        t0 = time.perf_counter()
+        res = [engine.infer({"images": test_x[i:i + 512]}) for i in range(0, len(test_x), 512)]
+        wall = time.perf_counter() - t0
+        pred = np.concatenate([r["prediction"] for r in res])
+        conf = np.concatenate([r["confidence"] for r in res])
+        on_dev = np.concatenate([r["on_device"] for r in res])
+        assert pred.shape == conf.shape == on_dev.shape == test_y.shape and np.isfinite(conf).all()
+        correct = pred == test_y
+        outage = np.mean([
+            bool(m.any()) and (c[m].mean() < plan.p_tar)
+            for m, c in zip(on_dev.reshape(-1, metrics.PAPER_OUTAGE_BATCH),
+                            correct.reshape(-1, metrics.PAPER_OUTAGE_BATCH))
+        ])
+        st = engine.stats
+        want = st.offloaded * compress.scaled_payload_nbytes(convnet.payload_bytes(branch), level)
+        delta = {n: k.launches - before[n] for n, k in kernels.items()}
+        print(f"[serving] branch {branch} level {level}: offload_rate {st.offload_rate:.4f} "
+              f"accuracy {correct.mean():.4f} ece {metrics.ece(conf, correct):.4f} "
+              f"on_device_prob {on_dev.mean():.4f} outage {outage:.3f} "
+              f"payload_bytes {st.payload_bytes} infer {1e3 * wall / len(res):.3f} ms/batch "
+              f"(edge {1e3 * st.edge_time_s / len(res):.3f}, cloud "
+              f"{1e3 * st.cloud_time_s / len(res):.3f}) launches {delta}")
+        assert 0.0 < st.offload_rate < 1.0
+        assert st.payload_bytes == want, (st.payload_bytes, want)
+        assert delta["exit_gate"] >= len(res)
+        if level == 0:
+            assert delta["encode"] == delta["decode"] == 0
+        else:
+            assert delta["encode"] >= 1 and delta["decode"] >= 1
+    torch.cuda.synchronize()
+    launches = {n: k.launches for n, k in kernels.items()}
+    print(f"[serving] main path in {time.perf_counter() - t_path:.2f} s; launches {launches}")
+    missing = [n for n, c in launches.items() if c == 0]
+    assert not missing, f"kernels never launched on the main path: {missing}"
+
+    cpu_params = pytree.tree_map(lambda x: x.cpu(), params)
+    with torch.no_grad():
+        for branch in (1, 2):
+            lg, pl = convnet.edge_forward(params, test_x[:64], branch=branch)
+            lc, pc = convnet.edge_forward(cpu_params, test_x[:64].cpu(), branch=branch)
+            torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-5)
+            torch.testing.assert_close(pl.cpu(), pc, rtol=1e-4, atol=1e-5)
+            assert pl.is_contiguous() and tuple(pl.shape[1:]) == ((16, 16, 64) if branch == 1
+                                                                 else (8, 8, 96))
+    print("[serving] edge_forward on the card matches the CPU port (rtol 1e-4, atol 1e-5)")
+
+    # ---------------------------------------------------------------- 5
+    table = []
+    for n in kernels:
+        src, replaces = KERNEL_ROWS[n]
+        r = rows_out[n]
+        table.append({"name": n, "route": "cuda", "source": src, "replaces": replaces,
+                      "launches": launches[n], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                      "bound_by": r["bound_by"], "library_ms": None, "cases": r["cases"]})
+    print(json.dumps({"kernels": table}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

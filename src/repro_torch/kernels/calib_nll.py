@@ -1,0 +1,49 @@
+"""K2: fused calibration-NLL statistics (CUDA, `csrc/calib_nll.cu`).
+
+Temperature Scaling fits T by minimizing
+    NLL(T) = mean_r [ logsumexp(z_r / T) - z_{r,y_r} / T ].
+Each Newton iteration needs NLL and its first two derivatives in T, which
+reduce to four streaming row statistics (E_p[z], E_p[z^2], z_y, nll) at
+p = softmax(z/T): one pass over the logits per iteration. Port of
+`repro.kernels.calib_nll.calib_nll_kernel`.
+
+Dispatch: a CPU tensor goes to `ref.calib_nll_ref`; a CUDA tensor goes to
+the kernel or the call raises.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import calib_nll_ref
+
+KERNEL = _build.Kernel(
+    "calib_nll",
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
+)
+
+
+def calib_nll_kernel(logits: torch.Tensor, labels: torch.Tensor, temperature):
+    """logits (rows, vocab) float32, labels (rows,) int32 with values in
+    [0, vocab), temperature a scalar or a one-element float32 tensor (on
+    the card it stays there, so a Newton loop never syncs).
+
+    Returns (e1, e2, zy, nll), each (rows,) float32.
+    """
+    if logits.device.type == "cpu":
+        return calib_nll_ref(logits, labels, temperature)
+    _build.check_cuda_tensor(logits, "logits", (torch.float32,), 2)
+    _build.check_cuda_tensor(labels, "labels", (torch.int32,), 1)
+    rows, vocab = logits.shape
+    if labels.shape[0] != rows:
+        raise ValueError(f"labels has {labels.shape[0]} rows, logits {rows}")
+    if vocab < 1 or rows >= 2**31 or vocab >= 2**31:
+        raise ValueError(f"calib_nll takes 1 <= vocab and dims < 2^31, got {tuple(logits.shape)}")
+    t = torch.as_tensor(temperature, dtype=torch.float32, device=logits.device).reshape(1)
+    outs = [torch.empty(rows, dtype=torch.float32, device=logits.device) for _ in range(4)]
+    KERNEL(logits.device, logits.data_ptr(), labels.data_ptr(), t.data_ptr(), rows, vocab,
+           *(o.data_ptr() for o in outs))
+    return tuple(outs)

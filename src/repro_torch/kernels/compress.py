@@ -1,0 +1,153 @@
+"""K3 / K4: the bottleneck codec for the offload payload (CUDA,
+`csrc/codec.cu`): encode on the edge, decode in the cloud.
+
+Per (row, 128-feature group) of the flattened activation: an absmax
+scale, then signed int8 (level 1) or int4 (level 2) values packed
+little-endian into uint32 words, with the float32 scales written in the
+same pass. Port of `repro.kernels.compress`; the wire format is
+bit-exact with `ref.encode_codec_ref`, and the compressed size is
+analytic (`compressed_nbytes`), so pricing never touches a tensor.
+
+The payload must be contiguous in its own layout: the codec groups 128
+consecutive features per sample, so for B-AlexNet an NHWC activation.
+`encode` raises on a non-contiguous input rather than copying a permuted
+view (which would regroup every scale).
+
+Dispatch: CPU tensors go to `ref.encode_codec_ref` / `decode_codec_ref`;
+CUDA tensors go to the kernels or the call raises.
+"""
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+from typing import Tuple
+
+import torch
+
+from repro_torch._device import as_tensor
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import (
+    CODEC_BITS,
+    CODEC_TILE,
+    _codec_layout,
+    decode_codec_ref,
+    encode_codec_ref,
+)
+
+#: the codec's public level axis: 0 = identity float32, 1 = int8, 2 = int4
+LEVELS = (0, 1, 2)
+
+ENCODE = _build.Kernel(
+    "encode",
+    [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
+)
+DECODE = _build.Kernel(
+    "decode",
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+)
+
+
+def compressed_nbytes(n_elements: int, level: int) -> int:
+    """Wire bytes for an n-element float32 payload at `level` (analytic,
+    unpadded): packed values + one float32 scale per 128-element group."""
+    n = int(n_elements)
+    if int(level) == 0:
+        return 4 * n
+    bits = CODEC_BITS[int(level)]
+    groups = -(-n // CODEC_TILE)
+    return (n * bits + 7) // 8 + 4 * groups
+
+
+def scaled_payload_nbytes(raw_nbytes: int, level: int) -> int:
+    """Wire bytes for a payload whose RAW float32 size is `raw_nbytes`.
+    Level 0 returns `raw_nbytes` unchanged."""
+    if int(level) == 0:
+        return int(raw_nbytes)
+    return compressed_nbytes(int(raw_nbytes) // 4, level)
+
+
+def _groups(cols: int) -> int:
+    return -(-cols // CODEC_TILE)
+
+
+# ---------------------------------------------------------------- kernels
+def encode_kernel(z: torch.Tensor, bits: int):
+    """z: (rows, cols) contiguous float32 on the card. Returns (words
+    uint32 (rows, ceil(cols/128)*128*bits/32), scales float32 (rows,
+    ceil(cols/128)))."""
+    _build.check_cuda_tensor(z, "payload", (torch.float32,), 2)
+    rows, cols = z.shape
+    if rows >= 2**31 or cols >= 2**31:
+        raise ValueError(f"encode takes dims < 2^31, got {tuple(z.shape)}")
+    g = _groups(cols)
+    words = torch.empty((rows, g * CODEC_TILE * bits // 32), dtype=torch.uint32, device=z.device)
+    scales = torch.empty((rows, g), dtype=torch.float32, device=z.device)
+    ENCODE(z.device, z.data_ptr(), rows, cols, bits, words.data_ptr(), scales.data_ptr())
+    return words, scales
+
+
+def decode_kernel(words: torch.Tensor, scales: torch.Tensor, cols: int, bits: int):
+    """Inverse of `encode_kernel`: (rows, cols) float32 on the card."""
+    _build.check_cuda_tensor(words, "words", (torch.uint32,), 2)
+    _build.check_cuda_tensor(scales, "scales", (torch.float32,), 2)
+    rows = words.shape[0]
+    g = _groups(cols)
+    if tuple(words.shape) != (rows, g * CODEC_TILE * bits // 32) or tuple(scales.shape) != (rows, g):
+        raise ValueError(
+            f"words {tuple(words.shape)} / scales {tuple(scales.shape)} do not hold "
+            f"{cols} features at {bits} bits"
+        )
+    out = torch.empty((rows, cols), dtype=torch.float32, device=words.device)
+    DECODE(words.device, words.data_ptr(), scales.data_ptr(), rows, cols, bits, out.data_ptr())
+    return out
+
+
+# ----------------------------------------------------------- public wrappers
+@dataclass(frozen=True)
+class EncodedPayload:
+    """One encoded offload payload: the wire image + enough metadata to
+    decode. `nbytes` is the analytic unpadded wire size (what the uplink
+    is charged), not the padded device buffer size."""
+
+    words: torch.Tensor  # (rows, ceil(features/128)*128 * bits / 32) uint32
+    scales: torch.Tensor  # (rows, ceil(features/128)) float32
+    shape: Tuple[int, ...]
+    level: int
+
+    @property
+    def nbytes(self) -> int:
+        rows, cols = _codec_layout(self.shape)
+        return rows * compressed_nbytes(cols, self.level)
+
+
+def encode(x, level: int, device=None) -> EncodedPayload:
+    """Encode an arbitrary-shape float payload (contiguous; numpy lands on
+    `device`). The CPU path is the oracle; on the card, the K3 kernel."""
+    level = int(level)
+    if level == 0:
+        raise ValueError("level 0 is the identity; nothing to encode")
+    x = as_tensor(x, device)
+    if not x.is_contiguous():
+        raise ValueError("the codec groups consecutive features: pass a contiguous payload")
+    shape = tuple(int(d) for d in x.shape)
+    if x.device.type == "cpu":
+        words, scales = encode_codec_ref(x, level)
+    else:
+        rows, cols = _codec_layout(shape)
+        words, scales = encode_kernel(x.reshape(rows, cols).to(torch.float32), CODEC_BITS[level])
+    return EncodedPayload(words=words, scales=scales, shape=shape, level=level)
+
+
+def decode(enc: EncodedPayload) -> torch.Tensor:
+    """Decode an `EncodedPayload` back to float32 in its original shape."""
+    if enc.words.device.type == "cpu":
+        return decode_codec_ref(enc.words, enc.scales, enc.shape, enc.level)
+    _, cols = _codec_layout(enc.shape)
+    return decode_kernel(enc.words, enc.scales, cols, CODEC_BITS[int(enc.level)]).reshape(enc.shape)
+
+
+def roundtrip(x, level: int, device=None):
+    """decode(encode(x)); level 0 is the identity."""
+    if int(level) == 0:
+        return as_tensor(x, device)
+    return decode(encode(x, level, device=device))

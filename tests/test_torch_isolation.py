@@ -1,0 +1,110 @@
+"""The port stands alone and never falls back.
+
+* Importing `repro_torch` and every ported module loads neither `jax` nor
+  any `repro` module (checked in a subprocess: this process already
+  imported jax through conftest.py).
+* Entry points refuse to run when no GPU is present and no device was
+  named, instead of carrying on on the CPU.
+* A CPU tensor goes to a kernel's plain version and no launch is
+  counted; the CUDA-only launchers refuse a CPU tensor.
+"""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.policy import OffloadPlan, make_plan
+from repro_torch.kernels import calib_nll, compress, exit_gate, ops, ref
+from repro_torch.models import convnet
+from repro_torch.offload.engine import convnet_engine
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+PORTED = [
+    "repro_torch",
+    "repro_torch.configs.base",
+    "repro_torch.core",
+    "repro_torch.core.calibration",
+    "repro_torch.core.exits",
+    "repro_torch.core.metrics",
+    "repro_torch.core.partition",
+    "repro_torch.core.policy",
+    "repro_torch.data.synthetic",
+    "repro_torch.kernels._build",
+    "repro_torch.kernels.calib_nll",
+    "repro_torch.kernels.compress",
+    "repro_torch.kernels.exit_gate",
+    "repro_torch.kernels.ops",
+    "repro_torch.kernels.ref",
+    "repro_torch.models.convnet",
+    "repro_torch.offload.engine",
+    "repro_torch.offload.latency",
+]
+KERNELS = [exit_gate.KERNEL, calib_nll.KERNEL, compress.ENCODE, compress.DECODE]
+
+
+def test_port_imports_neither_jax_nor_repro():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {PORTED!r}:\n"
+        "    importlib.import_module(m)\n"
+        "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "bad = [m for m in sys.modules if m == 'repro' or m.startswith('repro.')]\n"
+        "assert not bad, bad\n"
+        "print('isolated')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "isolated"
+
+
+def test_entry_points_refuse_without_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    plan = OffloadPlan(p_tar=0.5, calibrators=[])
+    params = convnet.init_params(torch.Generator().manual_seed(0), device="cpu")
+    z = np.zeros((4, 10), np.float32)
+    for call in (
+        lambda: convnet_engine(params, plan),
+        lambda: convnet.init_params(),
+        lambda: make_plan([z], np.zeros(4, np.int32), p_tar=0.5),
+        lambda: ops.exit_gate(z),
+        lambda: ops.calib_stats(z, np.zeros(4, np.int32), 1.0),
+        lambda: ops.fit_temperature_kernel(z, np.zeros(4, np.int32)),
+        lambda: compress.encode(z, 1),
+    ):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
+def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
+    before = [k.launches for k in KERNELS]
+    rng = np.random.default_rng(0)
+    z = torch.as_tensor(rng.standard_normal((6, 10)).astype(np.float32))
+    y = torch.as_tensor(rng.integers(0, 10, 6).astype(np.int32))
+    conf, pred, ent = ops.exit_gate(z, 1.5)
+    rconf, rent, ridx = ref.exit_gate_ref(z, 1.5)
+    assert torch.equal(conf, rconf) and torch.equal(ent, rent) and torch.equal(pred, ridx)
+    got = calib_nll.calib_nll_kernel(z, y, 0.8)
+    for a, b in zip(got, ref.calib_nll_ref(z, y, 0.8)):
+        assert torch.equal(a, b)
+    ops.fit_temperature_kernel(z, y, iters=2)
+    x = torch.as_tensor(rng.standard_normal((3, 300)).astype(np.float32))
+    enc = compress.encode(x, 2)
+    words, scales = ref.encode_codec_ref(x, 2)
+    assert torch.equal(enc.words.view(torch.int32), words.view(torch.int32))
+    assert torch.equal(compress.decode(enc), ref.decode_codec_ref(words, scales, x.shape, 2))
+    assert [k.launches for k in KERNELS] == before == [0, 0, 0, 0]
+
+
+def test_cuda_launchers_refuse_cpu_tensors():
+    z = torch.zeros(4, 128)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        compress.encode_kernel(z, 8)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        compress.decode_kernel(torch.zeros(4, 32, dtype=torch.uint32), torch.zeros(4, 1), 128, 8)
+    assert [k.launches for k in KERNELS] == [0, 0, 0, 0]
