@@ -11,8 +11,15 @@ Phases, each printing its own lines:
 3. kernels  each kernel's wrapper on CUDA tensors against its plain
             PyTorch version on the same inputs: K1 exit_gate and K2
             calib_nll within the tolerances below, K3 encode / K4 decode
-            bit-exact. Times are device times from CUDA events around a
-            replayed CUDA graph of back-to-back calls (no host overhead).
+            bit-exact, at the path's shapes and at the edges of each
+            kernel layout. Times are device times from CUDA events
+            around a replayed CUDA graph of back-to-back calls (no host
+            overhead), beside a 1-element add_ as the launch floor. They
+            are L2-warm (the same buffers every call) except K1 at
+            (256,151936) and K3/K4 at (512,16384), which are L2-cold:
+            inputs rotate over sets and every call writes fresh outputs,
+            so over 100 MB pass between two uses of a buffer. K3/K4 print
+            their L2-warm time beside it.
 4. serving  the B-AlexNet offload path at full width with random seeded
             weights: validation logits, make_plan, a K2 temperature fit,
             select_partition, the plan's JSON round trip, and
@@ -43,6 +50,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # rate outside the tensor cores -- the roofline every bound_ms is against
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+# an L2-cold timing keeps more than this much traffic between two uses of
+# a buffer: twice the H100's 50 MB L2
+COLD_BYTES = 100e6
 
 # tolerances (K1 as tests/test_kernels.py; K2 as the calib_stats tests)
 K1_CONF = dict(rtol=2e-5, atol=1e-6)
@@ -112,19 +122,25 @@ def main() -> int:
             print("[build] " + line.strip())
 
     # ---------------------------------------------------------------- 3
-    def device_ms(fn, calls=20, reps=5):
-        """Median device ms of one call: `calls` calls captured in a CUDA
-        graph, replayed `reps` times between CUDA events."""
+    def device_ms(fn, calls=20, reps=5, keep=False):
+        """Median device ms of one call: `calls` calls, fn(0) .. fn(calls-1),
+        captured in a CUDA graph and replayed `reps` times between CUDA
+        events. With keep=True every call's outputs stay allocated, so no
+        two calls share an output buffer."""
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
-            for _ in range(2):
-                fn()
+            for i in range(2):
+                fn(i)
         torch.cuda.current_stream().wait_stream(side)
         graph = torch.cuda.CUDAGraph()
+        held = []
         with torch.cuda.graph(graph):
-            for _ in range(calls):
-                fn()
+            for i in range(calls):
+                if keep:
+                    held.append(fn(i))
+                else:
+                    fn(i)
         graph.replay()
         torch.cuda.synchronize()
         times = []
@@ -136,53 +152,107 @@ def main() -> int:
             b.record()
             b.synchronize()
             times.append(a.elapsed_time(b) / calls)
-        del graph
+        del graph, held
         torch.cuda.synchronize()
         return float(np.median(times))
 
     def calls_for(nbytes):
         return 20 if nbytes < 64e6 else 3
 
+    def cold_plan(nbytes):
+        """(input sets, calls) for an L2-cold timing: inputs rotate over
+        enough sets that a call's inputs were last touched more than
+        COLD_BYTES of traffic ago, and each call writes fresh outputs."""
+        sets = max(2, -(-int(COLD_BYTES) // int(nbytes)) + 1)
+        calls = -(-max(calls_for(nbytes), sets) // sets) * sets
+        return sets, calls
+
     rng = np.random.default_rng(0)
     rows_out = {k: {"cases": []} for k in kernels}
 
-    def record(kernel, case, err, ms, plain_ms, nbytes, flops, path=False):
+    # the launch floor: a 1-element in-place add_ in the same graph harness
+    one = torch.zeros(1, device=cuda)
+    floor_ms = device_ms(lambda i: one.add_(1))
+    print(f"[kernels] launch floor (1-element add_, graph replay): {floor_ms * 1e3:.2f} us")
+
+    def record(kernel, case, err, ms, plain_ms, nbytes, flops, path=False, **extra):
         bms, by = bound_ms(nbytes, flops)
         row = dict(case=case, max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
-                   bound_ms=bms, bound_by=by)
+                   bound_ms=bms, bound_by=by, **extra)
         rows_out[kernel]["cases"].append(row)
         if path:
             rows_out[kernel].update(max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
                                     bound_ms=bms, bound_by=by)
+        more = "".join(f"  {k[:-3]} {v * 1e3:.2f} us" for k, v in extra.items())
         print(f"[kernels] {kernel} {case}: max_abs_err {err:.3g}  kernel {ms * 1e3:.2f} us  "
-              f"plain {plain_ms * 1e3:.2f} us  bound {bms * 1e3:.2f} us ({by})")
+              f"plain {plain_ms * 1e3:.2f} us  bound {bms * 1e3:.2f} us ({by}){more}")
 
     def maxdiff(a, b):
         return float((a.double() - b.double()).abs().max())
 
-    # K1 -- exit_gate: the serving gate shape, then the large-vocab check
-    for shape, dtype, temp in [((512, 10), torch.float32, 1.37),
-                               ((256, 151_936), torch.float32, 1.3),
-                               ((256, 151_936), torch.bfloat16, 1.3)]:
-        zn = (rng.standard_normal(shape) * 6).astype(np.float32)
-        if shape[1] > 10:
-            zn[0, :4] = [1e4, -1e4, 0.0, 500.0]
-            zn[1, :] = -1e4
-            zn[2, :] = 1e4
-        z = torch.as_tensor(zn, device=cuda).to(dtype)
+    def division_ties(temp, n):
+        """n pairs x1 < x2 of neighbouring float32 values whose quotients by
+        temp round to one float32, from (42 + j) * 2^(j % 6) up (where a
+        divide by 1.3 maps a binade into a coarser one). An argmax of z/T
+        keeps x1's lower column; a divide off by one ulp would not."""
+        t = np.float32(temp)
+        pairs = []
+        for j in range(n):
+            start = np.float32((42 + j) * 2.0 ** (j % 6)).view(np.uint32)
+            xs = (start + np.arange(4096, dtype=np.uint32)).view(np.float32)
+            q = xs / t
+            k = int(np.flatnonzero(q[:-1] == q[1:])[0])
+            pairs.append((xs[k], xs[k + 1]))
+        return pairs
+
+    # K1 -- exit_gate. The serving gate shape; then each layout at its
+    # edges (vocab <= 32 lane groups, 33..1024 a warp per row, above a block
+    # per row; odd widths leave most rows unaligned, 3 rows underfill a
+    # block); then the large-vocab check, timed L2-cold. Rows 0-2 of the
+    # large cases hold +-1e4 and all-equal rows; row 3 a tie at columns 7
+    # and 4000, which lie in different warps of the block layout; rows 4-19
+    # a division tie (x1 at a lower column than x2) as the row's max.
+    f32, bf16 = torch.float32, torch.bfloat16
+    k1_cases = [((512, 10), f32), ((3, 1), f32), ((3, 10), bf16), ((64, 32), f32),
+                ((64, 33), bf16), ((64, 1024), f32), ((3, 1025), f32), ((3, 1025), bf16),
+                ((64, 4097), f32), ((64, 4097), bf16), ((5, 8193), f32), ((5, 8193), bf16),
+                ((256, 151_936), f32), ((256, 151_936), bf16)]
+    for shape, dtype in k1_cases:
+        rows, vocab = shape
+        temp = 1.37 if shape == (512, 10) else 1.3
+        big = vocab == 151_936
+        nbytes = rows * vocab * (2 if dtype == bf16 else 4) + rows * 12
+        sets, calls = cold_plan(nbytes) if big else (1, calls_for(nbytes))
+        ties = division_ties(temp, min(16, rows - 4)) if vocab >= 8193 else []
+        zs = []
+        for _ in range(sets):
+            zn = (rng.standard_normal(shape) * 6).astype(np.float32)
+            if big:
+                zn[0, :4] = [1e4, -1e4, 0.0, 500.0]
+                zn[1, :] = -1e4
+                zn[2, :] = 1e4
+            if vocab >= 8193:
+                zn[3, [7, 4000]] = 50.0
+            for r, (x1, x2) in enumerate(ties, start=4):
+                zn[r, [100 + r, 3000 + 37 * r]] = [x1, x2]
+            zs.append(torch.as_tensor(zn, device=cuda).to(dtype))
+        z = zs[0]
         t_dev = torch.tensor(temp, device=cuda)
         conf, ent, idx = exit_gate.exit_gate_kernel(z, temp)
         rconf, rent, ridx = ref.exit_gate_ref(z, t_dev)
         torch.testing.assert_close(conf, rconf, **K1_CONF)
         torch.testing.assert_close(ent, rent, **K1_ENT)
-        assert torch.equal(idx, ridx), "K1 argmax differs from the plain version"
-        rows, vocab = shape
-        nbytes = rows * vocab * z.element_size() + rows * 12
-        calls = calls_for(nbytes)
-        ms = device_ms(lambda: exit_gate.exit_gate_kernel(z, temp), calls)
-        pms = device_ms(lambda: ref.exit_gate_ref(z, t_dev), calls)
+        assert torch.equal(idx, ridx), f"K1 argmax differs from the plain version at {shape}"
+        if vocab >= 8193:
+            assert int(idx[3]) == 7, "K1 lost the lower index of a cross-warp tie"
+        if ties and dtype == f32:
+            assert idx[4:4 + len(ties)].tolist() == [100 + r for r in range(4, 4 + len(ties))], \
+                "K1 broke a division tie: its z/T differs from the IEEE quotient"
+        ms = device_ms(lambda i: exit_gate.exit_gate_kernel(zs[i % sets], temp), calls, keep=big)
+        pms = device_ms(lambda i: ref.exit_gate_ref(zs[i % sets], t_dev), calls, keep=big)
+        extra = {} if big else {"launch_floor_ms": floor_ms}
         record("exit_gate", f"{shape} {str(dtype)[6:]}", max(maxdiff(conf, rconf), maxdiff(ent, rent)),
-               ms, pms, nbytes, 6.0 * rows * vocab, path=(shape == (512, 10)))
+               ms, pms, nbytes, 6.0 * rows * vocab, path=(shape == (512, 10)), **extra)
 
     # K2 -- calib_nll: the calibration shape, then the large-vocab check
     for shape, temp in [((2000, 10), 2.7), ((1024, 151_936), 1.3)]:
@@ -198,10 +268,11 @@ def main() -> int:
             torch.testing.assert_close(a, b, **tol)
         nbytes = rows * vocab * 4 + rows * 4 + 4 + rows * 16
         calls = calls_for(nbytes)
-        ms = device_ms(lambda: calib_nll.calib_nll_kernel(z, y, t_dev), calls)
-        pms = device_ms(lambda: ref.calib_nll_ref(z, y, t_dev), calls)
+        ms = device_ms(lambda i: calib_nll.calib_nll_kernel(z, y, t_dev), calls)
+        pms = device_ms(lambda i: ref.calib_nll_ref(z, y, t_dev), calls)
+        extra = {"launch_floor_ms": floor_ms} if vocab == 10 else {}
         record("calib_nll", str(shape), max(maxdiff(a, b) for a, b in zip(s_got, s_want)),
-               ms, pms, nbytes, 10.0 * rows * vocab, path=(shape == (2000, 10)))
+               ms, pms, nbytes, 10.0 * rows * vocab, path=(shape == (2000, 10)), **extra)
     # the kernel Newton fit against the plain fitter on a planted T* = 2.5
     zn = (rng.standard_normal((2000, 10)) * 3).astype(np.float32)
     p = np.exp(zn / 2.5)
@@ -222,9 +293,15 @@ def main() -> int:
     zero_half[:, 256:] = rng.standard_normal((8, 256)) * 3
     nonfinite = (rng.standard_normal((8, 512)) * 3).astype(np.float32)
     nonfinite[0, 5], nonfinite[3, 200], nonfinite[7, 300] = np.inf, -np.inf, np.nan
+    # the path's payloads at full and at the served refused size m = 252,
+    # a ragged last group (3, 700), rows that are not 16-byte aligned
+    # (5, 301: cols % 4 != 0), an all-zero group and inf/nan inputs
     codec_cases = [((512, 16, 16, 64), 1, None), ((512, 16, 16, 64), 2, None),
+                   ((252, 16, 16, 64), 1, None), ((252, 16, 16, 64), 2, None),
                    ((256, 8, 8, 96), 1, None), ((256, 8, 8, 96), 2, None),
+                   ((252, 8, 8, 96), 1, None), ((252, 8, 8, 96), 2, None),
                    ((3, 700), 1, None), ((3, 700), 2, None),
+                   ((5, 301), 1, None), ((5, 301), 2, None),
                    ((8, 512), 2, zero_half), ((8, 512), 1, nonfinite), ((8, 512), 2, nonfinite)]
     for shape, level, fixed in codec_cases:
         xn = fixed if fixed is not None else (rng.standard_normal(shape) * 3).astype(np.float32)
@@ -241,18 +318,30 @@ def main() -> int:
         assert bits_equal(out, rout), f"K4 floats differ at {shape} level {level}"
         assert torch.isfinite(out).all()
         if fixed is None and shape[0] == 512:
+            # L2-warm: the same buffers every call;
+            # L2-cold: inputs rotate over sets and every output is fresh
             wbytes = words.numel() * 4 + scales.numel() * 4
             nbytes = rows * cols * 4 + wbytes
-            calls = calls_for(nbytes)
+            sets, calls = cold_plan(nbytes)
+            xs = [x] + [torch.randn_like(x) * 3 for _ in range(sets - 1)]
+            encs = [(words, scales)] + [compress.encode_kernel(xi.reshape(rows, cols), bits)
+                                        for xi in xs[1:]]
             case = f"{shape} level {level}"
+            enc_warm = device_ms(lambda i: compress.encode_kernel(x2, bits), calls_for(nbytes))
+            dec_warm = device_ms(lambda i: compress.decode_kernel(words, scales, cols, bits),
+                                 calls_for(nbytes))
             record("encode", case, 0.0,
-                   device_ms(lambda: compress.encode_kernel(x2, bits), calls),
-                   device_ms(lambda: ref.encode_codec_ref(x, level), calls),
-                   nbytes, 5.0 * rows * cols, path=(level == 2))
+                   device_ms(lambda i: compress.encode_kernel(xs[i % sets].reshape(rows, cols),
+                                                              bits), calls, keep=True),
+                   device_ms(lambda i: ref.encode_codec_ref(xs[i % sets], level), calls,
+                             keep=True),
+                   nbytes, 5.0 * rows * cols, path=(level == 2), warm_ms=enc_warm)
             record("decode", case, 0.0,
-                   device_ms(lambda: compress.decode_kernel(words, scales, cols, bits), calls),
-                   device_ms(lambda: ref.decode_codec_ref(words, scales, shape, level), calls),
-                   nbytes, 3.0 * rows * cols, path=(level == 2))
+                   device_ms(lambda i: compress.decode_kernel(*encs[i % sets], cols, bits),
+                             calls, keep=True),
+                   device_ms(lambda i: ref.decode_codec_ref(*encs[i % sets], shape, level),
+                             calls, keep=True),
+                   nbytes, 3.0 * rows * cols, path=(level == 2), warm_ms=dec_warm)
     print(f"[kernels] codec bit-exact on {len(codec_cases)} cases (words, scales, floats)")
 
     # ---------------------------------------------------------------- 4
@@ -291,6 +380,7 @@ def main() -> int:
           f"(offload probs {[round(c.offload_prob, 4) for c in cands]}); JSON round trip ok")
 
     test_y = data.test_y
+    offload_rates = {}
     for branch, level in [(1, 0), (1, 1), (1, 2), (2, 2)]:
         engine = convnet_engine(params, plan.with_compression(level), branch=branch,
                                 use_kernel=True)
@@ -320,12 +410,15 @@ def main() -> int:
               f"(edge {1e3 * st.edge_time_s / len(res):.3f}, cloud "
               f"{1e3 * st.cloud_time_s / len(res):.3f}) launches {delta}")
         assert 0.0 < st.offload_rate < 1.0
+        offload_rates[branch, level] = st.offload_rate
         assert st.payload_bytes == want, (st.payload_bytes, want)
         assert delta["exit_gate"] >= len(res)
         if level == 0:
             assert delta["encode"] == delta["decode"] == 0
         else:
             assert delta["encode"] >= 1 and delta["decode"] >= 1
+    # the gate runs before the codec, so the level cannot move who offloads
+    assert offload_rates[1, 0] == offload_rates[1, 1] == offload_rates[1, 2], offload_rates
     torch.cuda.synchronize()
     launches = {n: k.launches for n, k in kernels.items()}
     print(f"[serving] main path in {time.perf_counter() - t_path:.2f} s; launches {launches}")

@@ -17,15 +17,22 @@
 //
 // Bound on H100: bytes. Encode reads 4 B per feature and writes bits/8 B
 // plus 4 B per 128 features; decode the reverse. The arithmetic is a
-// handful of flops per value.
+// handful of integer ops and one multiply per value. Decode moves 4 B of
+// output per value against bits/8 B of input, so its speed is the speed of
+// its stores: they have to reach the memory as whole 32-byte sectors.
 //
 // Design. Encode: one warp per (row, group), four consecutive values per
 // lane; the absmax is a shuffle-max across the warp. int8: each lane's
 // four values are one word. int4: a word holds eight values, so lanes 2j
 // and 2j+1 OR their halves together with one shuffle and the even lane
-// stores. Decode: one thread per word; shift, mask, sign-extend
-// (u >= half ? u - full : u), then (float)v * scale, storing only the
-// `cols` live features so the output needs no slice.
+// stores. Decode mirrors it: one warp per (row, group), each lane unpacking
+// its four features (shift the field to the top, arithmetic shift back to
+// sign-extend, then (float)q * scale) and writing them as one float4, so a
+// warp store is 512 contiguous bytes. `bits` is a template parameter, so
+// the unpack is straight-line code, and the row comes from blockIdx.y, so
+// no thread divides. Only the `cols` live features are stored, so the
+// output needs no slice; a row start that is not 16-byte aligned
+// (cols % 4 != 0) takes a second instantiation with scalar stores.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -34,7 +41,7 @@ namespace {
 
 constexpr int kTile = 128;
 constexpr int kWarpsPerBlock = 8;
-constexpr int kDecodeThreads = 256;
+constexpr int kMaxGridY = 65535;
 constexpr unsigned kFull = 0xffffffffu;
 
 __global__ void encode_kernel(const float* __restrict__ x, int rows, int cols, int groups,
@@ -86,27 +93,55 @@ __global__ void encode_kernel(const float* __restrict__ x, int rows, int cols, i
   if (lane == 0) scales[static_cast<int64_t>(row) * groups + g] = scale;
 }
 
-__global__ void decode_kernel(const uint32_t* __restrict__ words,
-                              const float* __restrict__ scales, int rows, int cols,
-                              int groups, int bits, float* __restrict__ out) {
-  const int words_per_row = groups * kTile * bits / 32;
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= static_cast<int64_t>(rows) * words_per_row) return;
-  const int row = static_cast<int>(t / words_per_row);
-  const int j = static_cast<int>(t % words_per_row);
-  const int per = 32 / bits;
-  const int c0 = j * per;  // a word never straddles two groups
-  const uint32_t w = words[t];
-  const float s = scales[static_cast<int64_t>(row) * groups + c0 / kTile];
-  const int half = 1 << (bits - 1), full = 1 << bits;
-  const uint32_t mask = static_cast<uint32_t>(full - 1);
-  float* orow = out + static_cast<int64_t>(row) * cols;
-  for (int k = 0; k < per; ++k) {
-    const int c = c0 + k;
-    if (c >= cols) break;
-    const int u = static_cast<int>((w >> (bits * k)) & mask);
-    const int q = u >= half ? u - full : u;
-    orow[c] = static_cast<float>(q) * s;
+// Lane l owns features 4l..4l+3 of group g. int8: it unpacks word l of the
+// group. int4: lanes 2j and 2j+1 share word j (one 64-byte load for the
+// warp) and take its low and high half. The scale is a broadcast load.
+template <int kBits, bool kVec>
+__global__ void __launch_bounds__(32 * kWarpsPerBlock)
+decode_kernel(const uint32_t* __restrict__ words, const float* __restrict__ scales, int rows,
+              int cols, int groups, float* __restrict__ out) {
+  constexpr int kWordsPerGroup = kTile * kBits / 32;
+  const int lane = threadIdx.x & 31;
+  const int g = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (g >= groups) return;  // whole warps leave together
+  const int c0 = g * kTile + lane * 4;
+  const int j = g * kWordsPerGroup + (kBits == 8 ? lane : lane >> 1);
+  const int pos0 = (kBits == 8) ? 0 : 16 * (lane & 1);  // bit offset of feature c0
+  const int64_t words_per_row = static_cast<int64_t>(groups) * kWordsPerGroup;
+  for (int row = blockIdx.y; row < rows; row += gridDim.y) {
+    const uint32_t w = words[row * words_per_row + j];
+    const float s = scales[static_cast<int64_t>(row) * groups + g];
+    float v[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      // lift the field to bit 31, then an arithmetic shift sign-extends it
+      const int q = static_cast<int>(w << (32 - kBits - pos0 - kBits * k)) >> (32 - kBits);
+      v[k] = __fmul_rn(static_cast<float>(q), s);  // one IEEE multiply, as the oracle
+    }
+    float* o = out + static_cast<int64_t>(row) * cols + c0;
+    if (kVec) {
+      if (c0 < cols) *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (c0 + k < cols) o[k] = v[k];
+      }
+    }
+  }
+}
+
+template <int kBits>
+void launch_decode(const uint32_t* words, const float* scales, int rows, int cols, int groups,
+                   float* out, cudaStream_t stream) {
+  const dim3 grid((groups + kWarpsPerBlock - 1) / kWarpsPerBlock,
+                  static_cast<unsigned>(rows < kMaxGridY ? rows : kMaxGridY));
+  const bool vec = cols % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  if (vec) {
+    decode_kernel<kBits, true><<<grid, 32 * kWarpsPerBlock, 0, stream>>>(words, scales, rows,
+                                                                          cols, groups, out);
+  } else {
+    decode_kernel<kBits, false><<<grid, 32 * kWarpsPerBlock, 0, stream>>>(words, scales, rows,
+                                                                           cols, groups, out);
   }
 }
 
@@ -135,10 +170,14 @@ extern "C" int repro_decode(const void* words, const void* scales, int rows, int
   if (rows <= 0 || cols <= 0) return static_cast<int>(cudaSuccess);
   if (bits != 8 && bits != 4) return static_cast<int>(cudaErrorInvalidValue);
   const int groups = (cols + kTile - 1) / kTile;
-  const int64_t n = static_cast<int64_t>(rows) * groups * kTile * bits / 32;
-  const dim3 grid(static_cast<unsigned>((n + kDecodeThreads - 1) / kDecodeThreads));
-  decode_kernel<<<grid, kDecodeThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(words), static_cast<const float*>(scales), rows, cols,
-      groups, bits, static_cast<float*>(out));
+  const auto* w = static_cast<const uint32_t*>(words);
+  const auto* sc = static_cast<const float*>(scales);
+  auto* o = static_cast<float*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bits == 8) {
+    launch_decode<8>(w, sc, rows, cols, groups, o, st);
+  } else {
+    launch_decode<4>(w, sc, rows, cols, groups, o, st);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -54,6 +54,14 @@ def _assert_gate_close(got, want):
     ((17, 700), 0.25),
     ((64, 10), 2.0),      # the serving gate's class count
     ((2, 3, 130), 1.3),   # leading dims
+    # the edges of the CUDA kernel's layouts (lane groups up to 32 columns,
+    # a warp per row up to 1024, a block per row above), odd widths that
+    # leave rows unaligned, and fewer rows than a block holds
+    ((3, 1), 1.3),
+    ((5, 32), 1.3),
+    ((5, 33), 1.3),
+    ((3, 1025), 1.3),
+    ((4, 4097), 1.3),
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_exit_gate_plain_matches_pallas(shape, temp, dtype):
@@ -77,6 +85,27 @@ def test_exit_gate_extreme_logits_and_ties():
     assert pred.tolist() == [0, 5, 0]
     np.testing.assert_allclose(conf[0].item(), 1.0, atol=1e-6)
     _assert_gate_close((conf, pred, ent), jops.exit_gate(jnp.asarray(z), 1.0))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_exit_gate_cross_warp_tie(dtype):
+    """Row 3 ties at columns 7 and 4000 of an 8193-wide row: in the kernel's
+    block-per-row layout they fall to different warps, and the lower index
+    must win the merge. Row 4 holds x1 < x2, neighbouring float32 values
+    whose quotients by T round to one value: the argmax is over z/T, so
+    x1's lower column wins."""
+    z = _rand((5, 8193), seed=12, scale=6.0)
+    z[3, [7, 4000]] = 50.0
+    xs = (np.float32(42.0).view(np.uint32) + np.arange(64, dtype=np.uint32)).view(np.float32)
+    q = xs / np.float32(1.3)
+    k = int(np.flatnonzero(q[:-1] == q[1:])[0])
+    z[4, [104, 3148]] = xs[k], xs[k + 1]
+    zt = torch.as_tensor(z).to(getattr(torch, dtype))
+    got = tops.exit_gate(zt, 1.3)
+    assert got[1][3:].tolist() == [7, 104]
+    _assert_gate_close(got, jops.exit_gate(jnp.asarray(z).astype(dtype), 1.3))
+    rconf, rent, ridx = jref.exit_gate_ref(jnp.asarray(z).astype(dtype), 1.3)
+    _assert_gate_close(got, (rconf, ridx, rent))
 
 
 # ------------------------------------------------------------------ K2
@@ -117,6 +146,8 @@ def test_fit_temperature_kernel_matches_reference():
     (8, 1536),          # aligned 2D
     (3, 700),           # ragged rows and cols
     (130,),             # 1D payload -> single row
+    (5, 301),           # cols % 4 != 0: rows not 16-byte aligned
+    (252, 8, 8, 96),    # branch 2's payload at a served refused size
 ])
 def test_codec_plain_bitexact_with_reference(level, shape):
     x = _rand(shape, seed=level * 101 + len(shape))
