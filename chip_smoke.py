@@ -19,7 +19,9 @@ Phases, each printing its own lines:
             (256,151936) and K3/K4 at (512,16384), which are L2-cold:
             inputs rotate over sets and every call writes fresh outputs,
             so over 100 MB pass between two uses of a buffer. K3/K4 print
-            their L2-warm time beside it.
+            their L2-warm time beside it. K2 at (1024,151936) reuses its
+            buffers, but its 311 MB (bf16) and 622 MB (f32) inputs are far
+            above the 50 MB L2.
 4. serving  the B-AlexNet offload path at full width with random seeded
             weights: validation logits, make_plan, a K2 temperature fit,
             select_partition, the plan's JSON round trip, and
@@ -254,25 +256,43 @@ def main() -> int:
         record("exit_gate", f"{shape} {str(dtype)[6:]}", max(maxdiff(conf, rconf), maxdiff(ent, rent)),
                ms, pms, nbytes, 6.0 * rows * vocab, path=(shape == (512, 10)), **extra)
 
-    # K2 -- calib_nll: the calibration shape, then the large-vocab check
-    for shape, temp in [((2000, 10), 2.7), ((1024, 151_936), 1.3)]:
+    # K2 -- calib_nll. The calibration shape beside the launch floor; then
+    # each layout at its edges (vocab <= 32 lane groups, 33..1024 a warp per
+    # row, above a block per row; odd widths leave rows unaligned, so the
+    # scalar head and tail run) at T 0.5 and 2.7, some in bf16; T < 0, which
+    # takes the kernel's IEEE-divide branch; then the large-vocab check in
+    # f32 and bf16 (622 and 311 MB, far above the L2, so cold in effect).
+    # z_y must equal the input bit for bit; nll per row and the Newton
+    # statistics within K2_NLL, K2_D1, K2_D2.
+    k2_edges = [(3, 1), (5, 32), (5, 33), (3, 1024), (3, 1025), (4, 4097), (5, 8193)]
+    k2_cases = ([((2000, 10), 2.7, f32)]
+                + [(shape, temp, f32) for shape in k2_edges for temp in (0.5, 2.7)]
+                + [((5, 10), 2.7, bf16), ((5, 33), 2.7, bf16), ((3, 1025), 0.5, bf16),
+                   ((5, 8193), 2.7, bf16), ((16, 10), -1.5, f32), ((3, 1025), -0.8, f32),
+                   ((1024, 151_936), 1.3, f32), ((1024, 151_936), 1.3, bf16)])
+    for shape, temp, dtype in k2_cases:
         rows, vocab = shape
-        z = torch.as_tensor((rng.standard_normal(shape) * 4).astype(np.float32), device=cuda)
+        big = vocab == 151_936
+        z = torch.as_tensor((rng.standard_normal(shape) * 4).astype(np.float32),
+                            device=cuda).to(dtype)
         y = torch.as_tensor(rng.integers(0, vocab, rows).astype(np.int32), device=cuda)
         t_dev = torch.tensor(temp, device=cuda)
         got = calib_nll.calib_nll_kernel(z, y, t_dev)
         want = ref.calib_nll_ref(z, y, t_dev)
-        assert torch.equal(got[2], want[2]), "K2 label logit differs from the plain version"
+        case = f"{shape} {str(dtype)[6:]} T={temp}"
+        assert torch.equal(got[2], want[2]), f"K2 label logit differs from the plain one: {case}"
+        torch.testing.assert_close(got[3], want[3], **K2_NLL, msg=lambda m: f"K2 nll ({case}): {m}")
         s_got, s_want = ops.newton_stats(*got, t_dev), ops.newton_stats(*want, t_dev)
         for a, b, tol in zip(s_got, s_want, (K2_NLL, K2_D1, K2_D2)):
-            torch.testing.assert_close(a, b, **tol)
-        nbytes = rows * vocab * 4 + rows * 4 + 4 + rows * 16
+            torch.testing.assert_close(a, b, **tol, msg=lambda m: f"K2 ({case}): {m}")
+        nbytes = rows * vocab * (2 if dtype == bf16 else 4) + rows * 4 + 4 + rows * 16
         calls = calls_for(nbytes)
         ms = device_ms(lambda i: calib_nll.calib_nll_kernel(z, y, t_dev), calls)
         pms = device_ms(lambda i: ref.calib_nll_ref(z, y, t_dev), calls)
-        extra = {"launch_floor_ms": floor_ms} if vocab == 10 else {}
-        record("calib_nll", str(shape), max(maxdiff(a, b) for a, b in zip(s_got, s_want)),
-               ms, pms, nbytes, 10.0 * rows * vocab, path=(shape == (2000, 10)), **extra)
+        extra = {} if big else {"launch_floor_ms": floor_ms}
+        err = max([maxdiff(got[3], want[3])] + [maxdiff(a, b) for a, b in zip(s_got, s_want)])
+        record("calib_nll", case, err, ms, pms, nbytes, 10.0 * rows * vocab,
+               path=(shape == (2000, 10) and dtype == f32), **extra)
     # the kernel Newton fit against the plain fitter on a planted T* = 2.5
     zn = (rng.standard_normal((2000, 10)) * 3).astype(np.float32)
     p = np.exp(zn / 2.5)
@@ -284,6 +304,13 @@ def main() -> int:
     print(f"[kernels] calib_nll Newton fit: kernel T {float(t_k):.5f}  plain fitter T "
           f"{float(t_r):.5f}  (planted 2.5)")
     assert abs(float(t_k) - float(t_r)) < 0.05 and 2.2 < float(t_k) < 2.9
+    # the same fit on bf16 logits, which K2 reads as they are
+    zb = zc.to(bf16)
+    t_kb, _ = ops.fit_temperature_kernel(zb, yc)
+    t_rb, _ = fit_temperature(zb.float(), yc)
+    print(f"[kernels] calib_nll Newton fit on bf16 logits: kernel T {float(t_kb):.5f}  plain "
+          f"fitter T {float(t_rb):.5f}")
+    assert abs(float(t_kb) - float(t_rb)) < 0.05 and 2.2 < float(t_kb) < 2.9
 
     # K3 / K4 -- codec, bit-exact on words, scales and decoded floats
     def bits_equal(a, b):

@@ -5,7 +5,8 @@ Temperature Scaling fits T by minimizing
 Each Newton iteration needs NLL and its first two derivatives in T, which
 reduce to four streaming row statistics (E_p[z], E_p[z^2], z_y, nll) at
 p = softmax(z/T): one pass over the logits per iteration. Port of
-`repro.kernels.calib_nll.calib_nll_kernel`.
+`repro.kernels.calib_nll.calib_nll_kernel`; the CUDA source says what
+bounds it and how its design answers that.
 
 Dispatch: a CPU tensor goes to `ref.calib_nll_ref`; a CUDA tensor goes to
 the kernel or the call raises.
@@ -21,21 +22,22 @@ from repro_torch.kernels.ref import calib_nll_ref
 
 KERNEL = _build.Kernel(
     "calib_nll",
-    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+    [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
 )
 
 
 def calib_nll_kernel(logits: torch.Tensor, labels: torch.Tensor, temperature):
-    """logits (rows, vocab) float32, labels (rows,) int32 with values in
-    [0, vocab), temperature a scalar or a one-element float32 tensor (on
-    the card it stays there, so a Newton loop never syncs).
+    """logits (rows, vocab) float32 (on the card bfloat16 too, read as it
+    is), labels (rows,) int32 with values in [0, vocab), temperature a
+    scalar or a one-element float32 tensor (on the card it stays there, so
+    a Newton loop never syncs).
 
     Returns (e1, e2, zy, nll), each (rows,) float32.
     """
     if logits.device.type == "cpu":
         return calib_nll_ref(logits, labels, temperature)
-    _build.check_cuda_tensor(logits, "logits", (torch.float32,), 2)
+    _build.check_cuda_tensor(logits, "logits", (torch.float32, torch.bfloat16), 2)
     _build.check_cuda_tensor(labels, "labels", (torch.int32,), 1)
     rows, vocab = logits.shape
     if labels.shape[0] != rows:
@@ -44,6 +46,6 @@ def calib_nll_kernel(logits: torch.Tensor, labels: torch.Tensor, temperature):
         raise ValueError(f"calib_nll takes 1 <= vocab and dims < 2^31, got {tuple(logits.shape)}")
     t = torch.as_tensor(temperature, dtype=torch.float32, device=logits.device).reshape(1)
     outs = [torch.empty(rows, dtype=torch.float32, device=logits.device) for _ in range(4)]
-    KERNEL(logits.device, logits.data_ptr(), labels.data_ptr(), t.data_ptr(), rows, vocab,
-           *(o.data_ptr() for o in outs))
+    KERNEL(logits.device, logits.data_ptr(), int(logits.dtype == torch.bfloat16),
+           labels.data_ptr(), t.data_ptr(), rows, vocab, *(o.data_ptr() for o in outs))
     return tuple(outs)

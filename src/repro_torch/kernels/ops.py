@@ -28,6 +28,14 @@ def exit_gate(logits, temperature=1.0, device=None):
     return conf.reshape(lead), idx.reshape(lead), ent.reshape(lead)
 
 
+def _calib_logits(logits, device):
+    """K2's logits: float32, except that a bfloat16 CUDA tensor stays
+    bfloat16, which the kernel reads natively."""
+    if isinstance(logits, torch.Tensor) and logits.is_cuda and logits.dtype == torch.bfloat16:
+        return logits.contiguous()
+    return as_tensor(logits, device, torch.float32).contiguous()
+
+
 def calib_stats(logits, labels, temperature, device=None):
     """One-pass Newton statistics for Temperature Scaling over (N, vocab)
     validation logits: returns (nll_mean, dNLL/dT, d2NLL/dT2).
@@ -35,7 +43,7 @@ def calib_stats(logits, labels, temperature, device=None):
         dNLL/dT   = mean (z_y - E_p[z]) / T^2
         d2NLL/dT2 = mean [ -2 (z_y - E_p[z]) / T^3 + Var_p[z] / T^4 ]
     """
-    z = as_tensor(logits, device, torch.float32).contiguous()
+    z = _calib_logits(logits, device)
     y = as_tensor(labels, z.device).to(device=z.device, dtype=torch.int32).contiguous()
     return newton_stats(*calib_nll_kernel(z, y, temperature), temperature)
 
@@ -55,7 +63,7 @@ def fit_temperature_kernel(logits, labels, t0=1.0, iters: int = 25,
     `iters` steps, each clipped to +-T/2, T clipped to [t_min, t_max].
     T stays a device scalar, so the loop never waits on the host.
     Returns (T, nll at the last step's input T), both 0-d tensors."""
-    z = as_tensor(logits, device, torch.float32).contiguous()
+    z = _calib_logits(logits, device)
     y = as_tensor(labels, z.device).to(device=z.device, dtype=torch.int32).contiguous()
     t = torch.full((), float(t0), dtype=torch.float32, device=z.device)
     nll = torch.full((), float("nan"), dtype=torch.float32, device=z.device)

@@ -9,6 +9,9 @@ dNLL/dT rtol 5e-3 / atol 1e-5, d2NLL/dT2 rtol 5e-3 / atol 1e-3, the
 kernel Newton fit within 0.05; the codec bit-exact on words, scales and
 decoded floats.
 """
+import ctypes
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,7 +21,10 @@ import torch
 from repro.kernels import compress as jcompress
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro_torch.kernels import _build
+from repro_torch.kernels import calib_nll as tcalib_nll
 from repro_torch.kernels import compress as tcompress
+from repro_torch.kernels import exit_gate as texit_gate
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 
@@ -123,6 +129,55 @@ def test_calib_stats_plain_matches_pallas(rows, vocab, temp):
     for a, b in zip(tref.calib_nll_ref(torch.as_tensor(z), torch.as_tensor(y), temp),
                     jref.calib_nll_ref(jnp.asarray(z), jnp.asarray(y), temp)):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5, atol=1e-4)
+
+
+def _assert_calib_close(got, want):
+    for a, b, tol in zip(got, want, [dict(rtol=1e-5, atol=1e-6), dict(rtol=5e-3, atol=1e-5),
+                                     dict(rtol=5e-3, atol=1e-3)]):
+        np.testing.assert_allclose(float(a), float(b), **tol)
+
+
+# the edges of the CUDA kernel's layouts, as for K1: lane groups up to 32
+# columns, a warp per row up to 1024, a block per row above; odd widths
+# leave rows unaligned
+@pytest.mark.parametrize("rows,vocab", [(3, 1), (5, 32), (5, 33), (3, 1024), (3, 1025),
+                                        (4, 4097)])
+@pytest.mark.parametrize("temp", [0.5, 2.7])
+def test_calib_stats_layout_edges_match_pallas(rows, vocab, temp):
+    rng = np.random.default_rng(rows * 7919 + vocab)
+    z = (rng.standard_normal((rows, vocab)) * 4).astype(np.float32)
+    y = rng.integers(0, vocab, rows).astype(np.int32)
+    got = tops.calib_stats(torch.as_tensor(z), torch.as_tensor(y), temp)
+    _assert_calib_close(got, jops.calib_stats(jnp.asarray(z), jnp.asarray(y), temp))
+
+
+@pytest.mark.parametrize("rows,vocab", [(2000, 10), (3, 1025)])
+def test_calib_stats_bf16_matches_pallas(rows, vocab):
+    """One bfloat16 array through both packages: the Pallas kernel casts
+    in its body, the port's plain path casts before it."""
+    rng = np.random.default_rng(rows + vocab)
+    z = torch.as_tensor((rng.standard_normal((rows, vocab)) * 4).astype(np.float32))
+    zb = z.to(torch.bfloat16)
+    y = rng.integers(0, vocab, rows).astype(np.int32)
+    zj = jnp.asarray(zb.float().numpy()).astype(jnp.bfloat16)
+    got = tops.calib_stats(zb, torch.as_tensor(y), 1.7)
+    _assert_calib_close(got, jops.calib_stats(zj, jnp.asarray(y), 1.7))
+
+
+_C_TYPES = {"int": ctypes.c_int, "float": ctypes.c_float}
+
+
+@pytest.mark.parametrize("kernel", [texit_gate.KERNEL, tcalib_nll.KERNEL, tcompress.ENCODE,
+                                    tcompress.DECODE], ids=lambda k: k.name)
+def test_launcher_argtypes_match_c_interface(kernel):
+    """Each ctypes binding lists the exported C function's parameters, in
+    order: a pointer as c_void_p, an int as c_int, a float as c_float."""
+    text = "".join(p.read_text() for p in sorted(_build.CSRC.glob("*.cu")))
+    found = re.findall(r'extern "C" int ' + kernel.symbol + r"\(([^)]*)\)", text)
+    assert len(found) == 1, f"{kernel.symbol} is not exported once"
+    params = [" ".join(p.split()) for p in found[0].split(",")]
+    want = [ctypes.c_void_p if "*" in p else _C_TYPES[p.rsplit(" ", 1)[0]] for p in params]
+    assert kernel.argtypes == want, (params, kernel.argtypes)
 
 
 def test_fit_temperature_kernel_matches_reference():
