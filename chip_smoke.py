@@ -22,16 +22,39 @@ Phases, each printing its own lines:
             their L2-warm time beside it. K2 at (1024,151936) reuses its
             buffers, but its 311 MB (bf16) and 622 MB (f32) inputs are far
             above the 50 MB L2.
-4. serving  the B-AlexNet offload path at full width with random seeded
-            weights: validation logits, make_plan, a K2 temperature fit,
-            select_partition, the plan's JSON round trip, and
-            convnet_engine(...).infer over 8 batches of 512 at codec
-            levels 0/1/2 on branch 1 and level 2 on branch 2. The launch
-            counts are set to 0 just before and read just after; every
-            kernel must have run. edge_forward on the card is held
-            against the same port on the CPU.
-5. result   one JSON line with every kernel's numbers, the nvidia-smi
+            The codec also runs bit-exact at the (n, 10) logit shapes
+            of rescore_plan's codec axis: (3000, 10) and (7000, 10).
+4. train    B-AlexNet at full width trained with the BranchyNet joint
+            loss on cifar_like(seed=0) (45 000 / 3 000 / 7 000), the twin
+            of benchmarks/paper_common.train_and_collect: 6 epochs at
+            batch 256, AdamW lr 2e-3, warmup 200, no weight decay. Prints
+            the loss per epoch, ms per train step and each exit's val /
+            test accuracy (argmax from K1), and a profile of 5 more steps
+            (kernel time and launches per step, the top kernels).
+5. serving  the offload path with the TRAINED weights: make_plan, a K2
+            temperature fit, select_partition, the plan's JSON round
+            trip, and convnet_engine(...).infer over 8 batches of 512 at
+            codec levels 0/1/2 on branch 1 and level 2 on branch 2.
+            edge_forward on the card is held against the same port on
+            the CPU, on the trained and on the seeded initial weights,
+            to an atol derived from each output's scale.
+6. paper    the paper's findings on the trained logits: T per exit by the
+            plain fit and by the K2 Newton fit, ECE of branch 1 before and
+            after, conventional against calibrated gating at p_tar 0.75,
+            0.85, 0.9, and the missed-deadline curves of simulate_batches
+            at one and two branches, with the fixed link and a Markov one.
+7. bank     the distortion bank: val / test distorted over
+            default_contexts, fit_bank with input_features, the "torch"
+            gate backend against "numpy" (bank blocks, also with vector-
+            scaled experts, plan blocks, GateTable,
+            window_gate_cells) and rescore_plan over codec levels 0/1/2.
+8. result   one JSON line with every kernel's numbers, the nvidia-smi
             line, and last {"ok": true, "device": {...}}.
+
+Phases 4-7 are the main path: each sets the launch counts to 0 just
+before it and reads them just after, and fails if a kernel of its path
+did not run (train: K1; serving: K1-K4; paper: K1, K2; bank: K1, K3,
+K4). Every line that prints a time names the card and its power limit.
 
 Any failure raises, so the process exits non-zero and prints no result;
 without a GPU it exits 2 before doing anything. Imports neither jax nor
@@ -63,6 +86,15 @@ K2_NLL = dict(rtol=1e-5, atol=1e-6)
 K2_D1 = dict(rtol=5e-3, atol=1e-5)
 K2_D2 = dict(rtol=5e-3, atol=1e-3)
 
+# benchmarks/paper_figures.py's grid of per-sample deadlines (s)
+T_TAR_GRID = [0.5e-3, 1e-3, 2e-3, 3e-3, 5e-3, 7.5e-3, 10e-3, 15e-3, 25e-3, 50e-3]
+PAPER_P_TARS = (0.75, 0.85, 0.9)
+# the kernels each main-path phase must launch
+PHASE_KERNELS = {"train": ("exit_gate",),
+                 "serving": ("exit_gate", "calib_nll", "encode", "decode"),
+                 "paper": ("exit_gate", "calib_nll"),
+                 "bank": ("exit_gate", "encode", "decode")}
+
 KERNEL_ROWS = {
     "exit_gate": ("src/repro_torch/csrc/exit_gate.cu", "src/repro/kernels/exit_gate.py:88"),
     "calib_nll": ("src/repro_torch/csrc/calib_nll.cu", "src/repro/kernels/calib_nll.py:81"),
@@ -78,6 +110,284 @@ def bound_ms(nbytes: float, flops: float):
     return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
+def _sync(dev):
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def train_phase(dev, data, epochs, batch, seed=0, say=print):
+    """Train B-AlexNet with the BranchyNet joint loss through the port's
+    entry points (the twin of benchmarks/paper_common.train_and_collect)
+    and collect every exit's val / test logits. Returns (params, logits,
+    stats)."""
+    import torch
+
+    from repro_torch.core.exits import gate_statistics
+    from repro_torch.models import convnet
+    from repro_torch.training import optim
+    from repro_torch.training.loop import make_eval_step, make_train_step
+
+    params = convnet.init_params(torch.Generator(device=dev).manual_seed(seed), device=dev)
+    ntr = len(data.train_y)
+    n_steps = epochs * (ntr // batch)
+    # no weight decay: the conventional recipe whose overconfidence the
+    # paper calibrates away
+    opt_cfg = optim.AdamWConfig(lr=2e-3, weight_decay=0.0, total_steps=n_steps,
+                                warmup_steps=200)
+    step_fn = make_train_step(convnet.B_ALEXNET, opt_cfg, device=dev)
+    state = optim.init(params)
+    train_x = torch.as_tensor(data.train_x, device=dev)
+    train_y = torch.as_tensor(data.train_y, device=dev)
+    rng = np.random.default_rng(seed)
+    stats = {"first_loss": None, "epoch_loss": [], "step_ms": [], "finite": True}
+    for ep in range(epochs):
+        order = torch.as_tensor(rng.permutation(ntr), device=dev)
+        losses, times = [], []
+        for s in range(0, ntr - batch + 1, batch):
+            t0 = time.perf_counter()
+            idx = order[s:s + batch]
+            params, state, m = step_fn(params, state,
+                                       {"images": train_x[idx], "labels": train_y[idx]})
+            _sync(dev)
+            times.append(time.perf_counter() - t0)
+            losses.append(m["loss"])
+        losses = torch.stack(losses).cpu().numpy()
+        stats["finite"] &= bool(np.isfinite(losses).all())
+        if stats["first_loss"] is None:
+            stats["first_loss"] = float(losses[0])
+        stats["epoch_loss"].append(float(losses.mean()))
+        stats["step_ms"].append(1e3 * float(np.median(times)))
+        say(f"epoch {ep}: loss mean {losses.mean():.4f} last {losses[-1]:.4f}; "
+            f"{stats['step_ms'][-1]:.3f} ms per train step (median of {len(times)})", timed=True)
+
+    eval_fn = make_eval_step(convnet.B_ALEXNET, device=dev)
+
+    def collect(x):
+        outs = [eval_fn(params, {"images": x[s:s + 512]}) for s in range(0, len(x), 512)]
+        return [torch.cat([o["exit_logits"][i] for o in outs]) for i in (0, 1)] + [
+            torch.cat([o["logits"] for o in outs])]
+
+    z = {"val": collect(data.val_x), "test": collect(data.test_x),
+         "val_y": torch.as_tensor(data.val_y, device=dev),
+         "test_y": torch.as_tensor(data.test_y, device=dev)}
+    stats["accuracy"] = {
+        f"{split}_{head}": float((gate_statistics(lg)[1] == z[f"{split}_y"]).float().mean())
+        for split in ("val", "test") for head, lg in zip(("b1", "b2", "main"), z[split])
+    }
+    say("accuracy " + " ".join(f"{k} {v:.4f}" for k, v in stats["accuracy"].items()))
+
+    if dev.type == "cuda":
+        # where a train step's time goes: 5 more steps under the profiler,
+        # whose results are dropped (the step is functional, so the trained
+        # params stay as they are). Kernel time per step against the
+        # unprofiled median step time gives the device's busy share.
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        b = {"images": train_x[:batch], "labels": train_y[:batch]}
+        p2, s2 = params, state
+        _sync(dev)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                p2, s2, _ = step_fn(p2, s2, b)
+            _sync(dev)
+        kern = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                      key=lambda e: -e.self_device_time_total)
+        busy_ms = sum(e.self_device_time_total for e in kern) / 5e3
+        stats["kernel_ms"] = busy_ms
+        say(f"profiled step: {busy_ms:.3f} ms of kernels in {sum(e.count for e in kern) / 5:.0f} "
+            f"launches per step, {busy_ms / stats['step_ms'][-1]:.1%} of the last epoch's "
+            f"median step; top: " + "; ".join(
+                f"{e.key[:48]} {e.self_device_time_total / 5e3:.3f} ms x{e.count // 5}"
+                for e in kern[:6]), timed=True)
+    return params, z, stats
+
+
+def paper_phase(dev, z, say=print):
+    """The paper's findings on trained logits; returns every printed value
+    that must lie in [0, 1] and the two temperature fits."""
+    from repro_torch.core import metrics
+    from repro_torch.core.calibration import TemperatureScaling
+    from repro_torch.core.exits import gate_statistics
+    from repro_torch.core.policy import OffloadPlan, make_plan
+    from repro_torch.kernels import ops
+    from repro_torch.offload import latency
+    from repro_torch.offload.simulator import missed_deadline_curve, simulate_batches
+    from repro_torch.serving.network import MarkovNetwork
+
+    (vb1, vb2, vm), (tb1, tb2, tm) = z["val"], z["test"]
+    vy, ty = z["val_y"], z["test_y"]
+    out = {"values": []}
+    t_plain = make_plan([vb1, vb2, vm], vy, p_tar=0.8).temperatures
+    t_k2 = [float(ops.fit_temperature_kernel(v, vy)[0]) for v in (vb1, vb2, vm)]
+    out["t_plain"], out["t_k2"] = t_plain, t_k2
+    say(f"T (branch 1, branch 2, main): make_plan's plain fit "
+        f"{[round(t, 6) for t in t_plain]}; K2 Newton fit {[round(t, 6) for t in t_k2]}")
+    t1 = t_plain[0]
+    for label, temp in (("before", 1.0), ("after", t1)):
+        conf, pred, _ = gate_statistics(tb1, temp)
+        e = metrics.ece(conf, pred == ty)
+        out["values"].append(e)
+        say(f"branch 1 test ECE {label} calibration (T={temp:.4f}): {e:.4f}")
+    for p in PAPER_P_TARS:
+        parts = []
+        for name, temp in (("conventional", 1.0), ("calibrated", t1)):
+            st = metrics.device_statistics(tb1, ty, p, temp)
+            row = [float(st["on_device_prob"]), float(st["device_accuracy"]),
+                   metrics.overall_accuracy([tb1], tm, ty, p, [temp]),
+                   metrics.inference_outage_probability(tb1, ty, p, temp)]
+            out["values"] += row
+            parts.append(f"{name}: on-device {row[0]:.4f} device-acc {row[1]:.4f} "
+                         f"overall-acc {row[2]:.4f} outage {row[3]:.4f}")
+        say(f"p_tar {p}: " + "; ".join(parts))
+    prof = latency.paper_2020()
+    p_md = 0.85
+    n_batches = -(-len(ty) // 512)
+    for branches in ((1,), (1, 2)):
+        logits = [tb1, tb2][:len(branches)]
+        plan = OffloadPlan(p_tar=p_md, calibrators=[TemperatureScaling.from_temperature(t)
+                                                    for t in t_plain[:len(branches)]])
+        runs = {
+            "conventional": simulate_batches(logits, tm, ty, p_md, [1.0] * len(branches), prof,
+                                             branches=branches),
+            "calibrated": simulate_batches(logits, tm, ty, profile=prof, branches=branches,
+                                           plan=plan),
+            "calibrated, Markov link": simulate_batches(
+                logits, tm, ty, profile=prof, branches=branches, plan=plan,
+                network=MarkovNetwork(seed=0), batch_times_s=[0.5 * k for k in range(n_batches)]),
+        }
+        for name, outcomes in runs.items():
+            curve = missed_deadline_curve(outcomes, T_TAR_GRID, p_md)
+            out["values"] += curve + [o.accuracy for o in outcomes] + [
+                o.on_device_frac for o in outcomes]
+            say(f"missed deadline, branches {branches}, p_tar {p_md}, {name}: "
+                f"{[round(c, 4) for c in curve]} over t_tar {T_TAR_GRID} s")
+    return out
+
+
+def bank_phase(dev, params, data, z, say=print):
+    """Distortion contexts, the expert bank, the "torch" gate backend held
+    against "numpy", and one rescore_plan over codec levels 0/1/2."""
+    import torch
+
+    from repro_torch.core.bank import PlanBank, fit_bank
+    from repro_torch.core.calibration import get_calibrator
+    from repro_torch.core.control import rescore_plan
+    from repro_torch.core.gatepath import GateTable, get_gate_backend
+    from repro_torch.data.distortion import apply_distortion, default_contexts, input_features
+    from repro_torch.kernels import exit_gate
+    from repro_torch.models import convnet
+    from repro_torch.offload import latency
+
+    def logits_of(x):
+        with torch.no_grad():
+            outs = [convnet.forward(params, torch.as_tensor(x[s:s + 512], device=dev))
+                    for s in range(0, len(x), 512)]
+        return ({b: torch.cat([o["exit_logits"][b - 1] for o in outs]) for b in (1, 2)},
+                torch.cat([o["logits"] for o in outs]))
+
+    t0 = time.perf_counter()
+    val_exits, val_feats, test_exits, test_final, test_feats = {}, {}, {}, {}, {}
+    for spec in default_contexts():
+        # the val / test seeds of distort_splits(seed=0)
+        vx = apply_distortion(data.val_x, spec, seed=1)
+        tx = apply_distortion(data.test_x, spec, seed=2)
+        val_feats[spec.key], test_feats[spec.key] = input_features(vx), input_features(tx)
+        val_exits[spec.key], _ = logits_of(vx)
+        test_exits[spec.key], test_final[spec.key] = logits_of(tx)
+    _sync(dev)
+    say(f"{len(val_exits)} contexts distorted (numpy) and run through the trained net in "
+        f"{time.perf_counter() - t0:.2f} s", timed=True)
+
+    vy, ty = z["val_y"], z["test_y"]
+    t0 = time.perf_counter()
+    bank = fit_bank({c: [e[1], e[2]] for c, e in val_exits.items()}, vy, p_tar=0.8,
+                    features_by_context=val_feats, device=dev)
+    _sync(dev)
+    say(f"fit_bank: {len(bank.contexts)} experts in {time.perf_counter() - t0:.3f} s; T "
+        + "; ".join(f"{c} {[round(t, 4) for t in bank.plans[c].temperatures]}"
+                    for c in bank.contexts) + f"; fit ECE {bank.metadata['fit_ece']}", timed=True)
+
+    p, boundary = bank.default_plan.p_tar, 0
+
+    def held(got, want, what):
+        nonlocal boundary
+        (tc, tp), (nc, npred) = got[:2], want[:2]
+        np.testing.assert_allclose(tc, nc, **K1_CONF, err_msg=what)
+        assert np.array_equal(tp, npred), f"{what}: predictions differ"
+        away = np.abs(nc - p) > 1e-6
+        assert np.array_equal((tc >= p)[away], (nc >= p)[away]), f"{what}: decisions differ"
+        boundary += int((~away).sum())
+
+    for ctx in bank.contexts:
+        got = bank.gate_block(test_exits[ctx][1], features=test_feats[ctx], branch=0,
+                              backend="torch")
+        want = bank.gate_block(test_exits[ctx][1], features=test_feats[ctx], branch=0,
+                               backend="numpy")
+        assert np.array_equal(got[2], want[2])
+        held(got, want, f"bank.gate_block {ctx}")
+    for bi in (0, 1):
+        held(bank.default_plan.gate_block(test_exits["clean"][bi + 1], branch=bi,
+                                          backend="torch"),
+             bank.default_plan.gate_block(test_exits["clean"][bi + 1], branch=bi,
+                                          backend="numpy"), f"plan.gate_block branch {bi + 1}")
+    # calibrators richer than a temperature stay on the card too: vector
+    # scaling on the default plan and on one expert, one K1 launch a block
+    vbank = PlanBank.from_json(bank.to_json())
+    vector_ctx = [vbank.default_context, next(c for c in vbank.contexts
+                                              if c != vbank.default_context)]
+    for ctx in vector_ctx:
+        vbank.plans[ctx].calibrators[0] = get_calibrator("vector").fit(val_exits[ctx][1], vy)
+    for ctx in vbank.contexts:
+        k1 = exit_gate.KERNEL.launches
+        got = vbank.gate_block(test_exits[ctx][1], features=test_feats[ctx], branch=0,
+                               backend="torch")
+        assert exit_gate.KERNEL.launches == k1 + 1, "a vector bank block is not one K1 launch"
+        held(got, vbank.gate_block(test_exits[ctx][1], features=test_feats[ctx], branch=0,
+                                   backend="numpy"), f"vector bank.gate_block {ctx}")
+    table = GateTable(test_exits, test_final, bank, labels=data.test_y,
+                      features_by_context=test_feats, backend="torch")
+    host = GateTable(test_exits, test_final, bank, labels=data.test_y,
+                     features_by_context=test_feats, backend="numpy")
+    np.testing.assert_allclose(table.conf, host.conf, **K1_CONF)
+    assert np.array_equal(table.pred, host.pred)
+    rng = np.random.default_rng(5)
+    n_rows = 4000
+    ctx_ids = rng.integers(0, len(table.ctx_keys), n_rows)
+    samples = rng.integers(0, table.n_samples, n_rows)
+    cells = rng.integers(0, 5, n_rows)
+    branch_by_cell, p_by_cell = [1, 2, 1, 2, 1], [0.7, 0.8, 0.85, 0.9, 0.75]
+    got = table.gate_window_cells(ctx_ids, samples, cells, branch_by_cell, p_by_cell, 5)
+    want = get_gate_backend("numpy").window_gate_cells(
+        table.conf, table.pred, ctx_ids, samples, cells,
+        [table.branch_idx(b) for b in branch_by_cell], p_by_cell, 5)
+    for k in want:
+        assert np.array_equal(got[k], want[k]), f"window_gate_cells {k} differs"
+    say(f"torch gate backend held against numpy: bank blocks in {len(bank.contexts)} contexts, "
+        f"vector-scaled experts {vector_ctx}, plan blocks at branches 1 and 2, the GateTable, window_gate_cells on {n_rows} rows "
+        f"(on-device per cell {got['on_count'].tolist()}); {boundary} samples within 1e-6 of "
+        f"p_tar left out of the decision check")
+
+    prof = latency.paper_2020()
+    (vb1, vb2, vm) = z["val"]
+    t0 = time.perf_counter()
+    new_plan, cands = rescore_plan(
+        bank.plan_for("clean"), [vb1, vb2],
+        edge_times_s=[latency.edge_time(prof, b) for b in (1, 2)],
+        cloud_times_s=[latency.cloud_time(prof, b) for b in (1, 2)],
+        payload_bytes=[latency.payload_bytes_for(b) for b in (1, 2)],
+        uplink_bps=prof.uplink_bps, labels=vy, final_logits=vm,
+        p_tar_grid=[0.75, 0.8, 0.85, 0.9], compression_levels=(0, 1, 2),
+        exit_layer_indices=[0, 1])
+    best = cands[0]
+    say(f"rescore_plan over {len(cands)} candidates (branch x p_tar x codec level) in "
+        f"{time.perf_counter() - t0:.3f} s; winner branch {new_plan.exit_index + 1} p_tar "
+        f"{new_plan.p_tar} level {new_plan.compression_level} (fastest row: latency "
+        f"{best['expected_latency_s'] * 1e3:.3f} ms, accuracy {best['accuracy']:.4f})", timed=True)
+
+
 def main() -> int:
     import torch
 
@@ -89,7 +399,6 @@ def main() -> int:
 
     from repro_torch.core import metrics
     from repro_torch.core.calibration import fit_temperature
-    from repro_torch.core.exits import gate_statistics
     from repro_torch.core.partition import select_partition
     from repro_torch.core.policy import OffloadPlan, make_plan
     from repro_torch.data.synthetic import cifar_like
@@ -110,6 +419,13 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    card = f"[{smi}]"
+
+    def sayer(tag):
+        def say(msg, timed=False):
+            print(f"[{tag}] {msg}" + (f" {card}" if timed else ""))
+        return say
+
     print(f"[device] nvidia-smi: {smi}")
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda} device {name} "
           f"count {torch.cuda.device_count()}; TF32 off")
@@ -118,7 +434,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.library()
     print(f"[build] nvcc sm_90a -> {os.path.relpath(_build.build(), ROOT)} "
-          f"in {time.perf_counter() - t0:.1f} s")
+          f"in {time.perf_counter() - t0:.1f} s {card}")
     for line in _build.build_log().splitlines():
         if "Used" in line or "spill" in line:
             print("[build] " + line.strip())
@@ -175,7 +491,8 @@ def main() -> int:
     # the launch floor: a 1-element in-place add_ in the same graph harness
     one = torch.zeros(1, device=cuda)
     floor_ms = device_ms(lambda i: one.add_(1))
-    print(f"[kernels] launch floor (1-element add_, graph replay): {floor_ms * 1e3:.2f} us")
+    print(f"[kernels] launch floor (1-element add_, graph replay): {floor_ms * 1e3:.2f} us "
+          f"{card}")
 
     def record(kernel, case, err, ms, plain_ms, nbytes, flops, path=False, **extra):
         bms, by = bound_ms(nbytes, flops)
@@ -187,7 +504,7 @@ def main() -> int:
                                     bound_ms=bms, bound_by=by)
         more = "".join(f"  {k[:-3]} {v * 1e3:.2f} us" for k, v in extra.items())
         print(f"[kernels] {kernel} {case}: max_abs_err {err:.3g}  kernel {ms * 1e3:.2f} us  "
-              f"plain {plain_ms * 1e3:.2f} us  bound {bms * 1e3:.2f} us ({by}){more}")
+              f"plain {plain_ms * 1e3:.2f} us  bound {bms * 1e3:.2f} us ({by}){more} {card}")
 
     def maxdiff(a, b):
         return float((a.double() - b.double()).abs().max())
@@ -322,14 +639,18 @@ def main() -> int:
     nonfinite[0, 5], nonfinite[3, 200], nonfinite[7, 300] = np.inf, -np.inf, np.nan
     # the path's payloads at full and at the served refused size m = 252,
     # a ragged last group (3, 700), rows that are not 16-byte aligned
-    # (5, 301: cols % 4 != 0), an all-zero group and inf/nan inputs
+    # (5, 301: cols % 4 != 0), an all-zero group and inf/nan inputs, and
+    # rescore_plan's codec axis: (n, 10) logits, one partial group per row
+    # and cols % 4 != 0
     codec_cases = [((512, 16, 16, 64), 1, None), ((512, 16, 16, 64), 2, None),
                    ((252, 16, 16, 64), 1, None), ((252, 16, 16, 64), 2, None),
                    ((256, 8, 8, 96), 1, None), ((256, 8, 8, 96), 2, None),
                    ((252, 8, 8, 96), 1, None), ((252, 8, 8, 96), 2, None),
                    ((3, 700), 1, None), ((3, 700), 2, None),
                    ((5, 301), 1, None), ((5, 301), 2, None),
-                   ((8, 512), 2, zero_half), ((8, 512), 1, nonfinite), ((8, 512), 2, nonfinite)]
+                   ((8, 512), 2, zero_half), ((8, 512), 1, nonfinite), ((8, 512), 2, nonfinite),
+                   ((3000, 10), 1, None), ((3000, 10), 2, None),
+                   ((7000, 10), 1, None), ((7000, 10), 2, None)]
     for shape, level, fixed in codec_cases:
         xn = fixed if fixed is not None else (rng.standard_normal(shape) * 3).astype(np.float32)
         x = torch.as_tensor(xn, device=cuda)
@@ -344,6 +665,16 @@ def main() -> int:
         rout = ref.decode_codec_ref(words, scales, shape, level)
         assert bits_equal(out, rout), f"K4 floats differ at {shape} level {level}"
         assert torch.isfinite(out).all()
+        if shape[1:] == (10,):  # the logit shapes, L2-warm
+            nbytes = rows * cols * 4 + words.numel() * 4 + scales.numel() * 4
+            case = f"{shape} level {level}"
+            record("encode", case, 0.0, device_ms(lambda i: compress.encode_kernel(x2, bits)),
+                   device_ms(lambda i: ref.encode_codec_ref(x, level)), nbytes, 5.0 * rows * cols,
+                   launch_floor_ms=floor_ms)
+            record("decode", case, 0.0,
+                   device_ms(lambda i: compress.decode_kernel(words, scales, cols, bits)),
+                   device_ms(lambda i: ref.decode_codec_ref(words, scales, shape, level)),
+                   nbytes, 3.0 * rows * cols, launch_floor_ms=floor_ms)
         if fixed is None and shape[0] == 512:
             # L2-warm: the same buffers every call;
             # L2-cold: inputs rotate over sets and every output is fresh
@@ -372,98 +703,155 @@ def main() -> int:
     print(f"[kernels] codec bit-exact on {len(codec_cases)} cases (words, scales, floats)")
 
     # ---------------------------------------------------------------- 4
-    data = cifar_like(n_train=64, n_val=2000, n_test=4096, seed=1)
-    params = convnet.init_params(torch.Generator(device=cuda).manual_seed(0), device=cuda)
-    val_x = torch.as_tensor(data.val_x, device=cuda)
-    val_y = torch.as_tensor(data.val_y, device=cuda)
-    test_x = torch.as_tensor(data.test_x, device=cuda)
-    with torch.no_grad():
-        outs = [convnet.forward(params, val_x[i:i + 512]) for i in range(0, len(val_x), 512)]
-    v1 = torch.cat([o["exit_logits"][0] for o in outs])
-    v2 = torch.cat([o["exit_logits"][1] for o in outs])
-    profile = latency.paper_2020()
+    phase_launches = {}
 
-    for k in kernels.values():
-        k.launches = 0
-    t_path = time.perf_counter()
-    plan = make_plan([v1, v2], val_y, p_tar=0.8)
-    t_fit, _ = ops.fit_temperature_kernel(v1, val_y)  # calibrating on the card: K2
-    print(f"[serving] temperatures {plan.temperatures}; K2 Newton fit of branch 1 "
-          f"{float(t_fit):.5f}")
-    assert abs(float(t_fit) - plan.temperatures[0]) < 0.05
-    conf1, _, _ = gate_statistics(v1, plan.temperatures[0])
-    plan = plan.with_p_tar(float(np.median(conf1.cpu().numpy())))
-    plan, cands = select_partition(
-        plan, [v1, v2],
-        edge_times_s=[latency.edge_time(profile, b) for b in (1, 2)],
-        cloud_times_s=[latency.cloud_time(profile, b) for b in (1, 2)],
-        payload_bytes=[latency.payload_bytes_for(b) for b in (1, 2)],
-        exit_layer_indices=[0, 1], uplink_bps=profile.uplink_bps,
-    )
-    text = plan.to_json()
-    plan = OffloadPlan.from_json(text)
-    assert plan.to_json() == text
-    print(f"[serving] p_tar {plan.p_tar:.6f}; partition exit {plan.exit_index} "
-          f"(offload probs {[round(c.offload_prob, 4) for c in cands]}); JSON round trip ok")
-
-    test_y = data.test_y
-    offload_rates = {}
-    for branch, level in [(1, 0), (1, 1), (1, 2), (2, 2)]:
-        engine = convnet_engine(params, plan.with_compression(level), branch=branch,
-                                use_kernel=True)
-        engine.infer({"images": test_x[:512]})  # warm-up: cuDNN picks its algorithms
-        engine.stats = EngineStats()
-        before = {n: k.launches for n, k in kernels.items()}
+    def run_phase(phase, fn):
+        """Drive one main-path phase with the launch counts set to 0 just
+        before it and read just after; every kernel of its path must run."""
+        torch.cuda.synchronize()
+        for k in kernels.values():
+            k.launches = 0
         t0 = time.perf_counter()
-        res = [engine.infer({"images": test_x[i:i + 512]}) for i in range(0, len(test_x), 512)]
-        wall = time.perf_counter() - t0
-        pred = np.concatenate([r["prediction"] for r in res])
-        conf = np.concatenate([r["confidence"] for r in res])
-        on_dev = np.concatenate([r["on_device"] for r in res])
-        assert pred.shape == conf.shape == on_dev.shape == test_y.shape and np.isfinite(conf).all()
-        correct = pred == test_y
-        outage = np.mean([
-            bool(m.any()) and (c[m].mean() < plan.p_tar)
-            for m, c in zip(on_dev.reshape(-1, metrics.PAPER_OUTAGE_BATCH),
-                            correct.reshape(-1, metrics.PAPER_OUTAGE_BATCH))
-        ])
-        st = engine.stats
-        want = st.offloaded * compress.scaled_payload_nbytes(convnet.payload_bytes(branch), level)
-        delta = {n: k.launches - before[n] for n, k in kernels.items()}
-        print(f"[serving] branch {branch} level {level}: offload_rate {st.offload_rate:.4f} "
-              f"accuracy {correct.mean():.4f} ece {metrics.ece(conf, correct):.4f} "
-              f"on_device_prob {on_dev.mean():.4f} outage {outage:.3f} "
-              f"payload_bytes {st.payload_bytes} infer {1e3 * wall / len(res):.3f} ms/batch "
-              f"(edge {1e3 * st.edge_time_s / len(res):.3f}, cloud "
-              f"{1e3 * st.cloud_time_s / len(res):.3f}) launches {delta}")
-        assert 0.0 < st.offload_rate < 1.0
-        offload_rates[branch, level] = st.offload_rate
-        assert st.payload_bytes == want, (st.payload_bytes, want)
-        assert delta["exit_gate"] >= len(res)
-        if level == 0:
-            assert delta["encode"] == delta["decode"] == 0
-        else:
-            assert delta["encode"] >= 1 and delta["decode"] >= 1
-    # the gate runs before the codec, so the level cannot move who offloads
-    assert offload_rates[1, 0] == offload_rates[1, 1] == offload_rates[1, 2], offload_rates
-    torch.cuda.synchronize()
-    launches = {n: k.launches for n, k in kernels.items()}
-    print(f"[serving] main path in {time.perf_counter() - t_path:.2f} s; launches {launches}")
-    missing = [n for n, c in launches.items() if c == 0]
-    assert not missing, f"kernels never launched on the main path: {missing}"
+        out = fn(sayer(phase))
+        torch.cuda.synchronize()
+        counts = {n: k.launches for n, k in kernels.items()}
+        phase_launches[phase] = counts
+        print(f"[{phase}] phase in {time.perf_counter() - t0:.2f} s; launches {counts} {card}")
+        missing = [n for n in PHASE_KERNELS[phase] if counts[n] == 0]
+        assert not missing, f"kernels never launched on the {phase} path: {missing}"
+        return out
 
-    cpu_params = pytree.tree_map(lambda x: x.cpu(), params)
-    with torch.no_grad():
-        for branch in (1, 2):
-            lg, pl = convnet.edge_forward(params, test_x[:64], branch=branch)
-            lc, pc = convnet.edge_forward(cpu_params, test_x[:64].cpu(), branch=branch)
-            torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-5)
-            torch.testing.assert_close(pl.cpu(), pc, rtol=1e-4, atol=1e-5)
-            assert pl.is_contiguous() and tuple(pl.shape[1:]) == ((16, 16, 64) if branch == 1
-                                                                 else (8, 8, 96))
-    print("[serving] edge_forward on the card matches the CPU port (rtol 1e-4, atol 1e-5)")
+    t0 = time.perf_counter()
+    data = cifar_like(seed=0)
+    print(f"[train] cifar_like(seed=0): {len(data.train_y)} / {len(data.val_y)} / "
+          f"{len(data.test_y)} images made (numpy) in {time.perf_counter() - t0:.2f} s {card}")
+    params, z, tstats = run_phase("train", lambda say: train_phase(cuda, data, 6, 256, say=say))
+    assert tstats["finite"], "a training loss is not finite"
+    assert tstats["epoch_loss"][-1] < tstats["first_loss"], tstats
+    # two runs on the card and the reference's CPU run of the same recipe
+    # all reached 0.85-0.87 on every exit; 0.8 leaves room for cuDNN's
+    # run-to-run freedom and still fails a training that went wrong
+    low = {k: v for k, v in tstats["accuracy"].items() if k.startswith("test") and v < 0.8}
+    assert not low, f"exits below 0.8 test accuracy: {low}"
 
     # ---------------------------------------------------------------- 5
+    (v1, v2, _), val_y = z["val"], z["val_y"]
+    test_x = torch.as_tensor(data.test_x[:4096], device=cuda)
+    test_y = data.test_y[:4096]
+    profile = latency.paper_2020()
+
+    def serving(say):
+        plan = make_plan([v1, v2], val_y, p_tar=0.8)
+        t_fit, _ = ops.fit_temperature_kernel(v1, val_y)  # calibrating on the card: K2
+        say(f"temperatures {plan.temperatures}; K2 Newton fit of branch 1 {float(t_fit):.5f}")
+        assert abs(float(t_fit) - plan.temperatures[0]) < 0.05
+        plan, cands = select_partition(
+            plan, [v1, v2],
+            edge_times_s=[latency.edge_time(profile, b) for b in (1, 2)],
+            cloud_times_s=[latency.cloud_time(profile, b) for b in (1, 2)],
+            payload_bytes=[latency.payload_bytes_for(b) for b in (1, 2)],
+            exit_layer_indices=[0, 1], uplink_bps=profile.uplink_bps,
+        )
+        text = plan.to_json()
+        plan = OffloadPlan.from_json(text)
+        assert plan.to_json() == text
+        say(f"p_tar {plan.p_tar:.6f}; partition exit {plan.exit_index} "
+            f"(offload probs {[round(c.offload_prob, 4) for c in cands]}); JSON round trip ok")
+        offload_rates = {}
+        for branch, level in [(1, 0), (1, 1), (1, 2), (2, 2)]:
+            engine = convnet_engine(params, plan.with_compression(level), branch=branch,
+                                    use_kernel=True)
+            engine.infer({"images": test_x[:512]})  # warm-up: cuDNN picks its algorithms
+            engine.stats = EngineStats()
+            before = {n: k.launches for n, k in kernels.items()}
+            t0 = time.perf_counter()
+            res = [engine.infer({"images": test_x[i:i + 512]}) for i in range(0, len(test_x), 512)]
+            wall = time.perf_counter() - t0
+            pred = np.concatenate([r["prediction"] for r in res])
+            conf = np.concatenate([r["confidence"] for r in res])
+            on_dev = np.concatenate([r["on_device"] for r in res])
+            assert (pred.shape == conf.shape == on_dev.shape == test_y.shape
+                    and np.isfinite(conf).all())
+            correct = pred == test_y
+            outage = np.mean([
+                bool(m.any()) and (c[m].mean() < plan.p_tar)
+                for m, c in zip(on_dev.reshape(-1, metrics.PAPER_OUTAGE_BATCH),
+                                correct.reshape(-1, metrics.PAPER_OUTAGE_BATCH))
+            ])
+            st = engine.stats
+            want = st.offloaded * compress.scaled_payload_nbytes(convnet.payload_bytes(branch),
+                                                                 level)
+            delta = {n: k.launches - before[n] for n, k in kernels.items()}
+            say(f"branch {branch} level {level}: offload_rate {st.offload_rate:.4f} "
+                f"accuracy {correct.mean():.4f} ece {metrics.ece(conf, correct):.4f} "
+                f"on_device_prob {on_dev.mean():.4f} on_device_accuracy "
+                f"{correct[on_dev].mean() if on_dev.any() else float('nan'):.4f} "
+                f"outage {outage:.3f} payload_bytes {st.payload_bytes} infer "
+                f"{1e3 * wall / len(res):.3f} ms/batch (edge {1e3 * st.edge_time_s / len(res):.3f},"
+                f" cloud {1e3 * st.cloud_time_s / len(res):.3f}) launches {delta}", timed=True)
+            assert 0.0 < st.offload_rate < 1.0, (branch, level, st.offload_rate)
+            offload_rates[branch, level] = st.offload_rate
+            assert st.payload_bytes == want, (st.payload_bytes, want)
+            assert delta["exit_gate"] >= len(res)
+            if level == 0:
+                assert delta["encode"] == delta["decode"] == 0
+            else:
+                assert delta["encode"] >= 1 and delta["decode"] >= 1
+        # the gate runs before the codec, so the level cannot move who offloads
+        assert offload_rates[1, 0] == offload_rates[1, 1] == offload_rates[1, 2], offload_rates
+
+    run_phase("serving", serving)
+
+    # edge_forward on the card against the CPU port, on the trained weights
+    # the serving phase served and on the seeded initial ones. cuDNN and the
+    # CPU sum in different orders; the tolerance follows from that: per
+    # output, atol = 8 * 2**-24 * max|output| * the sum over the layers that
+    # feed it of sqrt(reduction length) (the random-walk bound of a float32
+    # dot product, both sides erring), rtol 1e-4.
+    def reduction(p):
+        w = p["w"]
+        return w[0].numel() if w.dim() == 4 else w.shape[0]  # cin*k*k or din
+
+    def edge_check(weights, label):
+        cpu_w = pytree.tree_map(lambda x: x.cpu(), weights)
+        readings = []
+        with torch.no_grad():
+            for branch in (1, 2):
+                lg, pl = convnet.edge_forward(weights, test_x[:64], branch=branch)
+                lc, pc = convnet.edge_forward(cpu_w, test_x[:64].cpu(), branch=branch)
+                assert pl.is_contiguous() and tuple(pl.shape[1:]) == ((16, 16, 64) if branch == 1
+                                                                     else (8, 8, 96))
+                trunk = [weights[f"conv{i}"] for i in range(1, branch + 1)]
+                head = weights[f"branch{branch}"]
+                for what, got, want, layers in (("payload", pl, pc, trunk),
+                                                ("logits", lg, lc, trunk + [head["conv"],
+                                                                            head["fc"]])):
+                    scale = want.abs().max().item()
+                    atol = 8 * 2.0 ** -24 * scale * sum(reduction(q) ** 0.5 for q in layers)
+                    err = (got.cpu() - want).abs().max().item()
+                    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=atol)
+                    readings.append(f"branch {branch} {what} max|out| {scale:.6g} max err "
+                                    f"{err:.6g} atol {atol:.6g}")
+        print(f"[serving] edge_forward on the card matches the CPU port on the {label} weights "
+              f"(rtol 1e-4): " + "; ".join(readings))
+
+    edge_check(params, "trained")
+    edge_check(convnet.init_params(torch.Generator(device=cuda).manual_seed(0), device=cuda),
+               "seeded initial")
+
+    # ---------------------------------------------------------------- 6
+    paper = run_phase("paper", lambda say: paper_phase(cuda, z, say=say))
+    for a, b in zip(paper["t_k2"], paper["t_plain"]):
+        assert abs(a - b) <= 1e-3 * b, ("K2 and the plain fit disagree", paper["t_k2"],
+                                        paper["t_plain"])
+    bad = [v for v in paper["values"] if not 0.0 <= v <= 1.0]  # also catches nan
+    assert not bad, f"paper values outside [0, 1]: {bad}"
+
+    # ---------------------------------------------------------------- 7
+    run_phase("bank", lambda say: bank_phase(cuda, params, data, z, say=say))
+
+    # ---------------------------------------------------------------- 8
+    launches = {n: sum(c[n] for c in phase_launches.values()) for n in kernels}
     table = []
     for n in kernels:
         src, replaces = KERNEL_ROWS[n]
@@ -471,13 +859,14 @@ def main() -> int:
         table.append({"name": n, "route": "cuda", "source": src, "replaces": replaces,
                       "launches": launches[n], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                      "bound_by": r["bound_by"], "library_ms": None, "cases": r["cases"]})
+                      "bound_by": r["bound_by"], "library_ms": None,
+                      "launches_by_phase": {p: c[n] for p, c in phase_launches.items()},
+                      "cases": r["cases"]})
     print(json.dumps({"kernels": table}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -6,12 +6,13 @@ and `p_tar`, and the deployed exit / partition layer -- and serializes to
 the reference's JSON schema (`PLAN_FORMAT_VERSION = 1`): a plan saved by
 `repro` loads here and saves back to the identical string, and the other
 way round. Consumed by `repro_torch.offload.engine`,
-`repro_torch.core.partition` and `repro_torch.core.exits.cascade_gate`.
+`repro_torch.core.partition`, `repro_torch.core.exits.cascade_gate`,
+`repro_torch.core.gatepath` (`gate_block`) and `repro_torch.core.control`
+(`rescore_plan`, re-exported here as in the reference).
 
-Not yet ported: `gate_block` (waits for `core/gatepath`) and the
-`rescore_plan` re-export (waits for `core/control`). The reference's
-deprecated `OffloadPolicy` / `make_policy` shims are left out: nothing
-calls them, and `OffloadPlan` / `make_plan` cover what they did.
+The reference's deprecated `OffloadPolicy` / `make_policy` shims are left
+out: nothing calls them, and `OffloadPlan` / `make_plan` cover what they
+did.
 """
 from __future__ import annotations
 
@@ -91,6 +92,22 @@ class OffloadPlan:
             criterion=self.criterion,
             entropy_threshold=self.entropy_threshold,
             use_kernel=use_kernel,
+        )
+
+    def gate_block(self, exit_logits, branch: Optional[int] = None,
+                   backend=None):
+        """Batched gate statistics for a whole logit block -> numpy
+        (confidence float64, prediction int64) of shape (N,).
+
+        Same math as `gate`, returned as host arrays ready for vectorized
+        thresholding `conf >= p_tar` over the whole block. `backend`
+        selects the execution path (`core.gatepath`): None -> ``"torch"``
+        (one K1 launch on the card); ``"numpy"`` -> the host spec.
+        """
+        from repro_torch.core.gatepath import get_gate_backend
+
+        return get_gate_backend(backend).plan_gate_block(
+            self, exit_logits, branch=branch
         )
 
     def _copy(self, **overrides) -> "OffloadPlan":
@@ -219,3 +236,10 @@ def make_plan(
         metadata=metadata or {},
     )
 
+
+# ----------------------------------------------------- online re-scoring
+# rescore_plan lives in `repro_torch.core.control` (the shared controller
+# core); this import keeps `repro_torch.core.policy.rescore_plan` working,
+# as in the reference. It sits below the class definitions so the control
+# module can be imported first without a cycle.
+from repro_torch.core.control import rescore_plan  # noqa: E402,F401

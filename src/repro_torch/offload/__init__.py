@@ -1,2 +1,2 @@
-"""Edge-cloud offloading (port of `repro.offload`): latency profiles and
-the two-tier serving engine."""
+"""Edge-cloud offloading (port of `repro.offload`): latency profiles, the
+two-tier serving engine and the batch-level missed-deadline simulator."""

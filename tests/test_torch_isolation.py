@@ -17,21 +17,30 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.bank import fit_bank
+from repro_torch.core.calibration import TemperatureScaling
+from repro_torch.core.gatepath import NumpyGateBackend, get_gate_backend
 from repro_torch.core.policy import OffloadPlan, make_plan
 from repro_torch.kernels import calib_nll, compress, exit_gate, ops, ref
 from repro_torch.models import convnet
 from repro_torch.offload.engine import convnet_engine
+from repro_torch.training import optim
+from repro_torch.training.loop import make_eval_step, make_train_step
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 PORTED = [
     "repro_torch",
     "repro_torch.configs.base",
     "repro_torch.core",
+    "repro_torch.core.bank",
     "repro_torch.core.calibration",
+    "repro_torch.core.control",
     "repro_torch.core.exits",
+    "repro_torch.core.gatepath",
     "repro_torch.core.metrics",
     "repro_torch.core.partition",
     "repro_torch.core.policy",
+    "repro_torch.data.distortion",
     "repro_torch.data.synthetic",
     "repro_torch.kernels._build",
     "repro_torch.kernels.calib_nll",
@@ -42,6 +51,12 @@ PORTED = [
     "repro_torch.models.convnet",
     "repro_torch.offload.engine",
     "repro_torch.offload.latency",
+    "repro_torch.offload.simulator",
+    "repro_torch.serving",
+    "repro_torch.serving.network",
+    "repro_torch.training.losses",
+    "repro_torch.training.loop",
+    "repro_torch.training.optim",
 ]
 KERNELS = [exit_gate.KERNEL, calib_nll.KERNEL, compress.ENCODE, compress.DECODE]
 
@@ -79,6 +94,30 @@ def test_entry_points_refuse_without_gpu(monkeypatch):
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+def test_training_bank_and_gates_refuse_without_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    params = convnet.init_params(torch.Generator().manual_seed(0), device="cpu")
+    cfg = convnet.B_ALEXNET
+    batch = {"images": np.zeros((2, 32, 32, 3), np.float32), "labels": np.zeros(2, np.int32)}
+    plan = OffloadPlan(p_tar=0.5, calibrators=[TemperatureScaling.from_temperature(1.5)])
+    z, y = np.zeros((4, 10), np.float32), np.zeros(4, np.int32)
+    gate = get_gate_backend(None)
+    for call in (
+        lambda: make_train_step(cfg, optim.AdamWConfig())(params, optim.init(params), batch),
+        lambda: make_eval_step(cfg)(params, batch),
+        lambda: gate.plan_gate_block(plan, z),
+        lambda: gate.as_table(z),
+        lambda: plan.gate_block(z),
+        lambda: fit_bank({"clean": [z]}, y, p_tar=0.5),
+    ):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    # the host backend is the host path: it needs no device and finds none
+    conf, _ = NumpyGateBackend().plan_gate_block(plan, z)
+    assert conf.shape == (4,)
+    assert [k.launches for k in KERNELS] == [0, 0, 0, 0]
 
 
 def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
