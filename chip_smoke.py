@@ -48,13 +48,30 @@ Phases, each printing its own lines:
             gate backend against "numpy" (bank blocks, also with vector-
             scaled experts, plan blocks, GateTable,
             window_gate_cells) and rescore_plan over codec levels 0/1/2.
-8. result   one JSON line with every kernel's numbers, the nvidia-smi
+8. runtime  the event-driven serving runtime (`repro_torch.serving`) on
+            the card, each run held against the same run of the port on
+            the CPU in this process: the congested-Markov scenario of
+            BENCH_serving.json (2048 synthetic cascade logits, 2000
+            requests at 80 Hz) static, with the controller and static at
+            codec level 2, obs off and with full_observability (whose
+            trace, audit, metrics and sketch must pass obs.check); the
+            distortion-drift scenario of BENCH_distortion.json (the
+            uncalibrated, global and PlanBank plans, the controller on
+            clean and on context-aware validation, the global plan at
+            level 2); then EngineCore on the trained full-width
+            B-AlexNet over 512 test images (branch 1 at levels 0 and 2,
+            branch 2 at level 2) against a LogitsCore of the same
+            engine's batched logits, with host µs per request. The K1,
+            K3 and K4 launches of every step are worked out from the
+            code beforehand and asserted.
+9. result   one JSON line with every kernel's numbers, the nvidia-smi
             line, and last {"ok": true, "device": {...}}.
 
-Phases 4-7 are the main path: each sets the launch counts to 0 just
+Phases 4-8 are the main path: each sets the launch counts to 0 just
 before it and reads them just after, and fails if a kernel of its path
 did not run (train: K1; serving: K1-K4; paper: K1, K2; bank: K1, K3,
-K4). Every line that prints a time names the card and its power limit.
+K4; runtime: K1, K3, K4). Every line that prints a time names the card
+and its power limit.
 
 Any failure raises, so the process exits non-zero and prints no result;
 without a GPU it exits 2 before doing anything. Imports neither jax nor
@@ -93,7 +110,11 @@ PAPER_P_TARS = (0.75, 0.85, 0.9)
 PHASE_KERNELS = {"train": ("exit_gate",),
                  "serving": ("exit_gate", "calib_nll", "encode", "decode"),
                  "paper": ("exit_gate", "calib_nll"),
-                 "bank": ("exit_gate", "encode", "decode")}
+                 "bank": ("exit_gate", "encode", "decode"),
+                 "runtime": ("exit_gate", "encode", "decode")}
+# K1's boundary: the kernel's conf = 1/S and the plain max(exp(logp)) are
+# about 1e-7 apart, so decisions are compared only away from p_tar +- this
+BOUNDARY = 1e-6
 
 KERNEL_ROWS = {
     "exit_gate": ("src/repro_torch/csrc/exit_gate.cu", "src/repro/kernels/exit_gate.py:88"),
@@ -388,6 +409,308 @@ def bank_phase(dev, params, data, z, say=print):
         f"{best['expected_latency_s'] * 1e3:.3f} ms, accuracy {best['accuracy']:.4f})", timed=True)
 
 
+def near_boundary(conf, p_tars) -> int:
+    """How many confidences lie within BOUNDARY of any of `p_tars`."""
+    c = np.asarray(conf, np.float64).ravel()
+    return int(sum((np.abs(c - p) <= BOUNDARY).sum() for p in p_tars))
+
+
+def same_summary(a, b, what):
+    """Telemetry summaries equal: integers exactly, floats exactly or to
+    rel 1e-12 (float sums), nan matching nan."""
+    assert a.keys() == b.keys(), what
+    for k in a:
+        x, y = a[k], b[k]
+        if isinstance(x, float) and isinstance(y, float):
+            ok = (x == y or (x != x and y != y)
+                  or abs(x - y) <= 1e-12 * max(abs(x), abs(y)))
+        else:
+            ok = x == y
+        assert ok, f"{what}: {k} {x!r} against {y!r}"
+
+
+def runtime_phase(dev, params, data, plan, drift, say=print):
+    """The event-driven serving runtime on `dev`, every run held against
+    the same run on the CPU; the launches of every step asserted. `plan`
+    carries the trained exits' temperatures; `drift` is (val, test,
+    (uncalibrated, global, bank)) of the distortion scenario."""
+    import tempfile
+
+    import torch
+
+    from repro_torch._device import to_numpy
+    from repro_torch.core.calibration import TemperatureScaling
+    from repro_torch.core.policy import OffloadPlan
+    from repro_torch.kernels import compress, exit_gate
+    from repro_torch.kernels.compress import roundtrip, scaled_payload_nbytes
+    from repro_torch.models import convnet
+    from repro_torch.obs import JsonlTraceSink, full_observability
+    from repro_torch.obs.check import main as check_main
+    from repro_torch.offload import latency
+    from repro_torch.offload.engine import convnet_engine
+    from repro_torch.serving import (
+        ContextualLogitsCore,
+        EngineCore,
+        LogitsCore,
+        RuntimeConfig,
+        ServingRuntime,
+        constant_workload,
+    )
+    from repro_torch.serving import scenarios as scn
+
+    cpu = torch.device("cpu")
+    card = dev.type == "cuda"
+    counters = {"exit_gate": exit_gate.KERNEL, "encode": compress.ENCODE,
+                "decode": compress.DECODE}
+    mark = {n: k.launches for n, k in counters.items()}
+    steps = []
+
+    def aside(fn):
+        """Run a comparison's kernel launches outside the phase's counts."""
+        before = {n: k.launches for n, k in counters.items()}
+        fn()
+        for n, k in counters.items():
+            k.launches = before[n]
+
+    def expect(step, **want):
+        """The launches since the previous step must be `want` (K1 as
+        exit_gate, K3 encode, K4 decode); none when `dev` is the CPU."""
+        nonlocal mark
+        now = {n: k.launches for n, k in counters.items()}
+        got = {n: now[n] - mark[n] for n in counters}
+        want = {n: want.get(n, 0) if card else 0 for n in counters}
+        assert got == want, f"{step}: launches {got}, worked out {want}"
+        steps.append(f"{step} {tuple(got.values())}")
+        mark = now
+
+    # -- congested Markov: BENCH_serving.json's scenario
+    with open(os.path.join(ROOT, "BENCH_serving.json")) as f:
+        bench = json.load(f)
+    exits, final, y = scn.synthetic_cascade_logits(2048)
+    t1 = OffloadPlan(p_tar=0.8, calibrators=[TemperatureScaling.from_temperature(1.0)] * 2)
+    host = LogitsCore(exits, final, t1, device=cpu)
+    say(f"congested: {near_boundary([host.conf[1], host.conf[2]], [0.8])} of 2 x 2048 "
+        f"confidences within {BOUNDARY} of p_tar 0.8")
+    tmpdir = tempfile.TemporaryDirectory(prefix="chip_smoke_obs_")
+    tmp = tmpdir.name
+    for name, ctrl, p in (("static", False, t1), ("controller", True, t1),
+                          ("static level 2", False, t1.with_compression(2))):
+        runs, walls = {}, {}
+        for where, obs_on in ((dev, False), (dev, True), (cpu, False)):
+            obs = full_observability() if obs_on else None
+            t0 = time.perf_counter()
+            tel = scn.run_congested_markov(p, exits, final, y, n_requests=2000,
+                                           with_controller=ctrl, obs=obs, device=where)
+            key = f"{where.type}{' obs' if obs_on else ''}"
+            walls[key] = time.perf_counter() - t0
+            runs[key] = tel.summary()
+            if where == dev:
+                # a LogitsCore is one K1 per branch, a controller core one
+                # per branch; level 2 round-trips the final logits once
+                expect(f"congested {name} ({key})", exit_gate=2 + 2 * ctrl,
+                       encode=int(p.compression_level != 0),
+                       decode=int(p.compression_level != 0))
+            if obs_on:
+                paths = [os.path.join(tmp, f"{name}.{x}")
+                         for x in ("trace.jsonl", "metrics.json", "audit.jsonl", "sketch.json")]
+                sink = JsonlTraceSink(paths[0])
+                for r in obs.trace.records:
+                    sink.emit(r)
+                sink.close()
+                obs.metrics.write_json(paths[1])
+                obs.audit.to_jsonl(paths[2])
+                obs.calibration.save(paths[3])
+                assert len(obs.trace) == 2000
+                rc = check_main(["--trace", paths[0], "--metrics", paths[1], "--audit",
+                                 paths[2], "--calibration", paths[3]])
+                assert rc == 0, f"obs.check failed on the {name} artifacts"
+        same_summary(runs[dev.type], runs["cpu"], f"congested {name}: {dev.type} against cpu")
+        same_summary(runs[f"{dev.type} obs"], runs[dev.type], f"congested {name}: obs on/off")
+        s = runs[dev.type]
+        b = bench.get({"static": "static", "controller": "controller"}.get(name, ""), {})
+        say(f"congested {name}, 2000 requests: p99 {s['p99_ms']:.3f} ms, miss rate "
+            f"{s['deadline_miss_rate']:.4f}, offload rate {s['offload_rate']:.4f}, switches "
+            f"{s['controller_switches']}"
+            + (f" (BENCH_serving.json, the reference on a CPU: p99 {b['p99_ms']:.3f} ms, miss "
+               f"{b['deadline_miss_rate']:.4f}, offload {b['offload_rate']:.4f})" if b else "")
+            + f"; equal to the CPU port's, obs on == off, obs.check passes; host s "
+            + ", ".join(f"{k} {v:.3f}" for k, v in walls.items()), timed=True)
+
+    tmpdir.cleanup()
+
+    # -- distortion drift: BENCH_distortion.json's scenario
+    with open(os.path.join(ROOT, "BENCH_distortion.json")) as f:
+        dbench = json.load(f)
+    val, test, (uncal, glob, bank) = drift
+    cfg = scn.drift_controller_config()
+    grid = sorted(set(cfg.p_tar_grid) | {0.8})
+    arms = (("uncalibrated", uncal, None, dbench["plans"]["uncalibrated"]["summary"]
+             ["miscalibration_gap"]),
+            ("global", glob, None, dbench["gap_global"]),
+            ("bank", bank, None, dbench["gap_bank"]),
+            ("controller clean", glob, False, dbench["gap_controller_clean"]),
+            ("controller context-aware", glob, True, dbench["gap_controller_context_aware"]),
+            ("global level 2", glob.with_compression(2), None, None))
+    band = 0
+    for name, p, ctx_aware, want_gap in arms:
+        # the contextual core gates one block per (context, plan key the
+        # estimator can emit there, branch): its host twin counts them
+        twin = ContextualLogitsCore(test["exit_logits"], test["final"], p,
+                                    scn.severity_drift_schedule(), labels=test["labels"],
+                                    features_by_context=test["features"], backend="numpy")
+        band += near_boundary(np.concatenate(list(twin.conf.values())), grid)
+        kw = {} if ctx_aware is None else dict(with_controller=True, val=val,
+                                                context_aware=ctx_aware, controller_config=cfg)
+        n_ctx = len(test["final"])
+        t0 = time.perf_counter()
+        tel = scn.run_distortion_drift(p, test, device=dev, **kw)
+        wall = time.perf_counter() - t0
+        level = int(getattr(p, "compression_level", 0))
+        expect(f"drift {name}", exit_gate=len(twin.conf) + (0 if ctx_aware is None else
+                                                           2 * (n_ctx if ctx_aware else 1)),
+               encode=n_ctx * (level != 0), decode=n_ctx * (level != 0))
+        host_tel = scn.run_distortion_drift(p, test, device=cpu, **kw)
+        same_summary(tel.summary(), host_tel.summary(), f"drift {name}: {dev.type} against cpu")
+        gap = tel.miscalibration_gap()
+        say(f"drift {name}, 1500 requests: gap {gap:.4f}"
+            + (f" (BENCH_distortion.json, the reference on a CPU: {want_gap:.4f})"
+               if want_gap is not None else "")
+            + f", accuracy {tel.accuracy:.4f}, offload rate {tel.offload_rate:.4f}; equal to "
+            f"the CPU port's; {wall:.3f} s", timed=True)
+    say(f"drift: {band} confidences within {BOUNDARY} of the p_tar grid {grid}")
+
+    # -- EngineCore at full width on the trained B-AlexNet
+    prof = latency.paper_2020()
+    n = 512
+    images = torch.as_tensor(data.test_x[:n], device=dev)
+    labels = data.test_y[:n]
+    reqs = constant_workload(10.0, n, n)
+    for branch, level in ((1, 0), (1, 2), (2, 2)):
+        pb = plan.with_partition(branch - 1, branch - 1).with_compression(level)
+        engine = convnet_engine(params, pb, branch=branch, use_kernel=True, device=dev)
+        ecore = EngineCore({branch: engine}, {"images": images}, labels=labels, device=dev)
+        with torch.no_grad():
+            logits, payload = convnet.edge_forward(params, images, branch=branch)
+            final_b = convnet.cloud_forward(params, roundtrip(payload, level), from_branch=branch)
+        # the batched twin: its cloud table is the cloud head on the same
+        # (round-tripped) payload, priced at the codec's wire size
+        lcore = LogitsCore({branch: logits}, final_b, pb.with_compression(0), labels=labels,
+                           device=dev)
+        expect(f"engine {branch}/{level} batched twin", exit_gate=1, encode=int(level != 0),
+               decode=int(level != 0))
+        times = {"engine gate": [], "engine cloud": [], "logits gate": []}
+        confs = {}
+
+        def timed(fn, key):
+            def call(*args, **kwargs):
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                times[key].append(time.perf_counter() - t0)
+                if key == "engine gate":
+                    confs[args[0]] = out[2]
+                return out
+            return call
+
+        ecore.gate = timed(ecore.gate, "engine gate")
+        ecore.cloud_predict = timed(ecore.cloud_predict, "engine cloud")
+        lcore.gate = timed(lcore.gate, "logits gate")
+        t_e = ServingRuntime(ecore, prof, pb, reqs, config=RuntimeConfig(max_batch=1)).run()
+        n_off = sum(not r.on_device for r in t_e.records)
+        assert 0 < n_off < n, n_off
+        # one K1 per request; at level 2 one K3 and one K4 per offload
+        expect(f"EngineCore {branch}/{level}", exit_gate=n, encode=n_off * (level != 0),
+               decode=n_off * (level != 0))
+        t_l = ServingRuntime(lcore, prof, pb.with_compression(0), reqs,
+                             config=RuntimeConfig(max_batch=1),
+                             payload_nbytes=lambda b: scaled_payload_nbytes(
+                                 convnet.payload_bytes(b), level)).run()
+        expect(f"LogitsCore {branch}/{level}")
+        conf_l = lcore.conf[branch]
+        inside = np.abs(conf_l - pb.p_tar) <= BOUNDARY
+        e = {r.req_id: r for r in t_e.records}
+        lo = {r.req_id: r for r in t_l.records}
+        assert set(e) == set(lo) and len(e) == n
+        for q in reqs:
+            if inside[q.sample]:
+                continue
+            a, b = e[q.req_id], lo[q.req_id]
+            assert a.on_device == b.on_device and a.correct == b.correct, (branch, level, q)
+            assert abs(a.latency_s - b.latency_s) <= 1e-12 * b.latency_s, (branch, level, q)
+        # the batch-1 confidences against the batched ones: K1 at (1, 10)
+        # against K1 at (512, 10), on logits of a batch-1 and a batched
+        # forward, within K1's tolerance
+        ids = sorted(confs)
+        np.testing.assert_allclose([confs[i] for i in ids], conf_l[ids], **K1_CONF,
+                                   err_msg=f"EngineCore {branch}/{level} confidences")
+        dconf = max(abs(confs[i] - conf_l[i]) for i in ids)
+        offl = sorted(s for s, b in ecore._payload if b == branch)
+
+        def batch1_against_plain():
+            """Each offloaded request's kernels at its own shapes against
+            their plain versions on the CPU: K1 on its (1, 10) exit logits
+            (K1's tolerance, equal argmax), K3/K4 on its (1, ...) payload
+            (bit for bit)."""
+            for i in offl:
+                with torch.no_grad():
+                    z = engine.edge_step({"images": images[i:i + 1]})["exit_logits"]
+                gate = engine.plan.gate  # as EngineCore.gate calls it
+                got, want = gate(z, branch=engine.branch), gate(z.to(cpu), branch=engine.branch)
+                np.testing.assert_allclose(to_numpy(got.confidence), to_numpy(want.confidence),
+                                           **K1_CONF, err_msg=f"K1 at (1, 10), sample {i}")
+                assert torch.equal(got.prediction.to(cpu), want.prediction), i
+                if level:
+                    x = ecore._payload[(i, branch)]
+                    a, b = roundtrip(x, level).to(cpu), roundtrip(x.to(cpu), level)
+                    assert a.shape == b.shape and torch.equal(
+                        a.view(torch.int32), b.view(torch.int32)), f"codec at {tuple(x.shape)}"
+
+        aside(batch1_against_plain)
+
+        def us(key, skip=0):
+            v = np.asarray(times[key][skip:]) * 1e6
+            return f"{np.median(v):.1f} (mean {v.mean():.1f})"
+
+        say(f"EngineCore branch {branch} level {level}, {n} requests: agrees with LogitsCore "
+            f"on on_device, correct and latency_s ({int(inside.sum())} within {BOUNDARY} of "
+            f"p_tar {pb.p_tar:.4f} left out; max |conf engine - conf batched| {dconf:.3g}, "
+            f"within K1's tolerance; {len(offl)} offloaded requests' (1, 10) K1"
+            + (" and payload K3/K4" if level else "") + " equal to the CPU plain version); "
+            f"offloaded {n_off}, accuracy {t_e.accuracy:.4f}; host us per request: "
+            f"EngineCore.gate {us('engine gate', 1)} (first {times['engine gate'][0] * 1e6:.1f}), "
+            f"cloud_predict {us('engine cloud', 1)} (first batch-1 call "
+            f"{times['engine cloud'][0] * 1e6:.1f}), LogitsCore.gate {us('logits gate')}",
+            timed=True)
+
+    # where an EngineCore request's time goes: 32 more requests of the last
+    # engine (p_tar 2, so each one offloads) under the profiler: kernel time
+    # and launches per request against the unprofiled host time above
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    k = 32
+    host_us = 1e6 * (np.median(times["engine gate"][1:]) + np.median(times["engine cloud"][1:]))
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if card else [])
+    _sync(dev)
+    with profile(activities=activities) as profiler:
+        for i in range(k):
+            ecore.gate(i, branch, 2.0)
+            ecore.cloud_predict(i, branch, level)
+        _sync(dev)
+    expect("profiled EngineCore", exit_gate=k, encode=k, decode=k)
+    events = profiler.key_averages()
+    kern = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kern) / k
+    top = sorted((e for e in events if e.device_type == DeviceType.CPU),
+                 key=lambda e: -e.self_cpu_time_total)[:6]
+    say(f"profiled EngineCore branch {branch} level {level} ({k} offloaded requests): "
+        f"{busy_us:.1f} us of kernels in {sum(e.count for e in kern) / k:.1f} launches per "
+        f"request against {host_us:.1f} us of host time (gate + cloud_predict medians), "
+        f"the device busy {busy_us / host_us:.1%}; top host ops (self us per request): "
+        + "; ".join(f"{e.key[:40]} {e.self_cpu_time_total / k:.1f} x{e.count / k:g}"
+                    for e in top), timed=True)
+    say("launches per step (K1, K3, K4): " + "; ".join(steps))
+
+
 def main() -> int:
     import torch
 
@@ -532,7 +855,7 @@ def main() -> int:
     # and 4000, which lie in different warps of the block layout; rows 4-19
     # a division tie (x1 at a lower column than x2) as the row's max.
     f32, bf16 = torch.float32, torch.bfloat16
-    k1_cases = [((512, 10), f32), ((3, 1), f32), ((3, 10), bf16), ((64, 32), f32),
+    k1_cases = [((512, 10), f32), ((1, 10), f32), ((2048, 10), f32), ((3, 1), f32), ((3, 10), bf16), ((64, 32), f32),
                 ((64, 33), bf16), ((64, 1024), f32), ((3, 1025), f32), ((3, 1025), bf16),
                 ((64, 4097), f32), ((64, 4097), bf16), ((5, 8193), f32), ((5, 8193), bf16),
                 ((256, 151_936), f32), ((256, 151_936), bf16)]
@@ -641,8 +964,10 @@ def main() -> int:
     # a ragged last group (3, 700), rows that are not 16-byte aligned
     # (5, 301: cols % 4 != 0), an all-zero group and inf/nan inputs, and
     # rescore_plan's codec axis: (n, 10) logits, one partial group per row
-    # and cols % 4 != 0
+    # and cols % 4 != 0; the runtime's shapes: one request's payload per
+    # branch and the congested scenario's (2048, 10) final logits
     codec_cases = [((512, 16, 16, 64), 1, None), ((512, 16, 16, 64), 2, None),
+                   ((1, 16, 16, 64), 2, None), ((1, 8, 8, 96), 2, None), ((2048, 10), 2, None),
                    ((252, 16, 16, 64), 1, None), ((252, 16, 16, 64), 2, None),
                    ((256, 8, 8, 96), 1, None), ((256, 8, 8, 96), 2, None),
                    ((252, 8, 8, 96), 1, None), ((252, 8, 8, 96), 2, None),
@@ -851,6 +1176,19 @@ def main() -> int:
     run_phase("bank", lambda say: bank_phase(cuda, params, data, z, say=say))
 
     # ---------------------------------------------------------------- 8
+    from repro_torch.serving.scenarios import fit_drift_plans, synthetic_distorted_cascade
+
+    t0 = time.perf_counter()
+    rt_plan = make_plan([v1, v2], val_y, p_tar=0.8)
+    val_d, test_d = synthetic_distorted_cascade()
+    drift_plans = fit_drift_plans(val_d, device=cuda)
+    print(f"[runtime] set-up: the trained plan (T {rt_plan.temperatures}), the drift "
+          f"scenario's data (numpy) and plans fit on the card in "
+          f"{time.perf_counter() - t0:.2f} s {card}")
+    run_phase("runtime", lambda say: runtime_phase(cuda, params, data, rt_plan,
+                                                   (val_d, test_d, drift_plans), say=say))
+
+    # ---------------------------------------------------------------- 9
     launches = {n: sum(c[n] for c in phase_launches.values()) for n in kernels}
     table = []
     for n in kernels:

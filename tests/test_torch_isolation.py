@@ -51,9 +51,23 @@ PORTED = [
     "repro_torch.models.convnet",
     "repro_torch.offload.engine",
     "repro_torch.offload.latency",
+    "repro_torch.obs",
+    "repro_torch.obs.audit",
+    "repro_torch.obs.calibration",
+    "repro_torch.obs.calibration_report",
+    "repro_torch.obs.check",
+    "repro_torch.obs.export",
+    "repro_torch.obs.metrics",
+    "repro_torch.obs.trace",
     "repro_torch.offload.simulator",
     "repro_torch.serving",
+    "repro_torch.serving.controller",
+    "repro_torch.serving.drift",
     "repro_torch.serving.network",
+    "repro_torch.serving.runtime",
+    "repro_torch.serving.scenarios",
+    "repro_torch.serving.telemetry",
+    "repro_torch.serving.workload",
     "repro_torch.training.losses",
     "repro_torch.training.loop",
     "repro_torch.training.optim",
@@ -117,6 +131,44 @@ def test_training_bank_and_gates_refuse_without_gpu(monkeypatch):
     # the host backend is the host path: it needs no device and finds none
     conf, _ = NumpyGateBackend().plan_gate_block(plan, z)
     assert conf.shape == (4,)
+    assert [k.launches for k in KERNELS] == [0, 0, 0, 0]
+
+
+def test_serving_cores_and_controller_refuse_without_gpu(monkeypatch):
+    """The serving runtime's cores, controller and scenarios follow the
+    device rule: built without `device`/`backend`, they raise."""
+    from repro_torch.offload import latency
+    from repro_torch.serving import (
+        ContextualLogitsCore,
+        EngineCore,
+        LogitsCore,
+        OnlineController,
+        PiecewiseSchedule,
+    )
+    from repro_torch.serving.scenarios import run_congested_markov, synthetic_cascade_logits
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    exits, final, y = synthetic_cascade_logits(16)
+    plan = OffloadPlan(p_tar=0.8, calibrators=[TemperatureScaling.from_temperature(1.0)] * 2)
+    params = convnet.init_params(torch.Generator().manual_seed(0), device="cpu")
+    engine = convnet_engine(params, plan, device="cpu")
+    images = {"images": np.zeros((2, 32, 32, 3), np.float32)}
+    for call in (
+        lambda: LogitsCore(exits, final, plan, labels=y),
+        lambda: ContextualLogitsCore({"clean": exits}, {"clean": final}, plan,
+                                     PiecewiseSchedule([(0.0, "clean")]), labels=y),
+        lambda: OnlineController(plan, latency.paper_2020(), exits, final_logits=final,
+                                 labels=y),
+        lambda: EngineCore({1: engine}, images),
+        lambda: run_congested_markov(plan, exits, final, y, n_requests=4),
+    ):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    # named host paths need no device and launch nothing
+    LogitsCore(exits, final, plan, labels=y, device="cpu")
+    OnlineController(plan, latency.paper_2020(), exits, final_logits=final, labels=y,
+                     backend="numpy")
+    EngineCore({1: engine}, images, device="cpu")
     assert [k.launches for k in KERNELS] == [0, 0, 0, 0]
 
 
