@@ -23,7 +23,9 @@ Phases, each printing its own lines:
             buffers, but its 311 MB (bf16) and 622 MB (f32) inputs are far
             above the 50 MB L2.
             The codec also runs bit-exact at the (n, 10) logit shapes
-            of rescore_plan's codec axis: (3000, 10) and (7000, 10).
+            of rescore_plan's codec axis, (3000, 10) and (7000, 10), and
+            of the fleet, (1024, 10) and (4096, 10); K1 at the runtime's
+            and the fleet's (1, 10), (1024, 10) and (2048, 10).
 4. train    B-AlexNet at full width trained with the BranchyNet joint
             loss on cifar_like(seed=0) (45 000 / 3 000 / 7 000), the twin
             of benchmarks/paper_common.train_and_collect: 6 epochs at
@@ -64,14 +66,29 @@ Phases, each printing its own lines:
             engine's batched logits, with host µs per request. The K1,
             K3 and K4 launches of every step are worked out from the
             code beforehand and asserted.
-9. result   one JSON line with every kernel's numbers, the nvidia-smi
+9. fleet    the fleet simulator and the orchestration plane
+            (`repro_torch.fleet`, `repro_torch.orchestration`): the
+            max-plus FIFO solvers on the card against the oracles (the
+            eight edge cases exactly, a 1 048 576-request chain against
+            host fifo_done at rel 1e-12, k = 4 servers against
+            kserver_oracle), with device us per call; BENCH_fleet.json's
+            64-cell reference fleet (102 400 requests, 4 cloud servers) in
+            its three arms (uncalibrated, expert bank static, bank with the
+            fleet controller) and two codec arms (the compression-aware
+            controller over levels 0/1/2, the global plan at level 2), each
+            on the card and again on the CPU port with the "numpy" backend,
+            on one set of plans fit on the card; then the quick
+            adversarial matrix (run_scenarios) on the card against the CPU,
+            record by record. The K1, K3 and K4 launches of every run are
+            worked out from the code and asserted.
+10. result  one JSON line with every kernel's numbers, the nvidia-smi
             line, and last {"ok": true, "device": {...}}.
 
-Phases 4-8 are the main path: each sets the launch counts to 0 just
+Phases 4-9 are the main path: each sets the launch counts to 0 just
 before it and reads them just after, and fails if a kernel of its path
 did not run (train: K1; serving: K1-K4; paper: K1, K2; bank: K1, K3,
-K4; runtime: K1, K3, K4). Every line that prints a time names the card
-and its power limit.
+K4; runtime: K1, K3, K4; fleet: K1, K3, K4). Every line that prints a
+time names the card and its power limit.
 
 Any failure raises, so the process exits non-zero and prints no result;
 without a GPU it exits 2 before doing anything. Imports neither jax nor
@@ -111,7 +128,8 @@ PHASE_KERNELS = {"train": ("exit_gate",),
                  "serving": ("exit_gate", "calib_nll", "encode", "decode"),
                  "paper": ("exit_gate", "calib_nll"),
                  "bank": ("exit_gate", "encode", "decode"),
-                 "runtime": ("exit_gate", "encode", "decode")}
+                 "runtime": ("exit_gate", "encode", "decode"),
+                 "fleet": ("exit_gate", "encode", "decode")}
 # K1's boundary: the kernel's conf = 1/S and the plain max(exp(logp)) are
 # about 1e-7 apart, so decisions are compared only away from p_tar +- this
 BOUNDARY = 1e-6
@@ -711,6 +729,354 @@ def runtime_phase(dev, params, data, plan, drift, say=print):
     say("launches per step (K1, K3, K4): " + "; ".join(steps))
 
 
+def same_fleet_summary(a, b, keys, what):
+    """Two fleet summaries agree on `keys`: latencies (``*_ms``) to rel
+    1e-9, every other number equal; nan matches nan."""
+    for k in keys:
+        x, y = a[k], b[k]
+        rel = 1e-9 if k.endswith("_ms") else 0.0
+        ok = (x == y or (x != x and y != y)
+              or (rel and abs(x - y) <= rel * max(abs(x), abs(y))))
+        assert ok, f"{what}: {k} {x!r} against {y!r}"
+
+
+def same_fleet(tel, host, what):
+    """Two fleet runs agree: every cell's per-request columns (latencies to
+    rel 1e-9, the rest equal), the per-cell and fleet summaries (latencies
+    to rel 1e-9, every decision-derived number equal) and the controller's
+    switches."""
+    from repro_torch.fleet.telemetry import _CellColumns
+
+    assert tel.n_cells == host.n_cells, what
+    for c in range(tel.n_cells):
+        for f in _CellColumns.FIELDS:
+            a, b = tel._cells[c].column(f), host._cells[c].column(f)
+            if f == "latency_s":
+                np.testing.assert_allclose(a, b, rtol=1e-9, atol=0, err_msg=f"{what}: cell {c}")
+            else:
+                np.testing.assert_array_equal(a, b, err_msg=f"{what}: cell {c} {f}")
+    pairs = [("fleet", tel.fleet_summary(), host.fleet_summary())] + [
+        (f"cell {c}", a, b)
+        for c, (a, b) in enumerate(zip(tel.per_cell_summary(), host.per_cell_summary()))]
+    for where, a, b in pairs:
+        assert a.keys() == b.keys(), what
+        same_fleet_summary(a, b, a, f"{what} {where}")
+    assert tel.controller_events == host.controller_events, what
+    assert tel.orchestration_events == host.orchestration_events, what
+
+
+#: numbers of an adversarial record computed from gate confidences
+CONF_KEYS = ("ece", "mean_conf", "residual")
+
+
+def same_record(a, b, key=""):
+    """Two adversarial-scenario records agree field by field: decision-
+    derived numbers exactly, latencies (``*_ms`` and the p99 wins'
+    control / treatment) to rel 1e-9, confidence-derived ones to K1's
+    tolerance; nan matches nan."""
+    if isinstance(a, dict):
+        assert isinstance(b, dict) and a.keys() == b.keys(), (key, a, b)
+        for k in a:
+            same_record(a[k], b[k], k)
+    elif isinstance(a, (list, tuple)):
+        assert type(a) is type(b) and len(a) == len(b), (key, a, b)
+        for x, y in zip(a, b):
+            same_record(x, y, key)
+    elif isinstance(a, float) and a != a:
+        assert isinstance(b, float) and b != b, (key, a, b)
+    elif isinstance(a, float) and key in CONF_KEYS:
+        assert abs(a - b) <= K1_CONF["atol"] + K1_CONF["rtol"] * abs(b), (key, a, b)
+    elif isinstance(a, float) and ("_ms" in key or key in ("control", "treatment")):
+        assert abs(a - b) <= 1e-9 * max(abs(a), abs(b)), (key, a, b)
+    else:
+        assert a == b, (key, a, b)
+
+
+def maxplus_checks(dev, say):
+    """The max-plus FIFO solvers on `dev` against the oracles: the eight
+    deterministic edge cases of tests/test_fleet_properties.py on dyadic
+    inputs (exactly), a 1 048 576-request chain against host fifo_done
+    (rel 1e-12), and k = 4 servers against kserver_oracle on a 4096-request
+    prefix (exactly, dyadic); device us per call from CUDA events."""
+    import torch
+
+    from repro_torch.fleet import maxplus as mp
+    from repro_torch.fleet.simulator import fifo_done
+
+    def fifo(t, s, free=0.0):
+        return mp.fifo_done_maxplus(t, s, free, device=dev)
+
+    def exact(got, want, what):
+        assert got.dtype == np.float64 and np.array_equal(got, want), what
+
+    rng = np.random.default_rng(17)
+
+    def dyadic(n):
+        return (rng.integers(0, 512, n) * 2.0 ** -6, rng.integers(0, 64, n) * 2.0 ** -6)
+
+    out = fifo(np.empty(0), np.empty(0))
+    assert out.shape == (0,) and out.dtype == np.float64, "empty window"
+    exact(fifo(np.array([3.0]), np.array([0.5])), [3.5], "single request")
+    exact(fifo(np.array([1.0]), np.array([0.5]), 4.0), [4.5], "single request, busy server")
+    t = np.array([0.0, 1.0, 1.0, 2.0, 5.0])
+    exact(fifo(t, np.zeros(5)), t, "zero service")
+    s2 = np.array([2.0, 0.0, 0.5, 0.0, 0.0])
+    exact(fifo(t, s2), mp.fifo_oracle(t, s2), "zero service interleaved")
+    exact(fifo(np.full(16, 2.5), np.full(16, 0.25)), 2.5 + 0.25 * np.arange(1, 17), "ties")
+    sat = rng.integers(1, 32, 100) * 2.0 ** -4
+    exact(fifo(np.zeros(100), sat), np.cumsum(sat), "saturated queue")
+    tu, su = dyadic(64)
+    rng.shuffle(tu)
+    exact(fifo(tu, su), mp.fifo_oracle(tu, su), "unsorted arrivals")
+    exact(fifo(np.array([0.0, 0.5, 4.0]), np.ones(3), 10.0), [11.0, 12.0, 13.0], "busy server")
+    exact(mp.kserver_done_maxplus(np.array([0.0, 0.0, 1.0]), np.full(3, 2.0), 5, device=dev),
+          [2.0, 2.0, 3.0], "k >= n")
+    td, sd = dyadic(40)
+    td.sort()
+    sc = np.full(40, sd[0])
+    exact(mp.kserver_done_maxplus(td, sc, 1, device=dev), fifo(td, sc), "k == 1")
+    assert mp.kserver_done_maxplus(np.empty(0), np.empty(0), 3, device=dev).shape == (0,)
+    for _ in range(50):  # and dyadic chains with a free time, as the property sweep
+        n = int(rng.integers(1, 129))
+        tr, sr = dyadic(n)
+        free = float(rng.integers(0, 256)) * 2.0 ** -6
+        exact(fifo(tr, sr, free), mp.fifo_oracle(tr, sr, free), "dyadic sweep")
+
+    # BENCH_fleet.json's fleet_compiled scale: one 1 048 576-request chain
+    n = 1 << 20
+    t = np.cumsum(rng.exponential(1.0 / 9000.0, n))
+    s = rng.uniform(2e-5, 2e-4, n)
+    t0 = time.perf_counter()
+    host = fifo_done(t, s, 0.5)
+    host_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = fifo(t, s, 0.5)
+    call_s = time.perf_counter() - t0
+    rel = float(np.max(np.abs(got - host) / host))
+    assert rel <= 1e-12, f"1M chain: max rel {rel:.3g} against host fifo_done"
+    tk, _ = dyadic(4096)
+    tk.sort()
+    sk = np.full(4096, 7 * 2.0 ** -6)
+    exact(mp.kserver_done_maxplus(tk, sk, 4, device=dev), mp.kserver_oracle(tk, sk, 4),
+          "k = 4 on a 4096-request prefix")
+    # k = 4 over the whole chain at a dyadic service time (9/128 s), so the
+    # running sums are exact and the four residue chains equal host fifo_done
+    cloud = np.full(n, 9 * 2.0 ** -7)
+    want = np.empty(n)
+    for r in range(4):
+        want[r::4] = fifo_done(t[r::4], cloud[r::4], 0.0)
+    exact(mp.kserver_done_maxplus(t, cloud, 4, device=dev), want, "1M chain, k = 4")
+
+    timing = ""
+    if dev.type == "cuda":
+        tt = torch.as_tensor(t, device=dev)
+        ss = torch.as_tensor(s, device=dev)
+        mask = torch.ones(n, dtype=torch.bool, device=dev)
+        rows = n // 4
+        t2, m2 = tt.reshape(rows, 4), mask.reshape(rows, 4)
+        c2 = torch.full((rows, 4), 9 * 2.0 ** -7, dtype=torch.float64, device=dev)
+        # the compiled fleet's layout: one chain per cell lane, the
+        # reference fleet's 1600 requests per cell by 64 cells
+        lanes = (1600, 64)
+        tl = torch.as_tensor(np.cumsum(rng.exponential(0.05, lanes), axis=0), device=dev)
+        sl = torch.as_tensor(rng.uniform(2e-3, 2e-2, lanes), device=dev)
+        ml = torch.ones(lanes, dtype=torch.bool, device=dev)
+        tlt, slt, mlt = tl.T.contiguous(), sl.T.contiguous(), ml.T.contiguous()
+
+        def inner(t, s, m):
+            """The same closed form scanned along the innermost axis of the
+            (cells, requests) layout, for comparison only."""
+            a = torch.where(m, s, torch.zeros_like(s))
+            acc = torch.cumsum(a, dim=1)
+            x = torch.where(m, t - (acc - a), torch.full_like(t, -torch.inf))
+            return acc + torch.cummax(x, dim=1).values.clamp(min=0.0)
+
+        lane_ref = mp.maxplus_fifo(tl, sl, ml, 0.0)
+        lane_rel = float(((inner(tlt, slt, mlt).T - lane_ref).abs() / lane_ref).max())
+        assert lane_rel <= 1e-12, f"(1600, 64) lanes: innermost against axis 0, rel {lane_rel:.3g}"
+
+        def device_us(fn, reps=20):
+            fn()
+            torch.cuda.synchronize()
+            times = []
+            for _ in range(reps):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                fn()
+                b.record()
+                b.synchronize()
+                times.append(a.elapsed_time(b) * 1e3)
+            return float(np.median(times))
+
+        chain_us = device_us(lambda: mp.maxplus_fifo(tt, ss, mask, 0.5))
+        k4_us = device_us(lambda: mp.maxplus_fifo(t2, c2, m2, 0.0), reps=3)
+        lane_us = device_us(lambda: mp.maxplus_fifo(tl, sl, ml, 0.0))
+        lane_inner = device_us(lambda: inner(tlt, slt, mlt))
+        timing = (f"; device us per maxplus_fifo call (CUDA events, median, tensors on the "
+                  f"card): 1M chain {chain_us:.1f}, its k = 4 view {k4_us:.1f}, (1600, 64) "
+                  f"lanes {lane_us:.1f} (scanned along the innermost axis of their "
+                  f"transpose: {lane_inner:.1f}); bounds (t, s in, done out) "
+                  f"{n * 8 * 3 / HBM_BYTES_PER_S * 1e6:.2f} and "
+                  f"{lanes[0] * lanes[1] * 8 * 3 / HBM_BYTES_PER_S * 1e6:.3f}")
+    say(f"maxplus: 8 edge cases and 50 dyadic chains equal the oracle exactly; "
+        f"1 048 576-request chain max rel {rel:.3g} against host fifo_done "
+        f"({host_s * 1e3:.2f} ms numpy), k = 4 over it equal to four host chains; host ms per "
+        f"fifo_done_maxplus call with its copies {call_s * 1e3:.2f}" + timing, timed=True)
+
+
+def fleet_phase(dev, val, test, plans, n_cells=64, twin_cells=64, say=print):
+    """The fleet simulator and the orchestration plane on `dev`, every run
+    held against the same run of the CPU port with the "numpy" backend;
+    the launches of every run asserted. `plans` is (uncalibrated, global,
+    bank), fit on `dev` from `val`."""
+    import torch
+
+    from repro_torch.core.gatepath import GateTable, TorchGateBackend
+    from repro_torch.fleet import FleetController, FleetControllerConfig
+    from repro_torch.fleet.scenarios import fleet_gate_table, reference_fleet, run_fleet
+    from repro_torch.kernels import compress, exit_gate
+    from repro_torch.offload import latency
+    from repro_torch.orchestration import run_scenarios
+    from repro_torch.orchestration.scenarios import _drift_data
+
+    cpu = torch.device("cpu")
+    card = dev.type == "cuda"
+    counters = {"exit_gate": exit_gate.KERNEL, "encode": compress.ENCODE,
+                "decode": compress.DECODE}
+    steps = []
+
+    def launches():
+        return {n: k.launches for n, k in counters.items()}
+
+    def expect(step, before, **want):
+        got = {n: v - before[n] for n, v in launches().items()}
+        want = {n: want.get(n, 0) if card else 0 for n in counters}
+        assert got == want, f"{step}: launches {got}, worked out {want}"
+        steps.append(f"{step} {tuple(got.values())}")
+
+    maxplus_checks(dev, say)
+
+    with open(os.path.join(ROOT, "BENCH_fleet.json")) as f:
+        bench = json.load(f)
+    uncal, glob, bank = plans
+    gate = TorchGateBackend(device=dev)
+    n_ctx = len(test["final"])
+    grid = (0.3, 0.5, 0.7, 0.8)  # the plans' p_tar and the controller grid
+    codec_cfg = FleetControllerConfig(  # benchmarks/run.py's _comp_fleet_arm((0, 1, 2))
+        interval_s=1.0, window_s=2.0, p_tar_grid=grid, min_accuracy=0.8, cloud_rho_max=0.9,
+        compression_levels=(0, 1, 2))
+    arms = (("static_uncalibrated", uncal, {}),
+            ("expert_bank_static", bank, {}),
+            ("expert_bank_controller", bank, dict(with_controller=True)),
+            ("compression_aware", bank, dict(with_controller=True,
+                                             controller_config=codec_cfg)),
+            ("global_level2", glob.with_compression(2), {}))
+    scn = reference_fleet(n_cells=n_cells, val=val, test=test)
+    twin_scn = scn if twin_cells == n_cells else reference_fleet(n_cells=twin_cells, val=val,
+                                                                 test=test)
+    # confidences near a p_tar the runs visit: the host twins of the gate
+    # tables and of the controller's validation blocks (no launch)
+    band = sum(near_boundary(fleet_gate_table(p, scn, backend="numpy").conf, grid)
+               for p in (uncal, bank, glob))
+    ctrl = FleetController(bank, latency.paper_2020(), val["exit_logits"], n_cells=1,
+                           final_logits=val["final"], labels=val["labels"], backend="numpy")
+    band += near_boundary(np.concatenate([c for c, _ in ctrl.core._exit_stats]), grid)
+    say(f"{band} confidences of the fleet's gate tables and the controller's validation "
+        f"blocks within {BOUNDARY} of the p_tars {grid}")
+    topo = scn.topology
+    windows = int(np.ceil(topo.horizon_s / 0.5)) + 1
+    say(f"reference fleet: {topo.n_cells} cells, {topo.n_requests} requests, "
+        f"{topo.cloud_servers} cloud servers, paper_2020, 0.5 s windows ({windows} per run)")
+    levels_asked = []
+    cloud_pred = GateTable.cloud_pred
+
+    def recording(self, ctx_ids, samples, level=0):
+        if int(level) not in self._final_pred_by_level:
+            levels_asked.append(int(level))
+        return cloud_pred(self, ctx_ids, samples, level)
+
+    GateTable.cloud_pred = recording
+    try:
+        for name, p, kw in arms:
+            before = launches()
+            del levels_asked[:]
+            t0 = time.perf_counter()
+            tel = run_fleet(p, scn, backend=gate, **kw)
+            wall = time.perf_counter() - t0
+            asked = sorted(levels_asked)
+            # a gate table is one K1 per (context, branch); a controller core
+            # one per (branch, context) and one K3 + K4 round trip of the
+            # validation finals per non-zero codec level; the table's cloud
+            # predictions one K3 + K4 per context and per new non-zero level
+            ctrl_levels = kw.get("controller_config", FleetControllerConfig()).compression_levels
+            codec = (len([lv for lv in (ctrl_levels or ()) if lv])
+                     * bool(kw.get("with_controller")) + n_ctx * len(asked))
+            expect(f"{name} ({dev.type})", before,
+                   exit_gate=2 * n_ctx * (1 + bool(kw.get("with_controller"))),
+                   encode=codec, decode=codec)
+            before = launches()
+            t0 = time.perf_counter()
+            host = run_fleet(p, twin_scn, backend="numpy", **kw)
+            host_wall = time.perf_counter() - t0
+            expect(f"{name} (cpu)", before)
+            if twin_cells == n_cells:
+                same_fleet(tel, host, f"{name}: {dev.type} against cpu")
+                held = "equal to the CPU port's (numpy backend)"
+            else:
+                small = run_fleet(p, twin_scn, backend=gate, **kw)
+                same_fleet(small, host, f"{name}: {twin_cells} cells, {dev.type} against cpu")
+                held = f"the {twin_cells}-cell twin equal to the CPU port's"
+            s = tel.fleet_summary()
+            ref = (bench["plans"].get(name, {}).get("fleet")
+                   or bench["compression"].get(name))
+            if ref is not None:
+                missing = ref.keys() - s.keys()
+                assert not missing, f"{name}: the summary lacks {sorted(missing)}"
+                same_fleet_summary(s, ref, ref, f"{name} against BENCH_fleet.json")
+                exact = all(s[k] == ref[k] for k in ref)
+                cited = (f" (BENCH_fleet.json, the reference on a CPU: p99 {ref['p99_ms']:.3f} ms,"
+                         f" gap {ref['miscalibration_gap']:.4f}; every summary number equal"
+                         + ("" if exact else ", latencies to rel 1e-9") + ")")
+            else:
+                cited = ""
+            say(f"{name}: p99 {s['p99_ms']:.3f} ms, gap {s['miscalibration_gap']:.4f}, "
+                f"accuracy {s['accuracy']:.4f}, offload rate {s['offload_rate']:.4f}, "
+                f"switches {s['controller_switches']}{cited}; {held}; codec levels of the "
+                f"cloud tables {asked or 'none'}; host s per run: "
+                f"{dev.type} {wall:.3f}, cpu {host_wall:.3f} ({windows} windows)", timed=True)
+    finally:
+        GateTable.cloud_pred = cloud_pred
+
+    # the adversarial matrix: quick scenarios, plans fit on each device
+    before = launches()
+    t0 = time.perf_counter()
+    recs = run_scenarios(quick=True, device=dev)
+    wall = time.perf_counter() - t0
+    # K1 blocks per scenario, each one K1 per (context, branch): the bank
+    # fit's validation gate, one gate table per run and per rollout
+    # candidate, one controller core per controller run; no codec level
+    blocks = {"weather_front": 1 + 2 + 1, "flash_crowd": 1 + 2 + 1,
+              "link_outage": 1 + 2 + 1, "cloud_brownout": 1 + 2 + 1,
+              "poisoned_canary": 1 + 3 + 1, "good_rollout": 1 + 2 + 1}
+    assert [r["name"] for r in recs] == list(blocks), [r["name"] for r in recs]
+    n_mat = len(_drift_data(0)[1]["final"])
+    expect("adversarial matrix", before, exit_gate=2 * n_mat * sum(blocks.values()))
+    before = launches()
+    t0 = time.perf_counter()
+    host = run_scenarios(quick=True, device=cpu)
+    host_wall = time.perf_counter() - t0
+    expect("adversarial matrix (cpu)", before)
+    assert [r["name"] for r in recs] == [r["name"] for r in host]
+    for r, h in zip(recs, host):
+        same_record(r, h, r["name"])
+        assert r["pass"], f"scenario {r['name']} failed: {r['wins']}"
+    say(f"adversarial matrix (quick, 8 cells): {', '.join(r['name'] for r in recs)} all pass; "
+        f"records equal to the CPU port's field by field; host s {dev.type} {wall:.3f}, cpu "
+        f"{host_wall:.3f}", timed=True)
+    say("launches per run (K1, K3, K4): " + "; ".join(steps))
+
+
 def main() -> int:
     import torch
 
@@ -855,8 +1221,8 @@ def main() -> int:
     # and 4000, which lie in different warps of the block layout; rows 4-19
     # a division tie (x1 at a lower column than x2) as the row's max.
     f32, bf16 = torch.float32, torch.bfloat16
-    k1_cases = [((512, 10), f32), ((1, 10), f32), ((2048, 10), f32), ((3, 1), f32), ((3, 10), bf16), ((64, 32), f32),
-                ((64, 33), bf16), ((64, 1024), f32), ((3, 1025), f32), ((3, 1025), bf16),
+    k1_cases = [((512, 10), f32), ((1, 10), f32), ((2048, 10), f32), ((1024, 10), f32),
+                ((3, 1), f32), ((3, 10), bf16), ((64, 32), f32), ((64, 33), bf16), ((64, 1024), f32), ((3, 1025), f32), ((3, 1025), bf16),
                 ((64, 4097), f32), ((64, 4097), bf16), ((5, 8193), f32), ((5, 8193), bf16),
                 ((256, 151_936), f32), ((256, 151_936), bf16)]
     for shape, dtype in k1_cases:
@@ -965,7 +1331,9 @@ def main() -> int:
     # (5, 301: cols % 4 != 0), an all-zero group and inf/nan inputs, and
     # rescore_plan's codec axis: (n, 10) logits, one partial group per row
     # and cols % 4 != 0; the runtime's shapes: one request's payload per
-    # branch and the congested scenario's (2048, 10) final logits
+    # branch and the congested scenario's (2048, 10) final logits; the
+    # fleet's: a context's (1024, 10) final logits (cloud tables) and the
+    # controller core's four contexts' (4096, 10)
     codec_cases = [((512, 16, 16, 64), 1, None), ((512, 16, 16, 64), 2, None),
                    ((1, 16, 16, 64), 2, None), ((1, 8, 8, 96), 2, None), ((2048, 10), 2, None),
                    ((252, 16, 16, 64), 1, None), ((252, 16, 16, 64), 2, None),
@@ -974,6 +1342,7 @@ def main() -> int:
                    ((3, 700), 1, None), ((3, 700), 2, None),
                    ((5, 301), 1, None), ((5, 301), 2, None),
                    ((8, 512), 2, zero_half), ((8, 512), 1, nonfinite), ((8, 512), 2, nonfinite),
+                   ((1024, 10), 2, None), ((4096, 10), 1, None), ((4096, 10), 2, None),
                    ((3000, 10), 1, None), ((3000, 10), 2, None),
                    ((7000, 10), 1, None), ((7000, 10), 2, None)]
     for shape, level, fixed in codec_cases:
@@ -1189,6 +1558,23 @@ def main() -> int:
                                                    (val_d, test_d, drift_plans), say=say))
 
     # ---------------------------------------------------------------- 9
+    t0 = time.perf_counter()
+    val_f, test_f = synthetic_distorted_cascade(directions={"gaussian_blur": "under"})
+    fleet_plans = fit_drift_plans(val_f, device=cuda)
+    host_plans = fit_drift_plans(val_f, device="cpu")  # only to report the gap in T
+
+    def temps(plans):
+        _, glob, bank = plans
+        return np.array(glob.temperatures + [t for c in bank.contexts
+                                             for t in bank.plan_for(c).temperatures])
+
+    dt = float(np.max(np.abs(temps(fleet_plans) / temps(host_plans) - 1.0)))
+    print(f"[fleet] set-up: the fleet bench's data (numpy) and plans fit on the card in "
+          f"{time.perf_counter() - t0:.2f} s; the same fits on the CPU differ in T by "
+          f"rel {dt:.3g} at most {card}")
+    run_phase("fleet", lambda say: fleet_phase(cuda, val_f, test_f, fleet_plans, say=say))
+
+    # ---------------------------------------------------------------- 10
     launches = {n: sum(c[n] for c in phase_launches.values()) for n in kernels}
     table = []
     for n in kernels:

@@ -23,7 +23,8 @@ confidence and the argmax prediction, compare against the moving target
   T; the port has no such limit.)
 
 ``"compiled"`` (the compiled fleet simulator's backend) waits for the
-fleet slice; asking for it raises.
+compiled-fleet slice of the port (`fleet/compiled.py`, the one after the
+host fleet simulator); asking for it raises.
 
 Consumers select a backend per run: `OffloadPlan.gate_block(...,
 backend=)`, `PlanBank.gate_block(..., backend=)`, `GateTable(...,
@@ -268,8 +269,9 @@ class TorchGateBackend(GateBackend):
 # -------------------------------------------------------------- registry
 def _compiled_backend_factory() -> GateBackend:
     raise NotImplementedError(
-        "the 'compiled' gate backend belongs to the compiled fleet simulator, "
-        "which waits for the fleet slice of the port"
+        "the 'compiled' gate backend belongs to the compiled fleet simulator "
+        "(fleet/compiled.py), which waits for the compiled-fleet slice of the "
+        "port, the one after the host fleet simulator; use 'torch' or 'numpy'"
     )
 
 

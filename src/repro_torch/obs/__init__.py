@@ -2,8 +2,7 @@
 
 Port of `repro.obs`: pure Python and host numpy, no tensor and no
 kernel. One `Observability` bundle threads through the event-driven
-serving runtime (and, once ported, the fleet simulator and the
-orchestration plane)::
+serving runtime, the fleet simulator and the orchestration plane::
 
     from repro_torch.obs import Observability, RingBufferSink, AuditLog, MetricsRegistry
 

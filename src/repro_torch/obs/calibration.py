@@ -9,9 +9,8 @@ The real diagnostic is the reliability diagram (`repro_torch.core.metrics`),
 which until this module existed only as an offline helper over full
 logit arrays. `ReliabilitySketch` makes it STREAMING: a fixed-size
 per-(cell, context, branch) bin sketch that every serving stack can
-update online (per request in `ServingRuntime`; the reference's fleet
-simulators update it per window, and their port waits for the fleet
-slice) and that merges EXACTLY -- elementwise addition -- so
+update online (per request in `ServingRuntime`, per window in the
+`FleetSimulator`) and that merges EXACTLY -- elementwise addition -- so
 per-cell sketches roll up to fleet regimes without touching raw
 samples.
 

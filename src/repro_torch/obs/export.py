@@ -35,7 +35,7 @@ def serving_metrics(telemetry,
 
 def fleet_metrics(telemetry, registry: Optional[MetricsRegistry] = None,
                   per_cell: bool = True) -> MetricsRegistry:
-    """Gauges from a `FleetTelemetry` (the fleet slice's): the fleet
+    """Gauges from a `FleetTelemetry` (`repro_torch.fleet`): the fleet
     summary plus (optionally) the operator's per-cell table."""
     reg = registry if registry is not None else MetricsRegistry()
     for k, v in telemetry.fleet_summary().items():

@@ -12,8 +12,7 @@ mix look like over the last window) -- the latter is what
 
 The metric and estimator definitions live in `repro_torch.core.control`
 (`latency_stats_ms`, `on_device_gap`, `windowed_mean`/`windowed_rate`/
-`windowed_mix`) and are shared with the fleet's telemetry (in the
-reference, and in the port once the fleet is ported), so the two
+`windowed_mix`) and are shared with `repro_torch.fleet.telemetry`, so the two
 stacks cannot disagree about what a number means; they are re-exported
 here for the long-standing import sites.
 """

@@ -166,7 +166,7 @@ def test_backend_registry_and_device_rule():
     assert tgate.get_gate_backend(TORCH_CPU) is TORCH_CPU
     assert TORCH_CPU.device == torch.device("cpu")
     assert tgate.get_gate_backend("numpy").device == torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="fleet slice"):
+    with pytest.raises(NotImplementedError, match="compiled-fleet slice"):
         tgate.get_gate_backend("compiled")
     with pytest.raises(ValueError, match="unknown gate backend"):
         tgate.get_gate_backend("jax")

@@ -42,6 +42,14 @@ PORTED = [
     "repro_torch.core.policy",
     "repro_torch.data.distortion",
     "repro_torch.data.synthetic",
+    "repro_torch.fleet",
+    "repro_torch.fleet.controller",
+    "repro_torch.fleet.gate",
+    "repro_torch.fleet.maxplus",
+    "repro_torch.fleet.scenarios",
+    "repro_torch.fleet.simulator",
+    "repro_torch.fleet.telemetry",
+    "repro_torch.fleet.topology",
     "repro_torch.kernels._build",
     "repro_torch.kernels.calib_nll",
     "repro_torch.kernels.compress",
@@ -60,6 +68,12 @@ PORTED = [
     "repro_torch.obs.metrics",
     "repro_torch.obs.trace",
     "repro_torch.offload.simulator",
+    "repro_torch.orchestration",
+    "repro_torch.orchestration.churn",
+    "repro_torch.orchestration.plane",
+    "repro_torch.orchestration.qos",
+    "repro_torch.orchestration.rollout",
+    "repro_torch.orchestration.scenarios",
     "repro_torch.serving",
     "repro_torch.serving.controller",
     "repro_torch.serving.drift",
@@ -90,6 +104,81 @@ def test_port_imports_neither_jax_nor_repro():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "isolated"
+
+
+def test_running_the_fleet_and_orchestration_loads_neither_jax_nor_repro():
+    """Importing is not enough: the reference reaches other modules through
+    imports inside functions, so the port is run -- a 2-cell fleet at
+    codec level 2 with every observability sink on, one quick
+    orchestration scenario (QoS, rollout, audit chain) and the max-plus
+    solvers, all on the CPU -- and only then are the loaded modules
+    checked."""
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "from repro_torch.fleet.maxplus import fifo_done_maxplus, kserver_done_maxplus\n"
+        "from repro_torch.fleet.scenarios import reference_fleet, run_fleet\n"
+        "from repro_torch.obs import full_observability\n"
+        "from repro_torch.orchestration import run_scenarios\n"
+        "from repro_torch.serving.scenarios import fit_drift_plans, "
+        "synthetic_distorted_cascade\n"
+        "val, test = synthetic_distorted_cascade(n=128, n_val=128)\n"
+        "_, glob, _ = fit_drift_plans(val, device='cpu')\n"
+        "scn = reference_fleet(n_cells=2, requests_per_cell=60, val=val, test=test)\n"
+        "obs = full_observability()\n"
+        "s = run_fleet(glob.with_compression(2), scn, backend='numpy', obs=obs).fleet_summary()\n"
+        "assert s['requests'] == 120 and 0 < s['offload_rate'] < 1, s\n"
+        "(rec,) = run_scenarios(['poisoned_canary'], quick=True, device='cpu')\n"
+        "assert rec['pass'], rec['wins']\n"
+        "t = np.arange(8.0)\n"
+        "assert fifo_done_maxplus(t, np.ones(8), device='cpu').tolist() == (t + 1).tolist()\n"
+        "assert kserver_done_maxplus(t, np.ones(8), 2, device='cpu').shape == (8,)\n"
+        "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "bad = [m for m in sys.modules if m == 'repro' or m.startswith('repro.')]\n"
+        "assert not bad, bad\n"
+        "print('isolated')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "isolated"
+
+
+def test_fleet_and_orchestration_refuse_without_gpu(monkeypatch):
+    """The fleet's entry points, the scenario matrix and the max-plus
+    solvers follow the device rule: without `backend`/`device` they
+    raise, and nothing launches."""
+    from repro_torch.fleet import FleetController, FleetGateTable
+    from repro_torch.fleet.maxplus import fifo_done_maxplus, kserver_done_maxplus
+    from repro_torch.fleet.scenarios import fleet_gate_table, reference_fleet, run_fleet
+    from repro_torch.offload import latency
+    from repro_torch.orchestration import run_scenarios
+    from repro_torch.serving.scenarios import synthetic_distorted_cascade
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    val, test = synthetic_distorted_cascade(n=64, n_val=64)
+    scn = reference_fleet(n_cells=2, requests_per_cell=10, val=val, test=test)
+    plan = OffloadPlan(p_tar=0.8, calibrators=[TemperatureScaling.from_temperature(1.5)] * 2)
+    t = np.zeros(3)
+    for call in (
+        lambda: run_fleet(plan, scn),
+        lambda: run_fleet(plan.with_compression(2), scn, with_controller=True),
+        lambda: fleet_gate_table(plan, scn),
+        lambda: FleetGateTable(test["exit_logits"], test["final"], plan),
+        lambda: FleetController(plan, latency.paper_2020(), val["exit_logits"], n_cells=2,
+                                final_logits=val["final"], labels=val["labels"]),
+        lambda: run_scenarios(),
+        lambda: run_scenarios(["link_outage"], quick=True),
+        lambda: fifo_done_maxplus(t, t),
+        lambda: kserver_done_maxplus(t, t, 2),
+    ):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    # named host paths need no device and launch nothing
+    run_fleet(plan.with_compression(2), scn, with_controller=True, backend="numpy")
+    fifo_done_maxplus(t, t, device="cpu")
+    assert [k.launches for k in KERNELS] == [0, 0, 0, 0]
 
 
 def test_entry_points_refuse_without_gpu(monkeypatch):

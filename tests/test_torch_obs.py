@@ -15,7 +15,8 @@ Tolerances:
 * the sketch's ECE against `repro_torch.core.metrics.ece`: 1e-12 on
   closed forms, 1e-9 against a trace (the reference's check);
 * `repro_torch.obs.check` finds no violation on the port's artifacts.
-The fleet, compiled and orchestration cases wait for those modules.
+The fleet and orchestration cases are in tests/test_torch_fleet.py; the
+compiled-fleet ones wait for that module.
 """
 import copy
 import json
