@@ -81,14 +81,28 @@ Phases, each printing its own lines:
             adversarial matrix (run_scenarios) on the card against the CPU,
             record by record. The K1, K3 and K4 launches of every run are
             worked out from the code and asserted.
-10. result  one JSON line with every kernel's numbers, the nvidia-smi
+10. compiled the compiled fleet pipeline (`repro_torch.fleet.compiled`,
+            backend "compiled") on the card: the 64-cell fleet with phase
+            9's plans in three arms (expert bank static, uncalibrated, the
+            global plan at codec level 2), each held to the host simulator
+            on the same table (columns equal, latencies to rel 1e-9) and
+            to BENCH_fleet.json (or phase 9's run, where the bench holds
+            no summary); churn shed, a whole-fleet outage, the QoS monitor
+            and full observability at 6 cells x 200 requests through
+            run_fleet against the host run; a controller and a rollout
+            rejected; the scale arm, 256 cells x 4096 = 1 048 576
+            requests, against the host simulator with the "numpy" backend.
+            Host s of the pre-pass, program and recovery, device ms per
+            stage (CUDA events), the device's idle share over one profiled
+            run, and the launches of every run asserted.
+11. result  one JSON line with every kernel's numbers, the nvidia-smi
             line, and last {"ok": true, "device": {...}}.
 
-Phases 4-9 are the main path: each sets the launch counts to 0 just
+Phases 4-10 are the main path: each sets the launch counts to 0 just
 before it and reads them just after, and fails if a kernel of its path
 did not run (train: K1; serving: K1-K4; paper: K1, K2; bank: K1, K3,
-K4; runtime: K1, K3, K4; fleet: K1, K3, K4). Every line that prints a
-time names the card and its power limit.
+K4; runtime: K1, K3, K4; fleet and compiled: K1, K3, K4). Every line
+that prints a time names the card and its power limit.
 
 Any failure raises, so the process exits non-zero and prints no result;
 without a GPU it exits 2 before doing anything. Imports neither jax nor
@@ -129,7 +143,8 @@ PHASE_KERNELS = {"train": ("exit_gate",),
                  "paper": ("exit_gate", "calib_nll"),
                  "bank": ("exit_gate", "encode", "decode"),
                  "runtime": ("exit_gate", "encode", "decode"),
-                 "fleet": ("exit_gate", "encode", "decode")}
+                 "fleet": ("exit_gate", "encode", "decode"),
+                 "compiled": ("exit_gate", "encode", "decode")}
 # K1's boundary: the kernel's conf = 1/S and the plain max(exp(logp)) are
 # about 1e-7 apart, so decisions are compared only away from p_tar +- this
 BOUNDARY = 1e-6
@@ -740,11 +755,11 @@ def same_fleet_summary(a, b, keys, what):
         assert ok, f"{what}: {k} {x!r} against {y!r}"
 
 
-def same_fleet(tel, host, what):
+def same_fleet(tel, host, what, atol=0.0):
     """Two fleet runs agree: every cell's per-request columns (latencies to
-    rel 1e-9, the rest equal), the per-cell and fleet summaries (latencies
-    to rel 1e-9, every decision-derived number equal) and the controller's
-    switches."""
+    rel 1e-9 and `atol`, the rest equal), the per-cell and fleet summaries
+    (latencies to rel 1e-9, every decision-derived number equal) and the
+    controller's switches."""
     from repro_torch.fleet.telemetry import _CellColumns
 
     assert tel.n_cells == host.n_cells, what
@@ -752,7 +767,7 @@ def same_fleet(tel, host, what):
         for f in _CellColumns.FIELDS:
             a, b = tel._cells[c].column(f), host._cells[c].column(f)
             if f == "latency_s":
-                np.testing.assert_allclose(a, b, rtol=1e-9, atol=0, err_msg=f"{what}: cell {c}")
+                np.testing.assert_allclose(a, b, rtol=1e-9, atol=atol, err_msg=f"{what}: cell {c}")
             else:
                 np.testing.assert_array_equal(a, b, err_msg=f"{what}: cell {c} {f}")
     pairs = [("fleet", tel.fleet_summary(), host.fleet_summary())] + [
@@ -790,6 +805,28 @@ def same_record(a, b, key=""):
         assert abs(a - b) <= 1e-9 * max(abs(a), abs(b)), (key, a, b)
     else:
         assert a == b, (key, a, b)
+
+
+class LaunchLog:
+    """The K1/K3/K4 launches of a phase's steps: each step's count worked
+    out from the code beforehand and asserted (none off the card)."""
+
+    def __init__(self, dev):
+        from repro_torch.kernels import compress, exit_gate
+
+        self.card = dev.type == "cuda"
+        self.counters = {"exit_gate": exit_gate.KERNEL, "encode": compress.ENCODE,
+                         "decode": compress.DECODE}
+        self.steps = []
+
+    def now(self):
+        return {n: k.launches for n, k in self.counters.items()}
+
+    def expect(self, step, before, **want):
+        got = {n: v - before[n] for n, v in self.now().items()}
+        want = {n: want.get(n, 0) if self.card else 0 for n in self.counters}
+        assert got == want, f"{step}: launches {got}, worked out {want}"
+        self.steps.append(f"{step} {tuple(got.values())}")
 
 
 def maxplus_checks(dev, say):
@@ -929,31 +966,20 @@ def fleet_phase(dev, val, test, plans, n_cells=64, twin_cells=64, say=print):
     """The fleet simulator and the orchestration plane on `dev`, every run
     held against the same run of the CPU port with the "numpy" backend;
     the launches of every run asserted. `plans` is (uncalibrated, global,
-    bank), fit on `dev` from `val`."""
+    bank), fit on `dev` from `val`. Returns each arm's fleet summary."""
     import torch
 
     from repro_torch.core.gatepath import GateTable, TorchGateBackend
     from repro_torch.fleet import FleetController, FleetControllerConfig
     from repro_torch.fleet.scenarios import fleet_gate_table, reference_fleet, run_fleet
-    from repro_torch.kernels import compress, exit_gate
     from repro_torch.offload import latency
     from repro_torch.orchestration import run_scenarios
     from repro_torch.orchestration.scenarios import _drift_data
 
     cpu = torch.device("cpu")
-    card = dev.type == "cuda"
-    counters = {"exit_gate": exit_gate.KERNEL, "encode": compress.ENCODE,
-                "decode": compress.DECODE}
-    steps = []
-
-    def launches():
-        return {n: k.launches for n, k in counters.items()}
-
-    def expect(step, before, **want):
-        got = {n: v - before[n] for n, v in launches().items()}
-        want = {n: want.get(n, 0) if card else 0 for n in counters}
-        assert got == want, f"{step}: launches {got}, worked out {want}"
-        steps.append(f"{step} {tuple(got.values())}")
+    log = LaunchLog(dev)
+    launches, expect = log.now, log.expect
+    summaries = {}
 
     maxplus_checks(dev, say)
 
@@ -1027,7 +1053,7 @@ def fleet_phase(dev, val, test, plans, n_cells=64, twin_cells=64, say=print):
                 small = run_fleet(p, twin_scn, backend=gate, **kw)
                 same_fleet(small, host, f"{name}: {twin_cells} cells, {dev.type} against cpu")
                 held = f"the {twin_cells}-cell twin equal to the CPU port's"
-            s = tel.fleet_summary()
+            s = summaries[name] = tel.fleet_summary()
             ref = (bench["plans"].get(name, {}).get("fleet")
                    or bench["compression"].get(name))
             if ref is not None:
@@ -1074,7 +1100,244 @@ def fleet_phase(dev, val, test, plans, n_cells=64, twin_cells=64, say=print):
     say(f"adversarial matrix (quick, 8 cells): {', '.join(r['name'] for r in recs)} all pass; "
         f"records equal to the CPU port's field by field; host s {dev.type} {wall:.3f}, cpu "
         f"{host_wall:.3f}", timed=True)
-    say("launches per run (K1, K3, K4): " + "; ".join(steps))
+    say("launches per run (K1, K3, K4): " + "; ".join(log.steps))
+    return summaries
+
+
+def same_trace(recs, other, what):
+    """Two sampled traces: the same records, floats to rel 1e-9 / abs
+    1e-12 (span edges come from the latencies), the rest equal."""
+    assert len(recs) == len(other) > 0, what
+
+    def check(a, b, path):
+        if isinstance(a, dict):
+            assert isinstance(b, dict) and a.keys() == b.keys(), (what, path)
+            for k in a:
+                check(a[k], b[k], f"{path}.{k}")
+        elif isinstance(a, (list, tuple)):
+            assert len(a) == len(b), (what, path)
+            for i, (x, y) in enumerate(zip(a, b)):
+                check(x, y, f"{path}[{i}]")
+        elif isinstance(a, float) and not isinstance(a, bool):
+            assert abs(a - b) <= 1e-12 + 1e-9 * abs(b), (what, path, a, b)
+        else:
+            assert a == b, (what, path, a, b)
+
+    for a, b in zip(recs, other):
+        check(a, b, f"req {a['req_id']}")
+
+
+def compiled_phase(dev, val, test, plans, fleet_summaries, n_cells=64, small=(6, 200),
+                   scale=(256, 4096), say=print):
+    """The compiled fleet pipeline (`repro_torch.fleet.compiled`) on `dev`:
+    BENCH_fleet.json's 64-cell fleet in three arms, each held to the host
+    FleetSimulator on the same table on `dev` and to the bench (to phase
+    9's run where the bench holds no summary); churn, a whole-fleet outage,
+    the QoS monitor and full observability at `small` cells x requests
+    (2 cloud servers), each through run_fleet against the host run; the
+    scope limits; the scale arm, `scale` cells x requests, against the
+    host simulator with the "numpy" backend. Host s and device ms per
+    stage, the device's idle share over one profiled run, and the
+    launches of every run asserted. `plans` is phase 9's."""
+    import torch
+
+    from repro_torch.core.gatepath import TorchGateBackend
+    from repro_torch.fleet import CompiledFleetSimulator, CompiledGateBackend, FleetConfig
+    from repro_torch.fleet import FleetSimulator
+    from repro_torch.fleet.scenarios import fleet_gate_table, reference_fleet, run_fleet
+    from repro_torch.obs import full_observability
+    from repro_torch.obs.check import run_checks
+    from repro_torch.offload import latency
+    from repro_torch.orchestration import ChurnSchedule, Orchestrator, RolloutManager
+    from repro_torch.orchestration.qos import CellSLO, QoSConfig, QoSMonitor
+
+    log = LaunchLog(dev)
+    comp, gate = CompiledGateBackend(device=dev), TorchGateBackend(device=dev)
+    profile, cfg = latency.paper_2020(), FleetConfig(window_s=0.5)
+    n_ctx = len(test["final"])
+    with open(os.path.join(ROOT, "BENCH_fleet.json")) as f:
+        bench = json.load(f)
+    uncal, glob, bank = plans
+
+    def stages(sim):
+        host = ", ".join(f"{k} {v:.3f}" for k, v in sim.host_s.items())
+        dev_ms = (", ".join(f"{k} {v:.3f}" for k, v in sim.stage_ms.items())
+                  if sim.stage_ms else "not measured off the card")
+        return f"host s: {host}; device ms per stage (CUDA events): {dev_ms}"
+
+    # ---- the 64-cell reference fleet, three static arms
+    scn = reference_fleet(n_cells=n_cells, val=val, test=test)
+    topo = scn.topology
+    say(f"reference fleet: {topo.n_cells} cells, {topo.n_requests} requests, "
+        f"{topo.cloud_servers} cloud servers, 0.5 s windows")
+    tables = {}
+    for name, p in (("expert_bank_static", bank), ("static_uncalibrated", uncal),
+                    ("global_level2", glob.with_compression(2))):
+        before = log.now()
+        t0 = time.perf_counter()
+        table = tables[name] = fleet_gate_table(p, scn, backend=comp)
+        table_s = time.perf_counter() - t0
+        sim = CompiledFleetSimulator(table, topo, profile, config=cfg)
+        t0 = time.perf_counter()
+        tel = sim.run()
+        wall = time.perf_counter() - t0
+        # the table: one K1 per (context, branch); the cloud predictions one
+        # K3 + K4 per context at a non-zero level; the program none
+        codec = n_ctx * bool(getattr(p, "compression_level", 0))
+        log.expect(f"{name} compiled", before, exit_gate=2 * n_ctx, encode=codec,
+                   decode=codec)
+        before = log.now()
+        t0 = time.perf_counter()
+        host = FleetSimulator(table, topo, profile, config=cfg).run()
+        host_wall = time.perf_counter() - t0
+        log.expect(f"{name} host", before)  # the same table: nothing new
+        same_fleet(tel, host, f"{name}: compiled against host", atol=1e-12)
+        s = tel.fleet_summary()
+        ref = bench["plans"].get(name, {}).get("fleet")
+        if n_cells != 64:
+            cited = ""
+        elif ref is not None:
+            same_fleet_summary(s, ref, ref, f"{name} against BENCH_fleet.json")
+            cited = (f" (BENCH_fleet.json, the reference on a CPU: p99 {ref['p99_ms']:.3f} ms, "
+                     f"gap {ref['miscalibration_gap']:.4f}; every summary number equal, "
+                     f"latencies to rel 1e-9)")
+        else:
+            prev = fleet_summaries[name]
+            same_fleet_summary(s, prev, prev, f"{name} against phase 9")
+            cited = " (no summary in BENCH_fleet.json; equal to phase 9's run)"
+        say(f"{name}: p99 {s['p99_ms']:.3f} ms, gap {s['miscalibration_gap']:.4f}, accuracy "
+            f"{s['accuracy']:.4f}, offload rate {s['offload_rate']:.4f}{cited}; columns equal "
+            f"to the host simulator's on the same table; host s per run: compiled {wall:.3f}, "
+            f"host {host_wall:.3f} (table {table_s:.3f}); compiled {stages(sim)}", timed=True)
+
+    # ---- the device's idle share over one compiled run (bank, 64 cells)
+    sim = CompiledFleetSimulator(tables["expert_bank_static"], topo, profile, config=cfg)
+    _sync(dev)
+    t0 = time.perf_counter()
+    sim.run()
+    wall = time.perf_counter() - t0
+    if log.card:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile as torch_profile
+
+        before = log.now()
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            psim = CompiledFleetSimulator(tables["expert_bank_static"], topo, profile,
+                                          config=cfg)
+            psim.run()
+            _sync(dev)
+        log.expect("profiled compiled run", before)
+        kern = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                      key=lambda e: -e.self_device_time_total)
+        busy_s = sum(e.self_device_time_total for e in kern) / 1e6
+        say(f"profiled compiled run (expert bank, {n_cells} cells): {busy_s * 1e3:.3f} ms of "
+            f"device time in {sum(e.count for e in kern)} kernels and copies; against the "
+            f"unprofiled run's {wall:.3f} s the device is {1 - busy_s / wall:.1%} idle, against "
+            f"its program span ({sim.host_s['program']:.3f} s: upload, program, sync, download) "
+            f"{1 - busy_s / sim.host_s['program']:.1%}; the unprofiled run's {stages(sim)}; "
+            f"top: " + "; ".join(
+                f"{e.key[:40]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}"
+                for e in kern[:6]), timed=True)
+    else:
+        say(f"idle share: not measured off the card (the run took {wall:.3f} s)")
+
+    # ---- orchestration and observability at the tests' size, through
+    # run_fleet, each against the host run on `dev`
+    sscn = reference_fleet(n_cells=small[0], requests_per_cell=small[1], val=val, test=test,
+                           cloud_servers=2)
+    all_cells = list(range(small[0]))
+
+    def outage(cells, start, duration):
+        return lambda: Orchestrator(churn=ChurnSchedule.outage(cells, start_s=start,
+                                                               duration_s=duration))
+
+    def qos():
+        return Orchestrator(monitor=QoSMonitor(
+            CellSLO(p99_ms=1e-3, min_requests=1),
+            QoSConfig(window_s=2.0, trip_after=1, clear_after=1000)))
+
+    runs = (("churn shed", outage([0, 2], 2.0, 2.0), None),
+            ("whole-fleet outage", outage(all_cells, 1.0, 2.0), None),
+            ("QoS monitor", qos, None),
+            ("observability", None, 7),
+            ("observability, churn", outage([0, 2], 2.0, 4.0), 1),
+            ("observability, outage", outage(all_cells, 2.0, 3.0), 1))
+    done = []
+    for name, orch, every in runs:
+        out = []
+        for backend in (comp, gate):
+            obs = None if every is None else full_observability(trace_sample_every=every)
+            before = log.now()
+            tel = run_fleet(bank, sscn, backend=backend, orchestrator=orch and orch(), obs=obs)
+            log.expect(f"{name} {backend.name}", before, exit_gate=2 * n_ctx)
+            out.append((tel, obs))
+        (tel, obs), (host, hobs) = out
+        same_fleet(tel, host, f"{name}: compiled against host", atol=1e-12)
+        kinds = sorted({k for _, k, _ in tel.orchestration_events})
+        if name == "QoS monitor":
+            assert "qos_trip" in kinds, kinds
+        if obs is not None:
+            assert run_checks(obs.trace.records, obs.metrics, obs.audit.records) == [], name
+            same_trace(obs.trace.records, hobs.trace.records, name)
+            for c in ("fleet_requests_total", "fleet_offloaded_total", "fleet_shed_total",
+                      "fleet_uplink_bytes_total"):
+                assert obs.metrics.counter_total(c) == hobs.metrics.counter_total(c), (name, c)
+            a, b = obs.calibration._blocks, hobs.calibration._blocks
+            assert a.keys() == b.keys() and a, name
+            for key in a:  # count rows equal; confidence sums to rel 1e-12
+                assert np.array_equal(a[key][[0, 1, 5, 6]], b[key][[0, 1, 5, 6]]), (name, key)
+                np.testing.assert_allclose(a[key][2:5], b[key][2:5], rtol=1e-12, atol=0)
+        done.append(f"{name} (events {kinds or 'none'})")
+    # the scope limits raise before anything is built
+    before = log.now()
+    rollout = Orchestrator(monitor=QoSMonitor(CellSLO(p99_ms=1e3)), rollout=RolloutManager(
+        bank.bumped(), lambda b: b, canary_cells=(0,)))
+    for kw, match in ((dict(with_controller=True), "static deployment"),
+                      (dict(orchestrator=rollout), "does not support canary rollouts")):
+        try:
+            run_fleet(bank, sscn, backend=comp, **kw)
+        except ValueError as e:
+            assert match in str(e), e
+        else:
+            raise AssertionError(f"the compiled pipeline accepted {sorted(kw)}")
+    log.expect("scope limits", before)
+    say(f"{small[0]} cells x {small[1]} requests, 2 cloud servers, each through run_fleet and "
+        f"equal to the host run (sampled traces, counters, the sketch's counts; its "
+        f"confidence sums to rel 1e-12), obs.check clean: " + ", ".join(done)
+        + "; a controller and a rollout raise")
+
+    # ---- the scale arm: benchmarks/run.py's fleet_compiled.scale
+    t0 = time.perf_counter()
+    big = reference_fleet(n_cells=scale[0], requests_per_cell=scale[1], val=val, test=test)
+    scn_s = time.perf_counter() - t0
+    before = log.now()
+    table = fleet_gate_table(bank, big, backend=comp)
+    sim = CompiledFleetSimulator(table, big.topology, profile, config=cfg)
+    t0 = time.perf_counter()
+    tel = sim.run()
+    wall = time.perf_counter() - t0
+    first = stages(sim)
+    t0 = time.perf_counter()
+    again = sim.run()  # the same run at shapes the card has now seen
+    wall2 = time.perf_counter() - t0
+    log.expect("scale compiled (two runs)", before, exit_gate=2 * n_ctx)
+    same_fleet(again, tel, "scale: compiled run against itself", atol=1e-12)
+    before = log.now()
+    t0 = time.perf_counter()
+    host = run_fleet(bank, big, backend="numpy")
+    host_wall = time.perf_counter() - t0
+    log.expect("scale numpy", before)
+    same_fleet(tel, host, "scale: compiled against numpy", atol=1e-12)
+    s = tel.fleet_summary()
+    n = big.topology.n_requests
+    say(f"scale arm: {scale[0]} cells x {scale[1]} = {n} requests (scenario built in "
+        f"{scn_s:.2f} s): p99 {s['p99_ms']:.3f} ms, gap {s['miscalibration_gap']:.4f}, offload "
+        f"rate {s['offload_rate']:.4f}; columns and summaries equal to the host simulator's "
+        f"(numpy backend), latencies to rel 1e-9; host s per run: compiled {wall:.3f} "
+        f"({n / wall:.0f} requests/s), again {wall2:.3f}, numpy {host_wall:.3f} "
+        f"({n / host_wall:.0f} requests/s); compiled, first run: {first}; again: {stages(sim)}",
+        timed=True)
+    say("launches per run (K1, K3, K4): " + "; ".join(log.steps))
 
 
 def main() -> int:
@@ -1572,9 +1835,14 @@ def main() -> int:
     print(f"[fleet] set-up: the fleet bench's data (numpy) and plans fit on the card in "
           f"{time.perf_counter() - t0:.2f} s; the same fits on the CPU differ in T by "
           f"rel {dt:.3g} at most {card}")
-    run_phase("fleet", lambda say: fleet_phase(cuda, val_f, test_f, fleet_plans, say=say))
+    fleet_sums = run_phase("fleet", lambda say: fleet_phase(cuda, val_f, test_f, fleet_plans,
+                                                            say=say))
 
     # ---------------------------------------------------------------- 10
+    run_phase("compiled", lambda say: compiled_phase(cuda, val_f, test_f, fleet_plans,
+                                                     fleet_sums, say=say))
+
+    # ---------------------------------------------------------------- 11
     launches = {n: sum(c[n] for c in phase_launches.values()) for n in kernels}
     table = []
     for n in kernels:

@@ -22,9 +22,10 @@ confidence and the argmax prediction, compare against the moving target
   reference sends them to the host because its jitted path takes a scalar
   T; the port has no such limit.)
 
-``"compiled"`` (the compiled fleet simulator's backend) waits for the
-compiled-fleet slice of the port (`fleet/compiled.py`, the one after the
-host fleet simulator); asking for it raises.
+* `CompiledGateBackend` (``"compiled"``, `repro_torch.fleet.compiled`) --
+  ``"torch"`` under another name, which routes `run_fleet` to the
+  compiled fleet simulator: the whole window pipeline as one program on
+  the backend's device.
 
 Consumers select a backend per run: `OffloadPlan.gate_block(...,
 backend=)`, `PlanBank.gate_block(..., backend=)`, `GateTable(...,
@@ -268,11 +269,10 @@ class TorchGateBackend(GateBackend):
 
 # -------------------------------------------------------------- registry
 def _compiled_backend_factory() -> GateBackend:
-    raise NotImplementedError(
-        "the 'compiled' gate backend belongs to the compiled fleet simulator "
-        "(fleet/compiled.py), which waits for the compiled-fleet slice of the "
-        "port, the one after the host fleet simulator; use 'torch' or 'numpy'"
-    )
+    # lazy: repro_torch.fleet imports this module
+    from repro_torch.fleet.compiled import CompiledGateBackend
+
+    return CompiledGateBackend()
 
 
 _GATE_BACKENDS: Dict[str, Callable[[], GateBackend]] = {

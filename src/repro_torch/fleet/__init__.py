@@ -32,14 +32,20 @@ the single-cell, single-device, fixed-link limit (pinned by
                   the metric definitions of `repro_torch.serving.telemetry`;
 * `scenarios`  -- the reference multi-cell drift scenario;
 * `maxplus`    -- the max-plus FIFO solvers on float64 tensors (the
-                  compiled fleet's queue algebra) and their oracles.
+                  compiled fleet's queue algebra) and their oracles;
+* `compiled`   -- `CompiledFleetSimulator`: the whole window pipeline as
+                  one float64 torch program over the cells on one device,
+                  selected by the ``"compiled"`` gate backend
+                  (`CompiledGateBackend`).
 
-The pipeline is host numpy, as in the reference. The card does the gate
+The host pipeline is numpy, as in the reference. The card does the gate
 (K1 blocks, device gathers) and codec (K3/K4) work through the gate
-backend; entry points follow the port's device rule (``"torch"`` unless
-the caller names ``"numpy"`` or a CPU device).
+backend, and under ``"compiled"`` the whole pipeline; entry points follow
+the port's device rule (``"torch"`` unless the caller names ``"numpy"``
+or a CPU device).
 """
 from repro_torch.core.gatepath import GateBackend, GateTable, get_gate_backend
+from repro_torch.fleet.compiled import CompiledFleetSimulator, CompiledGateBackend
 from repro_torch.fleet.controller import FleetController, FleetControllerConfig
 from repro_torch.fleet.simulator import FleetConfig, FleetSimulator
 from repro_torch.fleet.telemetry import FleetTelemetry
@@ -65,6 +71,8 @@ __all__ = [
     "FleetGateTable",
     "FleetConfig",
     "FleetSimulator",
+    "CompiledFleetSimulator",
+    "CompiledGateBackend",
     "FleetController",
     "FleetControllerConfig",
     "FleetTelemetry",

@@ -12,7 +12,7 @@ On the card the composition has a closed form: with A = cumsum(a),
     done_i = A_i + max(free, max_{j<=i} (b_j - A_j))
            = A_i + max(free, cummax(t - A + a)_i),
 
-one `torch.cumsum` and one `torch.cummax` along axis 0 over float64
+one `torch.cumsum` and one `torch.cummax` along one axis of float64
 tensors. The identity element (a, b) = (0, -inf) lets masked-out rows
 pass through unchanged, as in the reference. The formula is valid for UNSORTED arrival
 times t (done_i = max_{j<=i} (t_j + sum_{k=j..i} s_k) holds regardless of
@@ -74,18 +74,20 @@ def kserver_oracle(t, service, k: int) -> np.ndarray:
 
 
 def maxplus_fifo(t: torch.Tensor, service: torch.Tensor, mask: torch.Tensor,
-                 free) -> torch.Tensor:
-    """Masked FIFO completion times along axis 0 (tensor -> tensor).
+                 free, dim: int = 0) -> torch.Tensor:
+    """Masked FIFO completion times along axis `dim` (tensor -> tensor).
 
-    Every column of a 2-D input is its own chain; `free` broadcasts against
-    one row. Rows with ``mask == False`` are the semiring identity; their
-    output positions are undefined and must be re-masked by the caller.
+    Every 1-D slice along `dim` is its own chain; `free` broadcasts against
+    the output. Entries with ``mask == False`` are the semiring identity;
+    their output positions are undefined and must be re-masked by the
+    caller. On the card torch's scans are fastest along the innermost
+    axis, so the compiled fleet keeps its chains on ``dim=-1``.
     """
     a = torch.where(mask, service, torch.zeros_like(service))
-    acc = torch.cumsum(a, dim=0)
+    acc = torch.cumsum(a, dim=dim)
     # b_j - A_j = t_j - A_{j-1}: the host `fifo_done` algebra
     x = torch.where(mask, t - (acc - a), torch.full_like(t, -torch.inf))
-    run = torch.cummax(x, dim=0).values
+    run = torch.cummax(x, dim=dim).values
     free = torch.as_tensor(free, dtype=run.dtype, device=run.device)
     return acc + torch.maximum(run, free)
 

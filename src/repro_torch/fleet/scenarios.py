@@ -16,8 +16,8 @@ cloud cap -- the fleet-scale analogue of `run_distortion_drift`.
 Port of `repro.fleet.scenarios`. The topology and its data are the
 reference's numpy, draw for draw; `run_fleet` gates through one
 `GateBackend` (``"torch"`` by default, on the card) shared by the gate
-table and the fleet controller. ``"compiled"`` (the compiled fleet
-simulator) is not ported yet and raises.
+table and the fleet controller; ``"compiled"`` runs the compiled fleet
+simulator on the backend's device.
 """
 from __future__ import annotations
 
@@ -25,6 +25,7 @@ from dataclasses import dataclass
 from typing import List, Optional
 
 from repro_torch.core.gatepath import GateTable, get_gate_backend
+from repro_torch.fleet.compiled import CompiledFleetSimulator, _check_scope
 from repro_torch.fleet.controller import FleetController, FleetControllerConfig
 from repro_torch.fleet.simulator import FleetConfig, FleetSimulator
 from repro_torch.fleet.telemetry import FleetTelemetry
@@ -154,11 +155,18 @@ def run_fleet(
     traces, decision audit log, metrics); None (the default) is
     zero-perturbation.
 
-    backend="compiled" (the reference's compiled window pipeline) raises
-    `NotImplementedError`: it is not ported yet, and the host simulator
-    does not stand in for it.
+    backend="compiled" runs the whole window pipeline as one program on
+    the backend's device (`repro_torch.fleet.compiled.
+    CompiledFleetSimulator`, held per request against the host
+    simulator); it serves static deployments only, so it rejects
+    `with_controller` and rollouts. Both checks, and the device rule,
+    come before any table is built.
     """
     backend = get_gate_backend(backend)
+    compiled = backend.name == "compiled"
+    if compiled:
+        _check_scope(with_controller, orchestrator)
+    backend.device  # the device rule: raises here without a GPU
     profile = profile or L.paper_2020()
     val = scenario.val
     table = fleet_gate_table(plan_or_bank, scenario, backend=backend)
@@ -178,7 +186,7 @@ def run_fleet(
                 cloud_rho_max=0.9,
             ),
         )
-    sim = FleetSimulator(
+    sim = (CompiledFleetSimulator if compiled else FleetSimulator)(
         table, scenario.topology, profile,
         config=fleet_config or FleetConfig(window_s=window_s),
         controller=controller, orchestrator=orchestrator, obs=obs,

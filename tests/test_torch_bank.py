@@ -166,8 +166,8 @@ def test_backend_registry_and_device_rule():
     assert tgate.get_gate_backend(TORCH_CPU) is TORCH_CPU
     assert TORCH_CPU.device == torch.device("cpu")
     assert tgate.get_gate_backend("numpy").device == torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="compiled-fleet slice"):
-        tgate.get_gate_backend("compiled")
+    compiled = tgate.get_gate_backend("compiled")
+    assert isinstance(compiled, tgate.TorchGateBackend) and compiled.name == "compiled"
     with pytest.raises(ValueError, match="unknown gate backend"):
         tgate.get_gate_backend("jax")
 

@@ -42,6 +42,7 @@ from repro.serving import scenarios as jscn
 from repro_torch.core.bank import PlanBank
 from repro_torch.core.calibration import TemperatureScaling
 from repro_torch.core.gatepath import TorchGateBackend
+from repro_torch.fleet.compiled import CompiledGateBackend
 from repro_torch.core.policy import OffloadPlan, rescore_plan
 from repro_torch.fleet import (
     CellConfig,
@@ -580,8 +581,12 @@ def test_fleet_validation_errors(cascade):
 
 
 def test_compiled_backend_raises_without_fallback(drift_data, monkeypatch):
-    """backend="compiled" raises before anything runs: no table is built
-    and the host simulator never starts in its place."""
+    """backend="compiled" with no GPU and no named device raises the
+    device rule's error, and with a controller a ValueError, before
+    anything runs: no table is built and the host simulator never starts
+    in its place."""
+    import torch
+
     from repro_torch.fleet import simulator
 
     val, test, (uncal, global_plan, bank), _ = drift_data
@@ -590,9 +595,12 @@ def test_compiled_backend_raises_without_fallback(drift_data, monkeypatch):
     monkeypatch.setattr(simulator.FleetSimulator, "run", lambda self: started.append(self))
     monkeypatch.setattr(simulator.GateTable, "__init__",
                         lambda self, *a, **k: started.append(self))
-    for with_controller in (False, True):
-        with pytest.raises(NotImplementedError, match="compiled-fleet slice"):
-            run_fleet(bank, scn, with_controller=with_controller, backend="compiled")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_fleet(bank, scn, backend="compiled")
+    for backend in ("compiled", CompiledGateBackend(device="cpu")):
+        with pytest.raises(ValueError, match="static deployment"):
+            run_fleet(bank, scn, with_controller=True, backend=backend)
     assert started == []
 
 

@@ -43,6 +43,7 @@ PORTED = [
     "repro_torch.data.distortion",
     "repro_torch.data.synthetic",
     "repro_torch.fleet",
+    "repro_torch.fleet.compiled",
     "repro_torch.fleet.controller",
     "repro_torch.fleet.gate",
     "repro_torch.fleet.maxplus",
@@ -109,7 +110,8 @@ def test_port_imports_neither_jax_nor_repro():
 def test_running_the_fleet_and_orchestration_loads_neither_jax_nor_repro():
     """Importing is not enough: the reference reaches other modules through
     imports inside functions, so the port is run -- a 2-cell fleet at
-    codec level 2 with every observability sink on, one quick
+    codec level 2 with every observability sink on, on the host and the
+    compiled pipeline, one quick
     orchestration scenario (QoS, rollout, audit chain) and the max-plus
     solvers, all on the CPU -- and only then are the loaded modules
     checked."""
@@ -128,6 +130,10 @@ def test_running_the_fleet_and_orchestration_loads_neither_jax_nor_repro():
         "obs = full_observability()\n"
         "s = run_fleet(glob.with_compression(2), scn, backend='numpy', obs=obs).fleet_summary()\n"
         "assert s['requests'] == 120 and 0 < s['offload_rate'] < 1, s\n"
+        "from repro_torch.fleet import CompiledGateBackend\n"
+        "c = run_fleet(glob.with_compression(2), scn, backend=CompiledGateBackend(device='cpu'),\n"
+        "              obs=full_observability()).fleet_summary()\n"
+        "assert c['requests'] == 120 and abs(c['p99_ms'] - s['p99_ms']) <= 1e-9 * s['p99_ms']\n"
         "(rec,) = run_scenarios(['poisoned_canary'], quick=True, device='cpu')\n"
         "assert rec['pass'], rec['wins']\n"
         "t = np.arange(8.0)\n"

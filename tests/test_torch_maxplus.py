@@ -274,3 +274,47 @@ def test_maxplus_fifo_columns_equal_oracle(shape):
         m = mask[col]
         np.testing.assert_array_equal(got[col][m],
                                       fifo_oracle(t[col][m], s[col][m], float(free[col[1:]])))
+
+
+@pytest.mark.parametrize("shape", [(6, 300), (64, 1600), (3, 1)], ids=["lanes", "wide", "one"])
+def test_maxplus_fifo_innermost_lanes_equal_oracle(shape):
+    """`maxplus_fifo(dim=-1)` on (cells, rows) lanes, the compiled fleet's
+    edge and uplink layout: every row's unmasked entries equal the
+    oracle exactly on dyadic inputs, each lane with its own free time,
+    and the result equals `dim=0` on the transpose."""
+    rng = np.random.default_rng(shape[0] * 7 + shape[1])
+    t = rng.integers(0, 512, shape) * 2.0**-6
+    s = rng.integers(0, 64, shape) * 2.0**-6
+    mask = rng.random(shape) >= 0.1
+    free = rng.integers(0, 256, (shape[0], 1)) * 2.0**-6
+    tt, ss, mm, ff = (torch.as_tensor(x) for x in (t, s, mask, free))
+    got = maxplus.maxplus_fifo(tt, ss, mm, ff, dim=-1).numpy()
+    assert got.shape == shape and got.dtype == np.float64
+    for r in range(shape[0]):
+        m = mask[r]
+        np.testing.assert_array_equal(got[r][m], fifo_oracle(t[r][m], s[r][m], float(free[r, 0])))
+    np.testing.assert_array_equal(
+        got, maxplus.maxplus_fifo(tt.T, ss.T, mm.T, ff.T, dim=0).numpy().T)
+
+
+@pytest.mark.parametrize("n,k", [(4096, 4), (1001, 2), (7, 3)])
+def test_maxplus_fifo_residue_chains_equal_kserver_oracle(n, k):
+    """The compiled fleet's cloud tier: jobs in FIFO order, the row-major
+    (M, K) reshape transposed to a contiguous (K, M), each row a residue
+    chain along `dim=-1` (inf-padded tail): equal to `kserver_oracle`
+    exactly at a constant dyadic service time, and to `dim=0` on the
+    (M, K) view."""
+    rng = np.random.default_rng(n + k)
+    t = np.sort(rng.integers(0, 4096, n) * 2.0**-6)
+    s = np.full(n, 7 * 2.0**-6)
+    pad = -(-n // k) * k - n
+    tp = torch.as_tensor(np.concatenate([t, np.full(pad, np.inf)]))
+    sp = torch.as_tensor(np.concatenate([s, np.zeros(pad)]))
+    view_t, view_s = tp.reshape(-1, k), sp.reshape(-1, k)
+    ones = torch.ones_like(view_t, dtype=torch.bool)
+    got = maxplus.maxplus_fifo(view_t.T.contiguous(), view_s.T.contiguous(), ones.T, 0.0,
+                               dim=-1)
+    flat = got.T.reshape(-1)[:n].numpy()
+    np.testing.assert_array_equal(flat, kserver_oracle(t, s, k))
+    np.testing.assert_array_equal(
+        flat, maxplus.maxplus_fifo(view_t, view_s, ones, 0.0).reshape(-1)[:n].numpy())
