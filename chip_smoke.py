@@ -25,7 +25,10 @@ Phases, each printing its own lines:
             The codec also runs bit-exact at the (n, 10) logit shapes
             of rescore_plan's codec axis, (3000, 10) and (7000, 10), and
             of the fleet, (1024, 10) and (4096, 10); K1 at the runtime's
-            and the fleet's (1, 10), (1024, 10) and (2048, 10).
+            and the fleet's (1, 10), (1024, 10) and (2048, 10). The LM's
+            shapes: K1 at (8, 151936) bf16 (L2-cold), K2 at (128, 151936)
+            bf16, K3/K4 at (4, 2 097 152) int8 and int4 (L2-cold and
+            warm).
 4. train    B-AlexNet at full width trained with the BranchyNet joint
             loss on cifar_like(seed=0) (45 000 / 3 000 / 7 000), the twin
             of benchmarks/paper_common.train_and_collect: 6 epochs at
@@ -95,14 +98,39 @@ Phases, each printing its own lines:
             Host s of the pre-pass, program and recovery, device ms per
             stage (CUDA events), the device's idle share over one profiled
             run, and the launches of every run asserted.
-11. result  one JSON line with every kernel's numbers, the nvidia-smi
+11. lm      the language-model serving path (`repro_torch.launch.serve`,
+            `offload.engine.lm_engine`) on Qwen3-8B at full width and
+            depth (36 layers, d 4096, vocab 151 936, exits after layers 8
+            and 17; 9.44 B parameters) from a seeded bf16 init: the
+            scalar count against param_count(), bytes allocated and peak;
+            an uncalibrated and a calibrated plan fit with make_plan on
+            both exits' last-position logits of 128 x 256 lm_sequences
+            windows (TokenIterator), the K2 fit held to the plain fit
+            (same NLL on the token labels, which a seeded model knows
+            nothing of; rel 1e-3 in T on labels drawn at a planted T* =
+            1.5); per plan, make_prefill_step on 3 batches of 8 x 512 and
+            32 make_serve_step tokens from init_cache, 2 K1 launches a
+            step asserted, every exit's conf/pred held to the plain gate
+            on the same logits and the plan path to the temperatures=
+            path; the attention calls' share of a prefill step and of a
+            decode step (CUDA events) and the device's busy share of a
+            decode step (torch.profiler); lm_engine at codec levels 0/1/2
+            over 3 batches of 8 x 512 (K1/K3/K4 launches and
+            payload_bytes asserted; at level 0 with every row refused,
+            the cloud's logits equal forward_prefill's bit for bit); then
+            float32 at full width:
+            decode step by step against forward_train at 4 layers (rtol /
+            atol 2e-4), and the card against the CPU port at 2 layers
+            (derived atol). ms per prefill, per decoded token and per
+            lm_engine batch (edge, cloud).
+12. result  one JSON line with every kernel's numbers, the nvidia-smi
             line, and last {"ok": true, "device": {...}}.
 
-Phases 4-10 are the main path: each sets the launch counts to 0 just
+Phases 4-11 are the main path: each sets the launch counts to 0 just
 before it and reads them just after, and fails if a kernel of its path
 did not run (train: K1; serving: K1-K4; paper: K1, K2; bank: K1, K3,
-K4; runtime: K1, K3, K4; fleet and compiled: K1, K3, K4). Every line
-that prints a time names the card and its power limit.
+K4; runtime: K1, K3, K4; fleet and compiled: K1, K3, K4; lm: K1-K4).
+Every line that prints a time names the card and its power limit.
 
 Any failure raises, so the process exits non-zero and prints no result;
 without a GPU it exits 2 before doing anything. Imports neither jax nor
@@ -137,14 +165,16 @@ K2_D2 = dict(rtol=5e-3, atol=1e-3)
 # benchmarks/paper_figures.py's grid of per-sample deadlines (s)
 T_TAR_GRID = [0.5e-3, 1e-3, 2e-3, 3e-3, 5e-3, 7.5e-3, 10e-3, 15e-3, 25e-3, 50e-3]
 PAPER_P_TARS = (0.75, 0.85, 0.9)
-# the kernels each main-path phase must launch
+# the kernels each main-path phase must launch ("serving" and "lm" launch
+# K2 as a side check held to make_plan's plain fit, which makes the plans)
 PHASE_KERNELS = {"train": ("exit_gate",),
                  "serving": ("exit_gate", "calib_nll", "encode", "decode"),
                  "paper": ("exit_gate", "calib_nll"),
                  "bank": ("exit_gate", "encode", "decode"),
                  "runtime": ("exit_gate", "encode", "decode"),
                  "fleet": ("exit_gate", "encode", "decode"),
-                 "compiled": ("exit_gate", "encode", "decode")}
+                 "compiled": ("exit_gate", "encode", "decode"),
+                 "lm": ("exit_gate", "calib_nll", "encode", "decode")}
 # K1's boundary: the kernel's conf = 1/S and the plain max(exp(logp)) are
 # about 1e-7 apart, so decisions are compared only away from p_tar +- this
 BOUNDARY = 1e-6
@@ -1340,6 +1370,424 @@ def compiled_phase(dev, val, test, plans, fleet_summaries, n_cells=64, small=(6,
     say("launches per run (K1, K3, K4): " + "; ".join(log.steps))
 
 
+def lm_reductions(cfg, n_layers):
+    """Reduction lengths of the float32 sums that feed an output after
+    `n_layers` blocks and a head: per block the two norms, the q/k/v and
+    output projections, the scores, the PV product and the MLP's two
+    products; then the head's norm and unembedding."""
+    per_block = [cfg.d_model, cfg.d_model, cfg.head_dim, cfg.num_heads * cfg.head_dim,
+                 cfg.d_model, cfg.d_model, cfg.d_ff]
+    return per_block * n_layers + [cfg.d_model, cfg.d_model]
+
+
+def lm_profile(dev, cfg, params, plan, tokens, decode, log, say):
+    """Where a prefill step's and a decode step's time goes on the card:
+    the attention calls' share (CUDA events around every
+    `attention_prefill` / `attention_decode` call of one prefill step and
+    of 4 decode steps, against events around the steps), and the device's
+    busy share of a decode step (`torch.profiler` over 4 more steps:
+    kernel time and launches a step against the host time a step)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.serve import make_prefill_step, make_serve_step
+    from repro_torch.models import attention, registry
+
+    spans = []
+
+    def timed(fn):
+        def run(*args, **kw):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            res = fn(*args, **kw)
+            b.record()
+            spans.append((a, b))
+            return res
+        return run
+
+    def span_ms(pairs):
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in pairs)
+
+    prefill = make_prefill_step(cfg, plan=plan, device=dev)
+    serve_step = make_serve_step(cfg, plan=plan, device=dev)
+    n_dec = 4
+    saved = attention.attention_prefill, attention.attention_decode
+    attention.attention_prefill, attention.attention_decode = timed(saved[0]), timed(saved[1])
+    try:
+        whole = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))]
+        before = log.now()
+        whole[0][0].record()
+        prefill(params, {"tokens": tokens})
+        whole[0][1].record()
+        log.expect("profiled prefill", before, exit_gate=len(cfg.exit_layers))
+        pre_ms, pre_attn = span_ms(whole), span_ms(spans)
+        spans.clear()
+        caches = registry.init_cache(cfg, tokens.shape[0], decode, device=dev)
+        tok = tokens[:, :1]
+        whole = []
+        for t in range(n_dec):
+            whole.append((torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True)))
+            before = log.now()
+            whole[-1][0].record()
+            o, caches = serve_step(params, tok, caches, t)
+            whole[-1][1].record()
+            log.expect("profiled decode", before, exit_gate=len(cfg.exit_layers))
+            tok = o["token"][:, None]
+        dec_ms, dec_attn = span_ms(whole) / n_dec, span_ms(spans) / n_dec
+    finally:
+        attention.attention_prefill, attention.attention_decode = saved
+    say(f"attention's share (CUDA events): prefill {tokens.shape[0]} x {tokens.shape[1]} "
+        f"{pre_attn:.3f} of {pre_ms:.3f} ms ({pre_attn / pre_ms:.1%}); decode step at batch "
+        f"{tokens.shape[0]} {dec_attn:.3f} of {dec_ms:.3f} ms ({dec_attn / dec_ms:.1%})",
+        timed=True)
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for t in range(n_dec, 2 * n_dec):
+            before = log.now()
+            o, caches = serve_step(params, tok, caches, t)
+            log.expect("profiled decode", before, exit_gate=len(cfg.exit_layers))
+            tok = o["token"][:, None]
+        torch.cuda.synchronize()
+    host_ms = 1e3 * (time.perf_counter() - t0) / n_dec
+    kern = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                  key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in kern) / (1e3 * n_dec)
+    launches = sum(e.count for e in kern) / n_dec
+    say(f"profiled decode step: {busy:.3f} ms of kernels in {launches:.0f} launches a step: "
+        f"{1 - busy / dec_ms:.1%} idle against the {dec_ms:.3f} ms step above, "
+        f"{1 - busy / host_ms:.1%} against the {host_ms:.3f} ms a step under the profiler; top: "
+        + "; ".join(f"{e.key[:40]} {e.self_device_time_total / (1e3 * n_dec):.3f} ms "
+                    f"x{e.count // n_dec}" for e in kern[:5]), timed=True)
+    return dict(prefill_ms=pre_ms, prefill_attn_ms=pre_attn, decode_ms=dec_ms,
+                decode_attn_ms=dec_attn, decode_busy_ms=busy, decode_launches=launches,
+                decode_host_ms=host_ms)
+
+
+def lm_phase(dev, cfg, val=(128, 256), serve=(8, 512), n_serve=3, decode=32, eq=(2, 16),
+             cross=(2, 32), n_tokens=100_000, say=print):
+    """The language-model serving path (`repro_torch.launch.serve`,
+    `offload.engine.lm_engine`) on `dev` at `cfg` (Qwen3-8B at full width
+    and depth on the card) from a seeded bf16 init; returns the printed
+    numbers. `val` is the (batch, seq) of the plans' validation windows,
+    `serve` that of a prefill step and of an lm_engine batch, `decode` the
+    decoded tokens, `eq` and `cross` the (batch, seq) of the float32
+    checks at 4 layers (decode against forward_train) and at 2 layers
+    (`dev` against the CPU)."""
+    import torch
+    import torch.utils._pytree as pytree
+
+    from repro_torch.core.calibration import nll
+    from repro_torch.core.policy import make_plan
+    from repro_torch.data.pipeline import TokenIterator
+    from repro_torch.data.synthetic import lm_sequences
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.compress import scaled_payload_nbytes
+    from repro_torch.launch.serve import make_prefill_step, make_serve_step
+    from repro_torch.models import registry, transformer
+    from repro_torch.offload.engine import EngineStats, lm_engine
+
+    card = dev.type == "cuda"
+    log = LaunchLog(dev)
+    out = {}
+    n_exits = len(cfg.exit_layers)
+
+    def mem():
+        if not card:
+            return "memory not measured (CPU)"
+        return (f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated, peak "
+                f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+
+    # ---- init: the seeded model at full width and depth
+    if card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = registry.init_params(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    _sync(dev)
+    n = transformer.num_params(params)
+    # param_count() leaves out the final norm's scale and the qk-norm scales
+    want = cfg.param_count() + cfg.d_model + (2 * cfg.head_dim * cfg.num_layers
+                                              if cfg.qk_norm else 0)
+    assert n == want, (n, want)
+    say(f"{cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, vocab {cfg.vocab_size}, "
+        f"segments (layers, exit after) {[(g[1], g[2]) for g in transformer.segment_plan(cfg)]}; "
+        f"seeded {cfg.dtype} init of {n} scalars (param_count {cfg.param_count()}) in "
+        f"{time.perf_counter() - t0:.2f} s; {mem()}", timed=True)
+    out["params"] = n
+
+    # ---- plans: validation windows, both exits' last-position logits
+    t0 = time.perf_counter()
+    stream = lm_sequences(n_tokens, cfg.vocab_size, seed=0)
+    vb = next(iter(TokenIterator(stream, val[0], val[1], seed=0)))
+    t_data = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    chunks = []
+    with torch.no_grad():
+        for i in range(0, val[0], 32):
+            o = registry.forward_prefill(params, cfg, {"tokens": torch.as_tensor(
+                vb["tokens"][i:i + 32], device=dev)})
+            chunks.append([z[:, 0] for z in o["exit_logits"]])
+            del o
+    zs = [torch.cat([c[i] for c in chunks]) for i in range(n_exits)]
+    del chunks
+    _sync(dev)
+    y = torch.as_tensor(vb["labels"][:, -1], device=dev)
+    say(f"validation: {val[0]} x {val[1]} windows of lm_sequences({n_tokens}) through "
+        f"TokenIterator ({t_data:.2f} s, numpy); both exits' last-position logits "
+        f"{tuple(zs[0].shape)} {str(zs[0].dtype)[6:]} in {time.perf_counter() - t0:.2f} s; "
+        f"{mem()}", timed=True)
+    t0 = time.perf_counter()
+    plan_u = make_plan(zs, y, p_tar=0.5, calibrated=False)
+    plan_c = make_plan(zs, y, p_tar=0.5)
+    t_plain = plan_c.temperatures
+    t_fit = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    t_k2 = [float(ops.fit_temperature_kernel(z, y)[0]) for z in zs]  # K2 on bf16 (n, vocab)
+    t_k2_s = time.perf_counter() - t0
+    # a seeded model knows nothing of the token labels, so the NLL is flat
+    # in T near its minimum: the two fits are held to reach the same NLL
+    # (to float32 resolution), not the same T
+    nlls = [(float(nll(z.float(), y, a)), float(nll(z.float(), y, b)))
+            for z, a, b in zip(zs, t_k2, t_plain)]
+    for a, b in nlls:
+        assert abs(a - b) <= 1e-6 * abs(b), ("K2 and the plain fit reach different NLLs", nlls)
+    say(f"T per exit on the token labels: plain fit (make_plan) "
+        f"{[round(t, 6) for t in t_plain]} in {t_fit:.2f} s; K2 Newton fit "
+        f"{[round(t, 6) for t in t_k2]} in {t_k2_s:.2f} s; NLL at each (K2, plain) "
+        f"{[(round(a, 7), round(b, 7)) for a, b in nlls]}", timed=True)
+    # the same two fits on labels drawn from softmax(z / 1.5) of exit 0,
+    # eight per validation row, so that there is a temperature to find;
+    # held as phase 6 holds them, to rel 1e-3 in T
+    gen = torch.Generator(device=dev).manual_seed(1)
+    zp = zs[0].repeat(8, 1)
+    yp = torch.multinomial(torch.softmax(zp.float() / 1.5, dim=-1), 1, generator=gen)[:, 0]
+    tk_p = float(ops.fit_temperature_kernel(zp, yp)[0])
+    tr_p = float(make_plan([zp], yp, p_tar=0.5).temperatures[0])
+    say(f"planted T* = 1.5 on exit 0's logits {tuple(zp.shape)} {str(zp.dtype)[6:]}: "
+        f"K2 fit {tk_p:.6f}, plain fit {tr_p:.6f}")
+    assert abs(tk_p - tr_p) <= 1e-3 * tr_p and 1.2 < tr_p < 1.9, (tk_p, tr_p)
+    del zp, yp
+    out["t_plain"], out["t_k2"], out["t_planted"] = t_plain, t_k2, (tk_p, tr_p)
+
+    def p_tar_for(plan):
+        """The midpoint of the two middle calibrated confidences of exit 0
+        on the validation rows (an even count): both outcomes occur."""
+        c = torch.sort(ref.exit_gate_ref(plan.calibrated_logits(zs[0], 0), 1.0)[0].double())[0]
+        return float((c[len(c) // 2 - 1] + c[len(c) // 2]) / 2)
+
+    plan_u = plan_u.with_p_tar(p_tar_for(plan_u))
+    plan_c = plan_c.with_p_tar(p_tar_for(plan_c))
+    say(f"plans: uncalibrated p_tar {plan_u.p_tar:.9g}; calibrated (T {t_plain}) p_tar "
+        f"{plan_c.p_tar:.9g}")
+    del zs
+
+    # ---- prefill and decode through the serving steps: every exit's K1
+    # gate held against the plain gate on the same logits, and the plan
+    # path against the temperatures= path
+    serve_it = iter(TokenIterator(stream, serve[0], serve[1], seed=1))
+    batches = [torch.as_tensor(next(serve_it)["tokens"], device=dev) for _ in range(n_serve)]
+    gaps = {"conf_rel": 0.0, "conf_abs": 0.0, "plan_vs_temps": 0.0, "clear": 0, "rows": 0}
+
+    def hold(conf, pred, logits, plan, what):
+        for i, z in enumerate(logits):
+            zc = plan.calibrated_logits(z, i)
+            rc, _, ri = ref.exit_gate_ref(zc, 1.0)
+            torch.testing.assert_close(conf[i], rc, **K1_CONF, msg=lambda m: f"{what}: {m}")
+            top2 = torch.topk(zc.float(), 2, dim=-1).values
+            clear = (top2[:, 0] - top2[:, 1]) > 1e-6 * top2[:, 0].abs()
+            assert torch.equal(pred[i][clear], ri[clear]), f"{what}: K1 argmax differs"
+            gaps["conf_rel"] = max(gaps["conf_rel"], float(((conf[i].double() - rc.double()).abs()
+                                                            / rc.double()).max()))
+            gaps["conf_abs"] = max(gaps["conf_abs"], float((conf[i] - rc).abs().max()))
+            gaps["clear"] += int(clear.sum())
+            gaps["rows"] += int(clear.numel())
+
+    for plan, tag in ((plan_u, "uncalibrated"), (plan_c, "calibrated")):
+        prefill = make_prefill_step(cfg, plan=plan, device=dev)
+        prefill_t = make_prefill_step(cfg, temperatures=plan.temperatures, device=dev)
+        before = log.now()
+        prefill(params, {"tokens": batches[0]})  # warm-up
+        _sync(dev)
+        log.expect(f"{tag} prefill warm-up", before, exit_gate=n_exits)
+        times = []
+        for b in batches:
+            before = log.now()
+            t0 = time.perf_counter()
+            o = prefill(params, {"tokens": b})
+            _sync(dev)
+            times.append(time.perf_counter() - t0)
+            log.expect(f"{tag} prefill", before, exit_gate=n_exits)
+            with torch.no_grad():
+                again = registry.forward_prefill(params, cfg, {"tokens": b})
+            hold(o["exit_confidence"], o["exit_prediction"],
+                 [z[:, 0] for z in again["exit_logits"]], plan, f"{tag} prefill")
+            before = log.now()
+            ot = prefill_t(params, {"tokens": b})
+            log.expect(f"{tag} prefill, temperatures=", before, exit_gate=n_exits)
+            gaps["plan_vs_temps"] = max(gaps["plan_vs_temps"], float(
+                (ot["exit_confidence"] - o["exit_confidence"]).abs().max()))
+            assert torch.equal(ot["exit_prediction"], o["exit_prediction"])
+            assert tuple(o["logits"].shape) == (b.shape[0], 1, cfg.vocab_size)
+            assert torch.isfinite(o["logits"].float()).all()
+            del o, ot, again
+        ms = 1e3 * float(np.median(times))
+        out[f"prefill_ms_{tag}"] = ms
+        say(f"{tag} plan: prefill {serve[0]} x {serve[1]} tokens {ms:.3f} ms per step (median "
+            f"of {[round(1e3 * t, 3) for t in times]}); {mem()}", timed=True)
+
+        serve_step = make_serve_step(cfg, plan=plan, device=dev)
+        caches = registry.init_cache(cfg, serve[0], decode, device=dev)
+        twin = registry.init_cache(cfg, serve[0], decode, device=dev)
+        tok = batches[0][:, :1]
+        times = []
+        for t in range(decode):
+            before = log.now()
+            t0 = time.perf_counter()
+            o, caches = serve_step(params, tok, caches, t)
+            _sync(dev)
+            times.append(time.perf_counter() - t0)
+            log.expect(f"{tag} decode", before, exit_gate=n_exits)
+            with torch.no_grad():
+                d, twin = registry.decode_step(params, cfg, tok, twin, t)
+            assert torch.equal(d["logits"][:, 0], o["logits"]), "two decodes differ"
+            hold(o["exit_confidence"], o["exit_prediction"], [z[:, 0] for z in d["exit_logits"]],
+                 plan, f"{tag} decode step {t}")
+            tok = o["token"][:, None]
+        ms = 1e3 * float(np.median(times))
+        out[f"decode_ms_{tag}"] = ms
+        say(f"{tag} plan: {decode} decode steps at batch {serve[0]}: {ms:.3f} ms per token "
+            f"(median; the first {1e3 * times[0]:.3f} ms); {mem()}", timed=True)
+        del caches, twin
+    say(f"gates: K1 conf against the plain gate max rel {gaps['conf_rel']:.3g} abs "
+        f"{gaps['conf_abs']:.3g} (held to rel 2e-5, abs 1e-6); predictions equal on "
+        f"{gaps['clear']} of {gaps['rows']} exit rows clear of a tie; the plan path against "
+        f"temperatures=: largest conf gap {gaps['plan_vs_temps']:.3g}, predictions equal")
+    out["gaps"] = gaps
+    if card:
+        out["profile"] = lm_profile(dev, cfg, params, plan_c, batches[0], decode, log, say)
+
+    # ---- lm_engine at codec levels 0, 1 and 2: the edge runs the layers up
+    # to exit 0, the cloud the rest on the refused rows' (m, s, d) hidden
+    s, d = serve[1], cfg.d_model
+    row_bytes = {0: s * d * params["embed"]["w"].element_size(),
+                 1: scaled_payload_nbytes(s * d * 4, 1), 2: scaled_payload_nbytes(s * d * 4, 2)}
+    decisions = {}
+    for level in (0, 1, 2):
+        eng = lm_engine(params, cfg, plan_c.with_compression(level), device=dev)
+        clouds = []
+        cloud_fn = eng.cloud_fn
+        eng.cloud_fn = lambda h, f=cloud_fn: clouds.append(f(h)) or clouds[-1]
+        eng.infer({"tokens": batches[0]})  # warm-up
+        eng.stats = EngineStats()
+        ons, mixed = [], []
+        for b in batches:
+            before = log.now()
+            res = eng.infer({"tokens": b})
+            m = int((~res["on_device"]).sum())
+            log.expect(f"lm_engine level {level}", before, exit_gate=1,
+                       encode=int(level != 0 and m > 0), decode=int(level != 0 and m > 0))
+            assert np.isfinite(res["confidence"]).all() and res["prediction"].shape == (len(b),)
+            ons.append(res["on_device"])
+            if level == 0 and m:
+                with torch.no_grad():
+                    full = registry.forward_prefill(params, cfg, {"tokens": b})["logits"][:, 0]
+                refused = torch.as_tensor(np.flatnonzero(~res["on_device"]), device=dev)
+                mixed.append(float((clouds[-1]["logits"].float()
+                                    - full[refused].float()).abs().max()))
+        st = eng.stats
+        decisions[level] = np.concatenate(ons)
+        assert st.payload_bytes == st.offloaded * row_bytes[level], (st.payload_bytes, level)
+        row = dict(offload_rate=st.offload_rate, payload_bytes=st.payload_bytes,
+                   edge_ms=1e3 * st.edge_time_s / max(st.edge_calls, 1),
+                   cloud_ms=1e3 * st.cloud_time_s / max(st.cloud_calls, 1))
+        out[f"engine_level{level}"] = row
+        msg = (f"lm_engine level {level}: offload_rate {st.offload_rate:.4f} of {st.requests} "
+               f"sequences, payload_bytes {st.payload_bytes} ({row_bytes[level]} a refused "
+               f"row), edge {row['edge_ms']:.3f} ms a batch, cloud {row['cloud_ms']:.3f} ms a "
+               f"refused batch ({st.offloaded} rows in {st.cloud_calls})")
+        if level == 0:
+            # every row refused (p_tar above 1): the cloud's logits are the
+            # whole model's last position, bit for bit
+            eng.plan = eng.plan.with_p_tar(2.0)
+            before = log.now()
+            res = eng.infer({"tokens": batches[0]})
+            log.expect("lm_engine level 0, all refused", before, exit_gate=1)
+            assert not res["on_device"].any()
+            with torch.no_grad():
+                full = registry.forward_prefill(params, cfg, {"tokens": batches[0]})["logits"]
+            assert torch.equal(clouds[-1]["logits"], full[:, 0]), \
+                "the refused rows' cloud logits differ from forward_prefill's last position"
+            msg += ("; all refused: the cloud's logits equal forward_prefill's bit for bit; "
+                    f"mixed batches (cloud at m < b rows): max |gap| "
+                    f"{max(mixed) if mixed else float('nan'):.3g}")
+        say(msg, timed=True)
+        del eng, clouds
+    # the gate runs before the codec, so the level cannot move who offloads
+    assert np.array_equal(decisions[0], decisions[1]) and np.array_equal(decisions[0],
+                                                                        decisions[2])
+    assert 0 < (~decisions[0]).sum() < len(decisions[0]), decisions[0]
+    del params, batches
+    if card:
+        torch.cuda.empty_cache()
+
+    # ---- float32 at full width, 4 layers: decode step by step against
+    # forward_train, in both decode modes
+    cfg4 = cfg.replace(num_layers=4, exit_layers=(0, 1), dtype="float32")
+    p4 = registry.init_params(torch.Generator(device=dev).manual_seed(2), cfg4, device=dev)
+    toks = torch.as_tensor(next(iter(TokenIterator(stream, eq[0], eq[1], seed=2)))["tokens"],
+                           device=dev)
+    errs = {}
+    with torch.no_grad():
+        full = registry.forward_train(p4, cfg4, {"tokens": toks})
+        for unroll in (False, True):
+            c4 = cfg4.replace(decode_unroll=unroll)
+            caches = registry.init_cache(c4, eq[0], eq[1], device=dev)
+            steps = [registry.decode_step(p4, c4, toks[:, t:t + 1], caches, t)[0]
+                     for t in range(eq[1])]
+            pairs = [("logits", torch.cat([o["logits"] for o in steps], 1), full["logits"])]
+            pairs += [(f"exit {i}", torch.cat([o["exit_logits"][i] for o in steps], 1),
+                       full["exit_logits"][i]) for i in range(2)]
+            for key, got, want in pairs:
+                torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+                errs[f"{key} unroll={unroll}"] = float((got - want).abs().max())
+    say(f"float32, 4 layers, exits (0, 1), {eq[0]} x {eq[1]}: decode step by step equals "
+        f"forward_train (rtol 2e-4, atol 2e-4), max |err| "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+    out["eq_err"] = max(errs.values())
+
+    # ---- `dev` against the port on the CPU, the same weights, 2 layers
+    cfg2 = cfg4.replace(num_layers=2)
+    p2 = dict(p4, segments=p4["segments"][:2])  # [L0, exit 0] [L1, exit 1]
+    del p4, full, steps, pairs
+    t0 = time.perf_counter()
+    cpu_p2 = pytree.tree_map(lambda a: a.cpu(), p2)
+    toks = torch.as_tensor(next(iter(TokenIterator(stream, cross[0], cross[1],
+                                                   seed=3)))["tokens"])
+    with torch.no_grad():
+        got = registry.forward_train(p2, cfg2, {"tokens": toks.to(dev)})
+        want = registry.forward_train(cpu_p2, cfg2, {"tokens": toks})
+    readings = []
+    for key, g, w, layers in (("logits", got["logits"], want["logits"], 2),
+                              ("exit 0", got["exit_logits"][0], want["exit_logits"][0], 1),
+                              ("exit 1", got["exit_logits"][1], want["exit_logits"][1], 2)):
+        scale = w.abs().max().item()
+        atol = 8 * 2.0 ** -24 * scale * sum(r ** 0.5 for r in lm_reductions(cfg2, layers))
+        err = (g.cpu() - w).abs().max().item()
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=atol)
+        readings.append(f"{key} max|out| {scale:.6g} max err {err:.6g} atol {atol:.6g}")
+    say(f"float32, 2 layers, {cross[0]} x {cross[1]}: {dev.type} against the CPU port on the "
+        f"same weights (rtol 1e-4, derived atol; {time.perf_counter() - t0:.2f} s): "
+        + "; ".join(readings), timed=True)
+    del p2, cpu_p2, got, want
+    if card:
+        torch.cuda.empty_cache()
+    say(f"{len(log.steps)} steps' launches (K1, K3, K4) asserted, e.g. "
+        + "; ".join(log.steps[:3] + log.steps[-5:]))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1483,11 +1931,12 @@ def main() -> int:
     # large cases hold +-1e4 and all-equal rows; row 3 a tie at columns 7
     # and 4000, which lie in different warps of the block layout; rows 4-19
     # a division tie (x1 at a lower column than x2) as the row's max.
+    # Last, the LM serving gate: one exit of a Qwen3-8B step at batch 8.
     f32, bf16 = torch.float32, torch.bfloat16
     k1_cases = [((512, 10), f32), ((1, 10), f32), ((2048, 10), f32), ((1024, 10), f32),
                 ((3, 1), f32), ((3, 10), bf16), ((64, 32), f32), ((64, 33), bf16), ((64, 1024), f32), ((3, 1025), f32), ((3, 1025), bf16),
                 ((64, 4097), f32), ((64, 4097), bf16), ((5, 8193), f32), ((5, 8193), bf16),
-                ((256, 151_936), f32), ((256, 151_936), bf16)]
+                ((256, 151_936), f32), ((256, 151_936), bf16), ((8, 151_936), bf16)]
     for shape, dtype in k1_cases:
         rows, vocab = shape
         temp = 1.37 if shape == (512, 10) else 1.3
@@ -1532,13 +1981,15 @@ def main() -> int:
     # takes the kernel's IEEE-divide branch; then the large-vocab check in
     # f32 and bf16 (622 and 311 MB, far above the L2, so cold in effect).
     # z_y must equal the input bit for bit; nll per row and the Newton
-    # statistics within K2_NLL, K2_D1, K2_D2.
+    # statistics within K2_NLL, K2_D1, K2_D2. Last, the LM's temperature
+    # fit: one exit's (128, 151936) bf16 validation logits at T 20.
     k2_edges = [(3, 1), (5, 32), (5, 33), (3, 1024), (3, 1025), (4, 4097), (5, 8193)]
     k2_cases = ([((2000, 10), 2.7, f32)]
                 + [(shape, temp, f32) for shape in k2_edges for temp in (0.5, 2.7)]
                 + [((5, 10), 2.7, bf16), ((5, 33), 2.7, bf16), ((3, 1025), 0.5, bf16),
                    ((5, 8193), 2.7, bf16), ((16, 10), -1.5, f32), ((3, 1025), -0.8, f32),
-                   ((1024, 151_936), 1.3, f32), ((1024, 151_936), 1.3, bf16)])
+                   ((1024, 151_936), 1.3, f32), ((1024, 151_936), 1.3, bf16),
+                   ((128, 151_936), 20.0, bf16)])
     for shape, temp, dtype in k2_cases:
         rows, vocab = shape
         big = vocab == 151_936
@@ -1596,7 +2047,9 @@ def main() -> int:
     # and cols % 4 != 0; the runtime's shapes: one request's payload per
     # branch and the congested scenario's (2048, 10) final logits; the
     # fleet's: a context's (1024, 10) final logits (cloud tables) and the
-    # controller core's four contexts' (4096, 10)
+    # controller core's four contexts' (4096, 10); the LM's: lm_engine's
+    # refused rows of a Qwen3-8B (512, 4096) hidden, (4, 512 * 4096), with
+    # 16 384 groups a row (timed L2-warm and L2-cold)
     codec_cases = [((512, 16, 16, 64), 1, None), ((512, 16, 16, 64), 2, None),
                    ((1, 16, 16, 64), 2, None), ((1, 8, 8, 96), 2, None), ((2048, 10), 2, None),
                    ((252, 16, 16, 64), 1, None), ((252, 16, 16, 64), 2, None),
@@ -1607,7 +2060,8 @@ def main() -> int:
                    ((8, 512), 2, zero_half), ((8, 512), 1, nonfinite), ((8, 512), 2, nonfinite),
                    ((1024, 10), 2, None), ((4096, 10), 1, None), ((4096, 10), 2, None),
                    ((3000, 10), 1, None), ((3000, 10), 2, None),
-                   ((7000, 10), 1, None), ((7000, 10), 2, None)]
+                   ((7000, 10), 1, None), ((7000, 10), 2, None),
+                   ((4, 2_097_152), 1, None), ((4, 2_097_152), 2, None)]
     for shape, level, fixed in codec_cases:
         xn = fixed if fixed is not None else (rng.standard_normal(shape) * 3).astype(np.float32)
         x = torch.as_tensor(xn, device=cuda)
@@ -1632,7 +2086,7 @@ def main() -> int:
                    device_ms(lambda i: compress.decode_kernel(words, scales, cols, bits)),
                    device_ms(lambda i: ref.decode_codec_ref(words, scales, shape, level)),
                    nbytes, 3.0 * rows * cols, launch_floor_ms=floor_ms)
-        if fixed is None and shape[0] == 512:
+        if fixed is None and (shape[0] == 512 or shape == (4, 2_097_152)):
             # L2-warm: the same buffers every call;
             # L2-cold: inputs rotate over sets and every output is fresh
             wbytes = words.numel() * 4 + scales.numel() * 4
@@ -1650,13 +2104,15 @@ def main() -> int:
                                                               bits), calls, keep=True),
                    device_ms(lambda i: ref.encode_codec_ref(xs[i % sets], level), calls,
                              keep=True),
-                   nbytes, 5.0 * rows * cols, path=(level == 2), warm_ms=enc_warm)
+                   nbytes, 5.0 * rows * cols, path=(level == 2 and rows == 512),
+                   warm_ms=enc_warm)
             record("decode", case, 0.0,
                    device_ms(lambda i: compress.decode_kernel(*encs[i % sets], cols, bits),
                              calls, keep=True),
                    device_ms(lambda i: ref.decode_codec_ref(*encs[i % sets], shape, level),
                              calls, keep=True),
-                   nbytes, 3.0 * rows * cols, path=(level == 2), warm_ms=dec_warm)
+                   nbytes, 3.0 * rows * cols, path=(level == 2 and rows == 512),
+                   warm_ms=dec_warm)
     print(f"[kernels] codec bit-exact on {len(codec_cases)} cases (words, scales, floats)")
 
     # ---------------------------------------------------------------- 4
@@ -1843,6 +2299,12 @@ def main() -> int:
                                                      fleet_sums, say=say))
 
     # ---------------------------------------------------------------- 11
+    from repro_torch.configs import get_config
+
+    lm_cfg = get_config("qwen3-8b")
+    run_phase("lm", lambda say: lm_phase(cuda, lm_cfg, say=say))
+
+    # ---------------------------------------------------------------- 12
     launches = {n: sum(c[n] for c in phase_launches.values()) for n in kernels}
     table = []
     for n in kernels:

@@ -18,6 +18,26 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+def same_device(a, b) -> bool:
+    """Whether two devices are one (``cuda`` names the current card, so it
+    matches ``cuda:0`` there)."""
+    a, b = torch.device(a), torch.device(b)
+    if a.type != b.type:
+        return False
+    if a.type == "cuda":
+        ia = torch.cuda.current_device() if a.index is None else a.index
+        ib = torch.cuda.current_device() if b.index is None else b.index
+        return ia == ib
+    return a.index is None or b.index is None or a.index == b.index
+
+
+def require_device(actual, device, what: str):
+    """Raise ValueError unless `actual` is `device`: nothing is moved
+    between devices behind the caller's back."""
+    if not same_device(actual, device):
+        raise ValueError(f"{what} live on {actual}, not on {device}")
+
+
 def as_tensor(x, device=None, dtype=None) -> torch.Tensor:
     """A tensor stays on its own device (cast to `dtype` if given); anything
     else (numpy, lists) lands on `resolve_device(device)`."""

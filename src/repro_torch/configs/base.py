@@ -1,8 +1,11 @@
-"""Model configuration (port of `repro.configs.base.ModelConfig`).
+"""Config system: architecture + input-shape configs (port of
+`repro.configs.base`).
 
-A verbatim copy of the reference dataclass, so the port never imports
-`repro`. Only `ModelConfig` is carried over: the input-shape and smoke
-configs wait for the LM slice.
+A verbatim copy of the reference's `ModelConfig`, `ShapeConfig`,
+`INPUT_SHAPES` and `smoke_variant`, so the port never imports `repro`.
+Every architecture module beside this one exports ``CONFIG`` (the exact
+assigned spec) and ``SMOKE`` (a reduced variant of the same family: <=2
+layers, d_model<=512, <=4 experts) used by CPU tests.
 """
 from __future__ import annotations
 
@@ -173,3 +176,56 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input shape."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+INPUT_SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+def smoke_variant(cfg: ModelConfig) -> ModelConfig:
+    """Reduced same-family variant: <=2 layers, d_model<=512, <=4 experts."""
+    d = min(cfg.d_model, 256)
+    heads = min(cfg.num_heads, 4)
+    kv = min(cfg.num_kv_heads, heads)
+    kw = dict(
+        name=cfg.name + "-smoke",
+        num_layers=2,
+        d_model=d,
+        num_heads=heads,
+        num_kv_heads=kv,
+        head_dim=d // heads if heads else 0,
+        d_ff=min(cfg.d_ff, 512) if cfg.d_ff else 0,
+        vocab_size=min(cfg.vocab_size, 512),
+        sliding_window=min(cfg.sliding_window, 64) if cfg.sliding_window else 0,
+    )
+    if cfg.moe_num_experts:
+        kw.update(
+            moe_num_experts=4,
+            moe_top_k=min(cfg.moe_top_k, 2),
+            moe_d_ff=min(cfg.moe_d_ff, 128),
+        )
+    if cfg.ssm_state:
+        kw.update(ssm_state=min(cfg.ssm_state, 16), ssm_head_dim=32, ssm_chunk=16)
+    if cfg.is_encoder_decoder:
+        kw.update(encoder_layers=2, encoder_seq=max(16, min(cfg.encoder_seq, 32)))
+    if cfg.max_position_embeddings:
+        kw.update(max_position_embeddings=4096)
+    if cfg.attn_every:
+        kw.update(attn_every=2, attn_offset=cfg.attn_offset % 2)
+    if cfg.exit_layers:
+        kw.update(exit_layers=(0,), exit_loss_weights=(1.0,))
+    return cfg.replace(**kw)

@@ -1,0 +1,1 @@
+"""Launch entry points (port of `repro.launch`): the serving steps."""

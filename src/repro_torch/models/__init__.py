@@ -1,1 +1,2 @@
-"""Models (port of `repro.models`): B-AlexNet so far."""
+"""Models (port of `repro.models`): B-AlexNet and the decoder-only
+transformer (dense and vlm families) behind one registry."""

@@ -1,0 +1,224 @@
+"""GQA attention: chunked causal prefill + KV-cache decode (port of
+`repro.models.attention`).
+
+Features driven by ModelConfig: grouped-query attention (num_kv_heads <
+num_heads), qk-norm (Qwen3), QKV bias (Qwen2), sliding-window masking,
+RoPE or no-PE, and cross-attention to a `memory` sequence.
+
+Attention is plain torch ops that mirror the reference's casts (the
+reference's attention is XLA, not a Pallas kernel): scores are the
+einsum of q and k in their own dtype, cast to float32 after the product
+and scaled; masked scores are ``NEG_INF``; the softmax runs in float32
+and the probabilities are cast back to v's dtype before the PV product.
+
+Prefill walks the query chunks in a Python loop with an O(chunk x seq)
+working set. Decode writes the new token's K/V into the cache IN PLACE
+and returns the same dict: a cache passed to a decode step must not be
+used again as the state before that step. With a sliding window the
+cache is a ring buffer of min(seq_len, window) slots; without one,
+decoding past the cache's length raises `ValueError` (the reference's
+`dynamic_update_slice` would clamp the slot and overwrite the last one).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.layers import (
+    apply_rope,
+    cdtype,
+    einsum,
+    normal,
+    promote,
+    rms_norm_headwise,
+    rope_freqs,
+)
+
+NEG_INF = -1e30
+
+
+def init_attention(generator, cfg):
+    d, hd, qh, kvh = cfg.d_model, cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
+    dt = cdtype(cfg)
+    dev = generator.device
+    s = d ** -0.5
+    so = (qh * hd) ** -0.5
+    p = {
+        "wq": normal(generator, (d, qh, hd), s, dt),
+        "wk": normal(generator, (d, kvh, hd), s, dt),
+        "wv": normal(generator, (d, kvh, hd), s, dt),
+        "wo": normal(generator, (qh, hd, d), so, dt),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((qh, hd), dtype=dt, device=dev)
+        p["bk"] = torch.zeros((kvh, hd), dtype=dt, device=dev)
+        p["bv"] = torch.zeros((kvh, hd), dtype=dt, device=dev)
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones(hd, device=dev)
+        p["k_norm"] = torch.ones(hd, device=dev)
+    return p
+
+
+def _add(x, b):
+    """x + b with JAX's dtype promotion."""
+    x, b = promote(x, b)
+    return x + b
+
+
+def _project_qkv(p, cfg, x, positions, rope=True):
+    """x: (b, s, d) -> q (b,s,qh,hd), k/v (b,s,kvh,hd)."""
+    q = einsum("bsd,dhk->bshk", x, p["wq"])
+    k = einsum("bsd,dhk->bshk", x, p["wk"])
+    v = einsum("bsd,dhk->bshk", x, p["wv"])
+    if cfg.qkv_bias:
+        q, k, v = _add(q, p["bq"]), _add(k, p["bk"]), _add(v, p["bv"])
+    if cfg.qk_norm:
+        q = rms_norm_headwise(q, p["q_norm"])
+        k = rms_norm_headwise(k, p["k_norm"])
+    if rope and cfg.use_rope:
+        cos, sin = rope_freqs(cfg, positions)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    return q, k, v
+
+
+def _gqa_scores(q, k):
+    """q: (b,sq,qh,hd) k: (b,sk,kvh,hd) -> (b,kvh,g,sq,sk) fp32."""
+    b, sq, qh, hd = q.shape
+    kvh = k.shape[2]
+    g = qh // kvh
+    qg = q.reshape(b, sq, kvh, g, hd)
+    s = einsum("bqhgk,bshk->bhgqs", qg, k).to(torch.float32)
+    return s * (hd ** -0.5)
+
+
+def _gqa_out(probs, v):
+    """probs: (b,kvh,g,sq,sk) fp32; v: (b,sk,kvh,hd) -> (b,sq,qh,hd)."""
+    b, kvh, g, sq, sk = probs.shape
+    hd = v.shape[-1]
+    o = torch.einsum("bhgqs,bshk->bqhgk", probs.to(v.dtype), v)
+    return o.reshape(b, sq, kvh * g, hd)
+
+
+def _softmax_out(scores, v):
+    return _gqa_out(torch.softmax(scores, dim=-1), v)
+
+
+def attention_prefill(p, cfg, x, positions, q_chunk=1024, memory=None):
+    """Causal (optionally sliding-window) self-attention over a full sequence.
+
+    x: (b, s, d); positions: (b, s) int. Returns (out (b,s,d), cache).
+    ``memory``: if given (cross-attention), attend to it instead (no mask).
+    """
+    b, s, d = x.shape
+    if memory is not None:
+        q = einsum("bsd,dhk->bshk", x, p["wq"])
+        if cfg.qkv_bias:
+            q = _add(q, p["bq"])
+        k = einsum("bsd,dhk->bshk", memory, p["wk"])
+        v = einsum("bsd,dhk->bshk", memory, p["wv"])
+        o = _softmax_out(_gqa_scores(q, k), v)
+        return einsum("bshk,hkd->bsd", o, p["wo"]), {"k": k, "v": v}
+
+    q, k, v = _project_qkv(p, cfg, x, positions)
+
+    q_chunk = min(q_chunk, s)
+    n_chunks = s // q_chunk if s % q_chunk == 0 else 0
+    if n_chunks <= 1:
+        out = _attend_block(cfg, q, k, v, positions, positions)
+    else:
+        out = torch.cat([
+            _attend_block(cfg, q[:, c:c + q_chunk], k, v, positions[:, c:c + q_chunk],
+                          positions)
+            for c in range(0, s, q_chunk)
+        ], dim=1)
+    proj = einsum("bshk,hkd->bsd", out, p["wo"])
+    return proj, {"k": k, "v": v}
+
+
+def _attend_block(cfg, q, k, v, q_pos, k_pos):
+    """q: (b,sq,qh,hd); k/v: (b,sk,kvh,hd); positions (b,sq)/(b,sk)."""
+    scores = _gqa_scores(q, k)  # (b,kvh,g,sq,sk)
+    mask = q_pos[:, :, None] >= k_pos[:, None, :]  # causal (b,sq,sk)
+    if cfg.sliding_window:
+        mask &= (q_pos[:, :, None] - k_pos[:, None, :]) < cfg.sliding_window
+    scores = scores.masked_fill(~mask[:, None, None, :, :], NEG_INF)
+    return _softmax_out(scores, v)
+
+
+# --------------------------------------------------------------------- decode
+def init_kv_cache(cfg, batch, seq_len, device):
+    """Decode cache. Sliding window => ring buffer of window size."""
+    L = min(seq_len, cfg.sliding_window) if cfg.sliding_window else seq_len
+    shape = (batch, L, cfg.num_kv_heads, cfg.head_dim)
+    dt = cdtype(cfg)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def _slot(cfg, pos: int, L: int) -> int:
+    """The cache slot of absolute position `pos`."""
+    if cfg.sliding_window:
+        return pos % L
+    if not 0 <= pos < L:
+        raise ValueError(f"decode position {pos} is outside the cache's {L} slots "
+                         f"(no sliding window)")
+    return pos
+
+
+def _valid(cfg, pos: int, slot: int, L: int, device):
+    """Which of the L cache slots hold a position the query may attend to."""
+    idx = torch.arange(L, device=device)
+    if cfg.sliding_window:
+        # ring buffer: entry i holds absolute position p with p % L == i, the
+        # latest such p <= pos. Valid iff that p is within the window.
+        age = torch.remainder(slot - idx, L)  # a floor modulo, as jnp's %
+        return age < min(pos + 1, L)
+    return idx <= pos
+
+
+def _decode_attend(p, cfg, q, ck, cv, pos, slot):
+    L = ck.shape[1]
+    scores = _gqa_scores(q, ck)  # (b,kvh,g,1,L)
+    valid = _valid(cfg, pos, slot, L, scores.device)
+    scores = scores.masked_fill(~valid[None, None, None, None, :], NEG_INF)
+    o = _softmax_out(scores, cv)
+    return einsum("bshk,hkd->bsd", o, p["wo"])
+
+
+def attention_decode(p, cfg, x, cache, pos, memory_cache=None):
+    """One-token decode. x: (b, 1, d); pos: int (same for the batch).
+
+    Returns (out (b,1,d), cache), the cache updated in place.
+    ``memory_cache``: projected cross-attn K/V -> attends to it with no
+    mask and does not update any cache.
+    """
+    if memory_cache is not None:
+        q = einsum("bsd,dhk->bshk", x, p["wq"])
+        if cfg.qkv_bias:
+            q = _add(q, p["bq"])
+        o = _softmax_out(_gqa_scores(q, memory_cache["k"]), memory_cache["v"])
+        return einsum("bshk,hkd->bsd", o, p["wo"]), cache
+
+    pos = int(pos)
+    positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32, device=x.device)
+    q, k, v = _project_qkv(p, cfg, x, positions)
+    L = cache["k"].shape[1]
+    slot = _slot(cfg, pos, L)
+    cache["k"][:, slot] = k[:, 0]
+    cache["v"][:, slot] = v[:, 0]
+    return _decode_attend(p, cfg, q, cache["k"], cache["v"], pos, slot), cache
+
+
+def attention_decode_stacked(p, cfg, x, cache, pos, layer_idx):
+    """Decode against a STACKED multi-layer cache {"k"/"v": (n_layers, b,
+    L, kvh, hd)}: the new token's K/V are written into layer `layer_idx`
+    of the stacked buffer in place. Returns (out (b,1,d), cache)."""
+    pos = int(pos)
+    positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32, device=x.device)
+    q, k, v = _project_qkv(p, cfg, x, positions)
+    L = cache["k"].shape[2]
+    slot = _slot(cfg, pos, L)
+    cache["k"][layer_idx, :, slot] = k[:, 0]
+    cache["v"][layer_idx, :, slot] = v[:, 0]
+    out = _decode_attend(p, cfg, q, cache["k"][layer_idx], cache["v"][layer_idx], pos, slot)
+    return out, cache

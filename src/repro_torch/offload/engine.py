@@ -11,9 +11,11 @@ samples exit on-device; only the refused samples' activations -- picked
 out with an index-select on the device -- go to the cloud partition,
 through the K3/K4 codec when the plan's `compression_level` is not 0.
 The engine gates with the CalibratorState of the branch that is
-PHYSICALLY deployed on the edge, and keeps running statistics.
-
-The LM binding (`lm_engine`) waits for the LM slice.
+PHYSICALLY deployed on the edge, and keeps running statistics. It works
+for the convnet (per-image classification, the paper's case) and for the
+LM families (per-sequence classification at prefill: the edge runs the
+blocks up to an exit, and the refused rows' (m, s, d) hidden goes to the
+cloud partition).
 """
 from __future__ import annotations
 
@@ -25,9 +27,10 @@ import numpy as np
 import torch
 import torch.utils._pytree as pytree
 
-from repro_torch._device import as_tensor, resolve_device, to_numpy
+from repro_torch._device import as_tensor, require_device, resolve_device, to_numpy
 from repro_torch.core.policy import OffloadPlan
 from repro_torch.kernels import compress
+from repro_torch.models import convnet, transformer
 
 
 @dataclass
@@ -174,8 +177,6 @@ def convnet_engine(params, plan: OffloadPlan, branch: int = 1,
     `device` (``cuda`` unless the caller passes ``"cpu"``): the params
     and each batch's ``"images"`` (NHWC) are moved there.
     """
-    from repro_torch.models import convnet
-
     device = resolve_device(device)
     params = pytree.tree_map(lambda x: x.to(device), params)
 
@@ -190,3 +191,31 @@ def convnet_engine(params, plan: OffloadPlan, branch: int = 1,
             return {"logits": convnet.cloud_forward(params, hidden, from_branch=branch)}
 
     return OffloadEngine(edge, cloud, plan, branch=branch - 1, use_kernel=use_kernel)
+
+
+def lm_engine(params, cfg, plan: OffloadPlan, exit_index: int = 0,
+              device=None) -> OffloadEngine:
+    """LM variant: classify-at-prefill; edge = blocks up to the exit.
+
+    Runs on `device` (``cuda`` unless the caller passes ``"cpu"``): the
+    params must live there (else ValueError), and each batch's
+    ``"tokens"`` (b, s) is moved there. At a non-zero codec level the
+    cloud partition receives the payload decoded to float32 and runs in
+    float32 (the reference's promotion).
+    """
+    device = resolve_device(device)
+    require_device(params["embed"]["w"].device, device, "the params")
+
+    def edge(batch):
+        tokens = as_tensor(batch["tokens"], device).to(device)
+        with torch.no_grad():
+            out = transformer.edge_forward(params, cfg, {"tokens": tokens},
+                                           exit_index=exit_index)
+        return {"exit_logits": out["exit_logits"][:, 0, :], "payload": out["hidden"]}
+
+    def cloud(hidden):
+        with torch.no_grad():
+            out = transformer.cloud_forward(params, cfg, hidden, exit_index=exit_index)
+        return {"logits": out["logits"][:, 0, :]}
+
+    return OffloadEngine(edge, cloud, plan, branch=exit_index)

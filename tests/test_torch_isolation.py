@@ -30,7 +30,19 @@ from repro_torch.training.loop import make_eval_step, make_train_step
 SRC = Path(__file__).resolve().parents[1] / "src"
 PORTED = [
     "repro_torch",
+    "repro_torch.configs",
+    "repro_torch.configs.b_alexnet",
     "repro_torch.configs.base",
+    "repro_torch.configs.chameleon_34b",
+    "repro_torch.configs.granite_moe_3b_a800m",
+    "repro_torch.configs.internlm2_20b",
+    "repro_torch.configs.jamba_v01_52b",
+    "repro_torch.configs.mamba2_130m",
+    "repro_torch.configs.olmo_1b",
+    "repro_torch.configs.qwen2_72b",
+    "repro_torch.configs.qwen3_8b",
+    "repro_torch.configs.qwen3_moe_30b_a3b",
+    "repro_torch.configs.whisper_base",
     "repro_torch.core",
     "repro_torch.core.bank",
     "repro_torch.core.calibration",
@@ -41,6 +53,7 @@ PORTED = [
     "repro_torch.core.partition",
     "repro_torch.core.policy",
     "repro_torch.data.distortion",
+    "repro_torch.data.pipeline",
     "repro_torch.data.synthetic",
     "repro_torch.fleet",
     "repro_torch.fleet.compiled",
@@ -57,9 +70,13 @@ PORTED = [
     "repro_torch.kernels.exit_gate",
     "repro_torch.kernels.ops",
     "repro_torch.kernels.ref",
+    "repro_torch.launch",
+    "repro_torch.launch.serve",
+    "repro_torch.models.attention",
     "repro_torch.models.convnet",
-    "repro_torch.offload.engine",
-    "repro_torch.offload.latency",
+    "repro_torch.models.layers",
+    "repro_torch.models.registry",
+    "repro_torch.models.transformer",
     "repro_torch.obs",
     "repro_torch.obs.audit",
     "repro_torch.obs.calibration",
@@ -68,6 +85,8 @@ PORTED = [
     "repro_torch.obs.export",
     "repro_torch.obs.metrics",
     "repro_torch.obs.trace",
+    "repro_torch.offload.engine",
+    "repro_torch.offload.latency",
     "repro_torch.offload.simulator",
     "repro_torch.orchestration",
     "repro_torch.orchestration.churn",
@@ -83,8 +102,8 @@ PORTED = [
     "repro_torch.serving.scenarios",
     "repro_torch.serving.telemetry",
     "repro_torch.serving.workload",
-    "repro_torch.training.losses",
     "repro_torch.training.loop",
+    "repro_torch.training.losses",
     "repro_torch.training.optim",
 ]
 KERNELS = [exit_gate.KERNEL, calib_nll.KERNEL, compress.ENCODE, compress.DECODE]
@@ -112,9 +131,10 @@ def test_running_the_fleet_and_orchestration_loads_neither_jax_nor_repro():
     imports inside functions, so the port is run -- a 2-cell fleet at
     codec level 2 with every observability sink on, on the host and the
     compiled pipeline, one quick
-    orchestration scenario (QoS, rollout, audit chain) and the max-plus
-    solvers, all on the CPU -- and only then are the loaded modules
-    checked."""
+    orchestration scenario (QoS, rollout, audit chain), the max-plus
+    solvers, and the LM serving path (a prefill step, a decode step and
+    lm_engine at codec level 2 on a smoke config), all on the CPU -- and
+    only then are the loaded modules checked."""
     code = (
         "import sys\n"
         "import numpy as np\n"
@@ -139,6 +159,25 @@ def test_running_the_fleet_and_orchestration_loads_neither_jax_nor_repro():
         "t = np.arange(8.0)\n"
         "assert fifo_done_maxplus(t, np.ones(8), device='cpu').tolist() == (t + 1).tolist()\n"
         "assert kserver_done_maxplus(t, np.ones(8), 2, device='cpu').shape == (8,)\n"
+        "import torch\n"
+        "from repro_torch.configs import get_smoke\n"
+        "from repro_torch.core.calibration import TemperatureScaling\n"
+        "from repro_torch.core.policy import OffloadPlan\n"
+        "from repro_torch.launch.serve import make_prefill_step, make_serve_step\n"
+        "from repro_torch.models import registry\n"
+        "from repro_torch.offload.engine import lm_engine\n"
+        "cfg = get_smoke('qwen3-8b')\n"
+        "lm = registry.init_params(torch.Generator().manual_seed(0), cfg, device='cpu')\n"
+        "plan = OffloadPlan(p_tar=0.5, calibrators=[TemperatureScaling.from_temperature(1.5)])\n"
+        "toks = np.ones((2, 8), np.int32)\n"
+        "out = make_prefill_step(cfg, plan=plan, device='cpu')(lm, {'tokens': toks})\n"
+        "assert tuple(out['exit_confidence'].shape) == (1, 2)\n"
+        "caches = registry.init_cache(cfg, 2, 8, device='cpu')\n"
+        "out, _ = make_serve_step(cfg, plan=plan, device='cpu')(lm, toks[:, :1], caches, 0)\n"
+        "assert tuple(out['token'].shape) == (2,)\n"
+        "res = lm_engine(lm, cfg, plan.with_p_tar(2.0).with_compression(2),\n"
+        "                device='cpu').infer({'tokens': toks})\n"
+        "assert not res['on_device'].any() and res['prediction'].shape == (2,)\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "bad = [m for m in sys.modules if m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
@@ -293,4 +332,62 @@ def test_cuda_launchers_refuse_cpu_tensors():
         compress.encode_kernel(z, 8)
     with pytest.raises(ValueError, match="CUDA tensor"):
         compress.decode_kernel(torch.zeros(4, 32, dtype=torch.uint32), torch.zeros(4, 1), 128, 8)
+    assert [k.launches for k in KERNELS] == [0, 0, 0, 0]
+
+
+def test_lm_serving_refuses_without_gpu(monkeypatch):
+    """The LM path follows the device rule: the registry's init and cache,
+    params_from_jax, the serve steps and lm_engine raise without a device,
+    and run on the CPU when asked, with no launch."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.serve import make_prefill_step, make_serve_step
+    from repro_torch.models import registry, transformer
+    from repro_torch.offload.engine import lm_engine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_smoke("qwen3-8b")
+    plan = OffloadPlan(p_tar=0.5, calibrators=[TemperatureScaling.from_temperature(1.5)])
+    gen = torch.Generator().manual_seed(0)
+    params = registry.init_params(gen, cfg, device="cpu")
+    for call in (
+        lambda: registry.init_params(None, cfg),
+        lambda: registry.init_cache(cfg, 2, 8),
+        lambda: transformer.params_from_jax({"w": np.zeros(3, np.float32)}),
+        lambda: make_prefill_step(cfg, plan=plan),
+        lambda: make_serve_step(cfg, temperatures=[1.0]),
+        lambda: lm_engine(params, cfg, plan),
+    ):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    toks = np.ones((2, 8), np.int32)
+    make_prefill_step(cfg, plan=plan, device="cpu")(params, {"tokens": toks})
+    lm_engine(params, cfg, plan, device="cpu").infer({"tokens": toks})
+    assert [k.launches for k in KERNELS] == [0, 0, 0, 0]
+
+
+def test_lm_path_refuses_params_on_another_device(monkeypatch):
+    """With a card named (here faked), a generator or params on the CPU
+    raise ValueError: init draws nothing on the CPU for the card, and the
+    serve steps and lm_engine move no tokens to params elsewhere."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.serve import make_prefill_step, make_serve_step
+    from repro_torch.models import registry
+    from repro_torch.offload.engine import lm_engine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    cfg = get_smoke("qwen3-8b")
+    plan = OffloadPlan(p_tar=0.5, calibrators=[TemperatureScaling.from_temperature(1.5)])
+    params = registry.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    toks = np.ones((2, 8), np.int32)
+    caches = registry.init_cache(cfg, 2, 8, device="cpu")
+    for call in (
+        lambda: registry.init_params(torch.Generator().manual_seed(0), cfg),
+        lambda: registry.init_params(torch.Generator().manual_seed(0), cfg, device="cuda"),
+        lambda: make_prefill_step(cfg, plan=plan)(params, {"tokens": toks}),
+        lambda: make_serve_step(cfg, plan=plan, device="cuda")(params, toks[:, :1], caches, 0),
+        lambda: lm_engine(params, cfg, plan),
+    ):
+        with pytest.raises(ValueError, match="live on cpu, not on cuda"):
+            call()
     assert [k.launches for k in KERNELS] == [0, 0, 0, 0]
