@@ -28,7 +28,9 @@ Phases, each printing its own lines:
             and the fleet's (1, 10), (1024, 10) and (2048, 10). The LM's
             shapes: K1 at (8, 151936) bf16 (L2-cold), K2 at (128, 151936)
             bf16, K3/K4 at (4, 2 097 152) int8 and int4 (L2-cold and
-            warm).
+            warm); the trained LM's: K1 at mamba2-130m's serve step (2,
+            50280) bf16, K2 at its exit logits (2048, 50280) bf16, K3/K4
+            at granite-moe's refused rows (4, 786 432) int8 and int4.
 4. train    B-AlexNet at full width trained with the BranchyNet joint
             loss on cifar_like(seed=0) (45 000 / 3 000 / 7 000), the twin
             of benchmarks/paper_common.train_and_collect: 6 epochs at
@@ -123,13 +125,39 @@ Phases, each printing its own lines:
             atol 2e-4), and the card against the CPU port at 2 layers
             (derived atol). ms per prefill, per decoded token and per
             lm_engine batch (edge, cloud).
-12. result  one JSON line with every kernel's numbers, the nvidia-smi
+12. train_lm LM training and the rest of the model zoo from seeded bf16
+            inits: (a) mamba2-130m at full width and depth trained as
+            examples/train_lm.py --preset 100m trains it (200 AdamW steps
+            at 16 x 128 of lm_sequences(800 000, order=1, branch=4), lr
+            1e-3, warmup 20, remat off; every loss finite, each below its
+            step-0 value and log V at the end), make_eval_step on a
+            held-out batch, T per exit by the plain fit and by K2 (held
+            as phase 11 holds them), 32 tokens x 2 sequences served
+            through make_serve_step(temperatures=...) with 2 K1 launches a
+            step asserted, and a float32 train step at 2 layers on the
+            card against the CPU (loss, every gradient leaf; derived
+            atol); (b) olmo-1b at full width and depth through
+            launch.train.main (5 steps at 8 x 512, remat), ms per step,
+            peak GB with remat and for one step without, the checkpoint
+            reloaded bit for bit; (c) granite-moe-3b-a800m at full width
+            and depth: prefill 8 x 512 and 32 decode steps from its caches
+            (MoE dropped share and aux loss), one train step at 4 x 512
+            with remat, in place, and lm_engine at codec levels 0/1/2
+            (K1/K3/K4 launches asserted); (d) jamba-v0.1-52b at full width
+            cut to one 8-layer period (attention at layer 4, MoE on odd
+            layers, exit after layer 3): prefill 2 x 512, 8 decode steps,
+            and decode against forward_train in float32 at 2 layers;
+            (e) whisper-base: 3 launch.train steps at 8 x 128 on zero
+            frames, prefill, 8 decode steps with the cross caches, and
+            decode against forward_train in float32.
+13. result  one JSON line with every kernel's numbers, the nvidia-smi
             line, and last {"ok": true, "device": {...}}.
 
-Phases 4-11 are the main path: each sets the launch counts to 0 just
+Phases 4-12 are the main path: each sets the launch counts to 0 just
 before it and reads them just after, and fails if a kernel of its path
 did not run (train: K1; serving: K1-K4; paper: K1, K2; bank: K1, K3,
-K4; runtime: K1, K3, K4; fleet and compiled: K1, K3, K4; lm: K1-K4).
+K4; runtime: K1, K3, K4; fleet and compiled: K1, K3, K4; lm and
+train_lm: K1-K4).
 Every line that prints a time names the card and its power limit.
 
 Any failure raises, so the process exits non-zero and prints no result;
@@ -174,7 +202,10 @@ PHASE_KERNELS = {"train": ("exit_gate",),
                  "runtime": ("exit_gate", "encode", "decode"),
                  "fleet": ("exit_gate", "encode", "decode"),
                  "compiled": ("exit_gate", "encode", "decode"),
-                 "lm": ("exit_gate", "calib_nll", "encode", "decode")}
+                 "lm": ("exit_gate", "calib_nll", "encode", "decode"),
+                 "train_lm": ("exit_gate", "calib_nll", "encode", "decode")}
+# the log grid K2's LM temperature fit starts its Newton steps from
+K2_GRID = (0.25, 0.5, 1.0, 2.0, 4.0)
 # K1's boundary: the kernel's conf = 1/S and the plain max(exp(logp)) are
 # about 1e-7 apart, so decisions are compared only away from p_tar +- this
 BOUNDARY = 1e-6
@@ -1370,14 +1401,29 @@ def compiled_phase(dev, val, test, plans, fleet_summaries, n_cells=64, small=(6,
     say("launches per run (K1, K3, K4): " + "; ".join(log.steps))
 
 
-def lm_reductions(cfg, n_layers):
+def lm_reductions(cfg, n_layers, seq=None):
     """Reduction lengths of the float32 sums that feed an output after
-    `n_layers` blocks and a head: per block the two norms, the q/k/v and
-    output projections, the scores, the PV product and the MLP's two
-    products; then the head's norm and unembedding."""
-    per_block = [cfg.d_model, cfg.d_model, cfg.head_dim, cfg.num_heads * cfg.head_dim,
-                 cfg.d_model, cfg.d_model, cfg.d_ff]
-    return per_block * n_layers + [cfg.d_model, cfg.d_model]
+    `n_layers` blocks and a head: per attention block the norm, the q/k/v
+    and output projections and the scores; per mamba block the norm,
+    in_proj, the causal conv, the SSD scan's sums over the state (C.B and
+    C.S) and over a chunk (the intra-chunk product and the chunk's input
+    state; the chunk is min(ssm_chunk, seq)), the gated norm and out_proj;
+    per dense ffn the norm and the MLP's two products; per MoE ffn the
+    norm, the router, the expert's two products and the top-k combine;
+    then the head's norm and unembedding."""
+    d, out = cfg.d_model, []
+    chunk = min(cfg.ssm_chunk, seq or cfg.ssm_chunk)
+    for mixer, ffn in cfg.layer_plan()[:n_layers]:
+        if mixer == "attn":
+            out += [d, d, cfg.head_dim, cfg.num_heads * cfg.head_dim]
+        else:
+            out += [d, d, cfg.ssm_conv, cfg.ssm_state, chunk, chunk, cfg.ssm_state,
+                    cfg.d_inner, cfg.d_inner]
+        if ffn == "dense":
+            out += [d, d, cfg.d_ff]
+        elif ffn == "moe":
+            out += [d, d, d, cfg.moe_d_ff, cfg.moe_top_k]
+    return out + [d, d]
 
 
 def lm_profile(dev, cfg, params, plan, tokens, decode, log, say):
@@ -1788,6 +1834,570 @@ def lm_phase(dev, cfg, val=(128, 256), serve=(8, 512), n_serve=3, decode=32, eq=
     return out
 
 
+def grow_caches(cfg, caches, batch, length, dev):
+    """Decode caches of `length` slots holding a prefill's caches: the
+    attention K/V in the first slots, the mamba state as it is."""
+    import torch.utils._pytree as pytree
+
+    from repro_torch.models import registry
+
+    new = registry.init_cache(cfg, batch, length, device=dev)
+    for path, dst in pytree.tree_flatten_with_path(new)[0]:
+        src = caches
+        for key in path:
+            src = src[key.key if hasattr(key, "key") else key.idx]
+        if str(getattr(path[-1], "key", "")) in ("k", "v") and src.shape != dst.shape:
+            dst.narrow(-3, 0, src.shape[-3]).copy_(src)
+        else:
+            dst.copy_(src)
+    return new
+
+
+class MoeTap:
+    """Records the aux (load-balance loss, dropped share) of every MoE
+    layer the model runs while the tap is open."""
+
+    def __enter__(self):
+        from repro_torch.models import transformer
+
+        self.saved, self.aux = transformer.apply_moe, []
+
+        def tapped(p, cfg, x):
+            y, aux = self.saved(p, cfg, x)
+            self.aux.append({k: v.detach() for k, v in aux.items()})
+            return y, aux
+
+        transformer.apply_moe = tapped
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import transformer
+
+        transformer.apply_moe = self.saved
+
+    def summary(self):
+        """(mean dropped share, mean aux loss, layer calls), then cleared."""
+        import torch
+
+        drop = torch.stack([a["moe_dropped_frac"] for a in self.aux]).mean().item()
+        aux = torch.stack([a["moe_aux_loss"] for a in self.aux]).mean().item()
+        n = len(self.aux)
+        self.aux.clear()
+        return drop, aux, n
+
+
+def train_lm_spec(full=True):
+    """Phase 12's configurations and sizes: the published ones (`full`),
+    or a small CPU rehearsal of the same steps."""
+    from repro_torch.configs import get_config, get_smoke
+
+    if full:
+        jamba = get_config("jamba-v0.1-52b").replace(num_layers=8, exit_layers=(3,),
+                                                     exit_loss_weights=(1.0,))
+        return dict(
+            mamba=get_config("mamba2-130m"), steps=200, train=(16, 128), n_tokens=800_000,
+            serve=(2, 32, 64), f32=(2, 64),
+            olmo=["--arch", "olmo-1b", "--steps", "5", "--batch", "8", "--seq", "512"],
+            granite=get_config("granite-moe-3b-a800m"), g_val=(64, 256), g_serve=(8, 512),
+            g_decode=32, g_train=(4, 512), g_engine=3,
+            jamba=jamba, j_serve=(2, 512), j_decode=8, j_f32=(2, 16),
+            whisper=["--arch", "whisper-base", "--steps", "3", "--batch", "8", "--seq", "128"],
+            w_serve=(2, 64), w_decode=8, w_f32=(2, 16))
+    small = dict(vocab_size=512)
+    return dict(
+        mamba=get_smoke("mamba2-130m").replace(num_layers=4, exit_layers=(0, 1),
+                                               exit_loss_weights=(1.0, 1.0), **small),
+        steps=30, train=(4, 32), n_tokens=20_000, serve=(2, 8, 16), f32=(2, 16),
+        olmo=["--arch", "olmo-1b", "--smoke", "--steps", "3", "--batch", "2", "--seq", "32",
+              "--device", "cpu"],
+        granite=get_smoke("granite-moe-3b-a800m").replace(num_layers=4, exit_layers=(0, 1),
+                                                          exit_loss_weights=(1.0, 1.0)),
+        g_val=(16, 32), g_serve=(4, 32), g_decode=4, g_train=(2, 32), g_engine=2,
+        jamba=get_smoke("jamba-v0.1-52b").replace(num_layers=4, exit_layers=(1,)),
+        j_serve=(2, 32), j_decode=4, j_f32=(2, 8),
+        whisper=["--arch", "whisper-base", "--smoke", "--steps", "2", "--batch", "2", "--seq",
+                 "16", "--device", "cpu"],
+        w_serve=(2, 16), w_decode=4, w_f32=(2, 8))
+
+
+def train_lm_phase(dev, spec, ckpt_dir, say=print):
+    """LM training and the rest of the zoo on `dev` (`spec` from
+    `train_lm_spec`): a. mamba2-130m trained as examples/train_lm.py
+    trains it, its exits calibrated (plain fit and K2) and served through
+    the gate, and a float32 train step on `dev` against the CPU; b.
+    olmo-1b through launch.train.main with a checkpoint reloaded bit for
+    bit; c. granite-moe served, trained one step and run through
+    lm_engine; d. jamba cut to one 8-layer period served, with a float32
+    decode check; e. whisper-base trained through the launcher and
+    served with its cross caches, with a float32 decode check. Returns
+    the printed numbers."""
+    import torch
+    import torch.utils._pytree as pytree
+
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.core.calibration import fit_temperature, nll
+    from repro_torch.core.policy import make_plan
+    from repro_torch.data.pipeline import TokenIterator
+    from repro_torch.data.synthetic import lm_sequences
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.compress import scaled_payload_nbytes
+    from repro_torch.launch import train
+    from repro_torch.launch.serve import make_prefill_step, make_serve_step
+    from repro_torch.models import registry, transformer, whisper
+    from repro_torch.offload.engine import EngineStats, lm_engine
+    from repro_torch.training import checkpoint, optim
+    from repro_torch.training.loop import loss_fn, make_eval_step, make_train_step
+
+    card = dev.type == "cuda"
+    log = LaunchLog(dev)
+    out = {}
+    u32 = 2.0 ** -24
+
+    def mem(peak_only=False):
+        if not card:
+            return "memory not measured (CPU)"
+        peak = f"peak {torch.cuda.max_memory_allocated() / 1e9:.3f} GB"
+        return peak if peak_only else (f"{torch.cuda.memory_allocated() / 1e9:.3f} GB "
+                                       f"allocated, {peak}")
+
+    def reset_peak():
+        _sync(dev)
+        if card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    def peak_gb():
+        return torch.cuda.max_memory_allocated() / 1e9 if card else float("nan")
+
+    def seeded(cfg, seed=0):
+        return registry.init_params(torch.Generator(device=dev).manual_seed(seed), cfg,
+                                    device=dev)
+
+    def grads_of(params, cfg, batch):
+        leaves, spec_ = pytree.tree_flatten(params)
+        leaves = [p.detach().requires_grad_(True) for p in leaves]
+        loss, _ = loss_fn(pytree.tree_unflatten(leaves, spec_), cfg, batch, False)
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    def busy(fn, n, what):
+        """The device's share of `n` calls of fn under torch.profiler:
+        kernel ms and launches a call against the host ms a call, and the
+        top kernels (card only)."""
+        if not card:
+            return None
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        _sync(dev)
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            _sync(dev)
+        host = 1e3 * (time.perf_counter() - t0) / n
+        kern = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                      key=lambda e: -e.self_device_time_total)
+        ms = sum(e.self_device_time_total for e in kern) / (1e3 * n)
+        launches = sum(e.count for e in kern) / n
+        say(f"profiled {what}: {ms:.3f} ms of kernels in {launches:.0f} launches a call against "
+            f"{host:.3f} ms a call under the profiler ({1 - ms / host:.1%} idle); top: "
+            + "; ".join(f"{e.key[:40]} {e.self_device_time_total / (1e3 * n):.3f} ms "
+                        f"x{e.count // n}" for e in kern[:5]), timed=True)
+        return dict(kernel_ms=ms, launches=launches, host_ms=host)
+
+    def decode_tokens(cfg, params, serve_step, tok, caches, start, n, n_exits, tag):
+        """n serve steps from position `start`; K1 launches asserted."""
+        times, confs = [], []
+        for t in range(start, start + n):
+            before = log.now()
+            t0 = time.perf_counter()
+            o, caches = serve_step(params, tok, caches, t)
+            _sync(dev)
+            times.append(time.perf_counter() - t0)
+            log.expect(tag, before, exit_gate=n_exits)
+            assert torch.isfinite(o["logits"].float()).all(), tag
+            confs.append(o["exit_confidence"])
+            tok = o["token"][:, None]
+        return 1e3 * float(np.median(times)), torch.stack(confs), caches
+
+    # ---------------------------------------------------------------- a
+    cfg = spec["mamba"]
+    V, n_exits = cfg.vocab_size, len(cfg.exit_layers)
+    t0 = time.perf_counter()
+    stream = lm_sequences(spec["n_tokens"], V, seed=0, order=1, branch=4)
+    it = iter(TokenIterator(stream, *spec["train"]))
+    t_data = time.perf_counter() - t0
+    reset_peak()
+    params = seeded(cfg)
+    n = transformer.num_params(params)
+    steps = spec["steps"]
+    step = make_train_step(cfg, optim.AdamWConfig(lr=1e-3, total_steps=steps, warmup_steps=20),
+                           remat=False, device=dev)
+    state = optim.init(params)
+    say(f"a. {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, state {cfg.ssm_state}, vocab "
+        f"{V}, exits after {cfg.exit_layers}; {n} scalars (param_count {cfg.param_count()}); "
+        f"lm_sequences({spec['n_tokens']}, order=1, branch=4) in {t_data:.2f} s (numpy); "
+        f"{mem()}", timed=True)
+    hist, times = [], []
+    for i in range(steps):
+        b = next(it)
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, b)
+        _sync(dev)
+        times.append(time.perf_counter() - t0)
+        hist.append(torch.stack([m["loss_final"]] + [m[f"loss_exit{j}"] for j in range(n_exits)]))
+        if i % 25 == 0 or i == steps - 1:
+            h = hist[-1].tolist()
+            say(f"step {i:4d} final={h[0]:.3f} " + " ".join(
+                f"exit{j}={h[1 + j]:.3f}" for j in range(n_exits)))
+    hist = torch.stack(hist).float().cpu().numpy()
+    assert np.isfinite(hist).all(), "a training loss is not finite"
+    assert (hist[-1] < hist[0]).all() and (hist[-1] < np.log(V)).all(), (hist[0], hist[-1])
+    ms = 1e3 * float(np.median(times[1:]))
+    say(f"{steps} AdamW steps at {spec['train'][0]} x {spec['train'][1]}, remat off: "
+        f"{ms:.3f} ms per step (median; the first {1e3 * times[0]:.1f} ms); loss (final, exits) "
+        f"{np.round(hist[0], 4).tolist()} -> {np.round(hist[-1], 4).tolist()} against log V "
+        f"{np.log(V):.4f}; {mem()}", timed=True)
+    out["mamba"] = dict(step_ms=ms, first=hist[0].tolist(), last=hist[-1].tolist())
+    pb = next(it)
+    out["mamba"]["profile"] = busy(lambda: step(params, state, pb), 2,
+                                   "train step (functional: results dropped)")
+    del state, step
+
+    held = next(it)
+    ev = make_eval_step(cfg, device=dev)(params, held)
+    y = torch.as_tensor(held["labels"], device=dev).reshape(-1).to(torch.int64)
+    temps, fits = [], []
+    for j, ex in enumerate(ev["exit_logits"]):
+        z = ex.reshape(-1, V)
+        t0 = time.perf_counter()
+        tp, info = fit_temperature(z.float(), y)
+        _sync(dev)
+        t_plain = time.perf_counter() - t0
+        # Newton in T leaves for t_max from where the NLL is concave in T
+        # (below an optimum T* < 1 from T = 1): K2 starts from the best
+        # point of a log grid whose NLLs K2 computes
+        t0 = time.perf_counter()
+        start = min(K2_GRID, key=lambda t: float(ops.calib_stats(z, y, t)[0]))
+        tk, _ = ops.fit_temperature_kernel(z, y, t0=start)
+        _sync(dev)
+        t_k2 = time.perf_counter() - t0
+        tp, tk = float(tp), float(tk)
+        n_p, n_k = float(nll(z.float(), y, tp)), float(nll(z.float(), y, tk))
+        assert abs(tk - tp) <= 1e-3 * tp or abs(n_k - n_p) <= 1e-6 * abs(n_p), (j, tk, tp)
+        temps.append(tp)
+        fits.append((tp, tk, n_p, n_k))
+        say(f"exit {j}: logits {tuple(z.shape)} {str(z.dtype)[6:]}; plain fit T {tp:.6f} "
+            f"(NLL {float(info['nll_before']):.4f} -> {n_p:.6f}) in {t_plain:.3f} s; K2 fit T "
+            f"{tk:.6f} (NLL {n_k:.6f}; Newton from {start}) in {t_k2:.3f} s", timed=True)
+    out["fits"] = fits
+    b2, n_tok, cache_len = spec["serve"]
+    serve = make_serve_step(cfg, temperatures=temps, device=dev)
+    caches = registry.init_cache(cfg, b2, cache_len, device=dev)
+    tok = torch.as_tensor(held["tokens"][:b2, :1], device=dev)
+    ms, confs, _ = decode_tokens(cfg, params, serve, tok, caches, 0, n_tok, n_exits, "a. serve")
+    cleared = int((confs.max(1).values > 0.8).sum())
+    say(f"served {n_tok} tokens x {b2} seqs from init_cache({b2}, {cache_len}): {ms:.3f} ms a "
+        f"token (median); {cleared}/{n_tok * b2} token-steps cleared the calibrated "
+        f"0.8-confidence gate at an early exit; {n_exits} K1 launches a step asserted",
+        timed=True)
+    out["serve"] = dict(token_ms=ms, cleared=cleared)
+    del params, ev, caches
+
+    # float32, 2 layers: one train step's loss and gradients on `dev`
+    # against the CPU port on the same weights and batch
+    cfg2 = cfg.replace(num_layers=2, exit_layers=(0,), exit_loss_weights=(1.0,),
+                       dtype="float32")
+    p2 = seeded(cfg2, seed=3)
+    fb = next(iter(TokenIterator(stream, *spec["f32"], seed=3)))
+    fl, fg = grads_of(p2, cfg2, {k: torch.as_tensor(v, device=dev) for k, v in fb.items()})
+    cl, cg = grads_of(pytree.tree_map(lambda a: a.cpu(), p2), cfg2,
+                      {k: torch.as_tensor(v) for k, v in fb.items()})
+    red = lm_reductions(cfg2, 2, seq=spec["f32"][1])
+    chain = 2 * sum(r ** 0.5 for r in red) + (fb["tokens"].size ** 0.5)
+    worst = 0.0
+    for g, w in zip(fg, cg):
+        atol = 8 * u32 * float(w.abs().max()) * chain
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=atol)
+        worst = max(worst, float((g.cpu() - w).abs().max()) / max(atol, 1e-30))
+    assert abs(float(fl) - float(cl)) <= 1e-4 * abs(float(cl)), (float(fl), float(cl))
+    say(f"float32, 2 layers, {spec['f32'][0]} x {spec['f32'][1]}: loss {float(fl):.7f} on "
+        f"{dev.type} against {float(cl):.7f} on the CPU; {len(fg)} gradient leaves within rtol "
+        f"1e-4 and the derived atol 8 u max|g| (2 sum sqrt(r) + sqrt(b s)), the largest gap "
+        f"{worst:.3g} of its atol")
+    out["f32_worst"] = worst
+    del p2, fg, cg
+    reset_peak()
+
+    # ---------------------------------------------------------------- b
+    path = os.path.join(ckpt_dir, "olmo.msgpack")
+    t0 = time.perf_counter()
+    run = train.main(spec["olmo"] + ["--ckpt", path, "--log-every", "1"])
+    wall = time.perf_counter() - t0
+    params = run["params"]
+    peak_remat = peak_gb()
+    ms = 1e3 * float(np.median(run["step_s"][1:]))
+    say(f"b. launch.train {' '.join(spec['olmo'])}: {transformer.num_params(params)} scalars; "
+        f"{ms:.3f} ms per step (median; the first {1e3 * run['step_s'][0]:.1f} ms) with remat; "
+        f"{wall:.2f} s in all; {mem()}", timed=True)
+    t0 = time.perf_counter()
+    back = checkpoint.load(path, {"params": params, "step": torch.tensor(0, dtype=torch.int32)})
+    t_load = time.perf_counter() - t0
+    pairs = list(zip(pytree.tree_leaves(back["params"]), pytree.tree_leaves(params)))
+    assert all(a.dtype == b.dtype and torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16
+                                                  else a, b.view(torch.int16)
+                                                  if b.dtype == torch.bfloat16 else b)
+               for a, b in pairs), "the checkpoint does not reload bit for bit"
+    assert int(back["step"]) == int(spec["olmo"][spec["olmo"].index("--steps") + 1])
+    say(f"checkpoint {os.path.getsize(path)} bytes reloaded in {t_load:.2f} s: {len(pairs)} "
+        f"leaves equal bit for bit", timed=True)
+    del back, pairs
+    os.remove(path)
+    ocfg = (get_smoke if "--smoke" in spec["olmo"] else get_config)(
+        spec["olmo"][spec["olmo"].index("--arch") + 1])
+    seq_b = (int(spec["olmo"][spec["olmo"].index("--batch") + 1]),
+             int(spec["olmo"][spec["olmo"].index("--seq") + 1]))
+    ostate = optim.init(params)
+    reset_peak()
+    ostep = make_train_step(ocfg, optim.AdamWConfig(), remat=False, device=dev, inplace=True)
+    ob = next(iter(TokenIterator(lm_sequences(50_000, ocfg.vocab_size, seed=5), *seq_b)))
+    t0 = time.perf_counter()
+    params, ostate, om = ostep(params, ostate, ob)
+    _sync(dev)
+    say(f"one step without remat at {seq_b[0]} x {seq_b[1]}: {1e3 * (time.perf_counter() - t0):.1f}"
+        f" ms (the step's first call), loss {float(om['loss']):.4f}; {mem(True)} against "
+        f"{peak_remat:.3f} GB with remat over launch.train's run", timed=True)
+    out["olmo"] = dict(step_ms=ms, peak_remat=peak_remat, peak_plain=peak_gb())
+    del params, ostate, run, ostep, om
+    reset_peak()
+
+    # ---------------------------------------------------------------- c
+    cfg = spec["granite"]
+    n_exits = len(cfg.exit_layers)
+    t0 = time.perf_counter()
+    params = seeded(cfg)
+    _sync(dev)
+    say(f"c. {cfg.name}: {cfg.num_layers} layers, {cfg.moe_num_experts} experts top-"
+        f"{cfg.moe_top_k}, segments {[(g[1], g[2]) for g in transformer.segment_plan(cfg)]}; "
+        f"{transformer.num_params(params)} scalars (param_count {cfg.param_count()}) in "
+        f"{time.perf_counter() - t0:.2f} s; {mem()}", timed=True)
+    gstream = lm_sequences(max(100_000, 4 * spec["g_val"][0] * spec["g_val"][1]), cfg.vocab_size,
+                           seed=0)
+    vb = next(iter(TokenIterator(gstream, *spec["g_val"], seed=0)))
+    sb = iter(TokenIterator(gstream, *spec["g_serve"], seed=1))
+    batches = [torch.as_tensor(next(sb)["tokens"], device=dev) for _ in range(spec["g_engine"])]
+    prefill = make_prefill_step(cfg, device=dev)
+    serve = make_serve_step(cfg, device=dev)
+    with MoeTap() as tap, torch.no_grad():
+        before = log.now()
+        prefill(params, {"tokens": batches[0]})  # warm-up
+        _sync(dev)
+        log.expect("c. prefill warm-up", before, exit_gate=n_exits)
+        tap.summary()
+        before = log.now()
+        t0 = time.perf_counter()
+        o = prefill(params, {"tokens": batches[1]})
+        _sync(dev)
+        pre_ms = 1e3 * (time.perf_counter() - t0)
+        log.expect("c. prefill", before, exit_gate=n_exits)
+        drop, aux, calls = tap.summary()
+        bsz, seq = spec["g_serve"]
+        caches = grow_caches(cfg, o["caches"], bsz, seq + spec["g_decode"], dev)
+        dec_ms, _, _ = decode_tokens(cfg, params, serve, o["logits"][:, 0].argmax(-1)[:, None],
+                                     caches, seq, spec["g_decode"], n_exits, "c. decode")
+        ddrop, daux, dcalls = tap.summary()
+        last = seq + spec["g_decode"] - 1  # rewrites the last decoded slot
+        before = log.now()
+        prof_pre = busy(lambda: prefill(params, {"tokens": batches[1]}), 1, "granite prefill")
+        prof_dec = busy(lambda: serve(params, batches[1][:, :1], caches, last), 2,
+                        "granite decode step")
+        log.expect("c. profiled prefill and decode", before, exit_gate=3 * n_exits)
+        tap.aux.clear()
+    say(f"prefill {bsz} x {seq}: {pre_ms:.3f} ms; MoE over its {calls} layers: dropped share "
+        f"{drop:.6f}, aux loss {aux:.6f} (means); {spec['g_decode']} decode steps from the "
+        f"prefill's caches (positions {seq}-{seq + spec['g_decode'] - 1}): {dec_ms:.3f} ms a "
+        f"token (median), dropped share {ddrop:.6f}, aux loss {daux:.6f}; {mem()}", timed=True)
+    out["granite"] = dict(prefill_ms=pre_ms, decode_ms=dec_ms, dropped=drop, aux=aux,
+                          profile=(prof_pre, prof_dec))
+    del o, caches
+    # validation logits for the engine's plan, on the seeded weights
+    zs, chunk = [[] for _ in range(n_exits)], max(1, spec["g_val"][0] // 4)
+    with torch.no_grad():
+        for i in range(0, spec["g_val"][0], chunk):
+            o = registry.forward_prefill(params, cfg, {"tokens": torch.as_tensor(
+                vb["tokens"][i:i + chunk], device=dev)})
+            for j in range(n_exits):
+                zs[j].append(o["exit_logits"][j][:, 0])
+    zs = [torch.cat(z) for z in zs]
+    yv = torch.as_tensor(vb["labels"][:, -1], device=dev)
+    del o
+    # one train step with remat, updating in place
+    reset_peak()
+    gstate = optim.init(params)
+    gstep = make_train_step(cfg, optim.AdamWConfig(), remat=True, device=dev, inplace=True)
+    tb = next(iter(TokenIterator(gstream, *spec["g_train"], seed=2)))
+    t0 = time.perf_counter()
+    params, gstate, gm = gstep(params, gstate, tb)
+    _sync(dev)
+    g_ms = 1e3 * (time.perf_counter() - t0)
+    assert all(torch.isfinite(v) for v in gm.values())
+    say(f"one train step at {spec['g_train'][0]} x {spec['g_train'][1]}, remat, in place: "
+        f"{g_ms:.1f} ms (the step's first call), loss {float(gm['loss']):.4f} (aux "
+        f"{float(gm['moe_aux']):.4f}), grad norm {float(gm['grad_norm']):.4f}; {mem()}",
+        timed=True)
+    out["granite"].update(train_ms=g_ms, train_peak=peak_gb())
+    del gstate, gstep
+    reset_peak()
+    plan = make_plan(zs, yv, p_tar=0.5, calibrated=False)
+    c = torch.sort(ref.exit_gate_ref(zs[0], 1.0)[0].double())[0]
+    plan = plan.with_p_tar(float((c[len(c) // 2 - 1] + c[len(c) // 2]) / 2))
+    del zs
+    s_, d_ = spec["g_serve"][1], cfg.d_model
+    row_bytes = {0: s_ * d_ * 2, 1: scaled_payload_nbytes(s_ * d_ * 4, 1),
+                 2: scaled_payload_nbytes(s_ * d_ * 4, 2)}
+    decisions = {}
+    for level in (0, 1, 2):
+        eng = lm_engine(params, cfg, plan.with_compression(level), device=dev)
+        eng.infer({"tokens": batches[0]})  # warm-up
+        eng.stats = EngineStats()
+        ons = []
+        for b in batches:
+            before = log.now()
+            res = eng.infer({"tokens": b})
+            m = int((~res["on_device"]).sum())
+            log.expect(f"c. lm_engine level {level}", before, exit_gate=1,
+                       encode=int(level != 0 and m > 0), decode=int(level != 0 and m > 0))
+            assert np.isfinite(res["confidence"]).all()
+            ons.append(res["on_device"])
+        st = eng.stats
+        decisions[level] = np.concatenate(ons)
+        assert st.payload_bytes == st.offloaded * row_bytes[level], (st.payload_bytes, level)
+        row = dict(offload_rate=st.offload_rate, payload_bytes=st.payload_bytes,
+                   edge_ms=1e3 * st.edge_time_s / max(st.edge_calls, 1),
+                   cloud_ms=1e3 * st.cloud_time_s / max(st.cloud_calls, 1))
+        out[f"granite_engine{level}"] = row
+        say(f"lm_engine level {level}: offload_rate {st.offload_rate:.4f} of {st.requests}, "
+            f"payload_bytes {st.payload_bytes} ({row_bytes[level]} a refused row), edge "
+            f"{row['edge_ms']:.3f} ms a batch, cloud {row['cloud_ms']:.3f} ms a refused batch",
+            timed=True)
+        del eng
+    assert all(np.array_equal(decisions[0], decisions[k]) for k in (1, 2))
+    del params, batches
+    reset_peak()
+
+    # ---------------------------------------------------------------- d
+    cfg = spec["jamba"]
+    n_exits = len(cfg.exit_layers)
+    t0 = time.perf_counter()
+    params = seeded(cfg)
+    _sync(dev)
+    say(f"d. {cfg.name} cut to {cfg.num_layers} layers (kinds {cfg.layer_plan()}; exits "
+        f"{cfg.exit_layers}): {transformer.num_params(params)} scalars in "
+        f"{time.perf_counter() - t0:.2f} s; {mem()}", timed=True)
+    bsz, seq = spec["j_serve"]
+    toks = torch.as_tensor(next(iter(TokenIterator(
+        lm_sequences(50_000, cfg.vocab_size, seed=4), bsz, seq)))["tokens"], device=dev)
+    with MoeTap() as tap:
+        before = log.now()
+        t0 = time.perf_counter()
+        o = make_prefill_step(cfg, device=dev)(params, {"tokens": toks})
+        _sync(dev)
+        pre_ms = 1e3 * (time.perf_counter() - t0)
+        log.expect("d. prefill", before, exit_gate=n_exits)
+        drop, aux, calls = tap.summary()
+        caches = grow_caches(cfg, o["caches"], bsz, seq + spec["j_decode"], dev)
+        dec_ms, _, _ = decode_tokens(cfg, params, make_serve_step(cfg, device=dev),
+                                     o["logits"][:, 0].argmax(-1)[:, None], caches, seq,
+                                     spec["j_decode"], n_exits, "d. decode")
+    say(f"prefill {bsz} x {seq}: {pre_ms:.3f} ms (the step's first call); MoE over {calls} "
+        f"layers: dropped share {drop:.6f}, aux loss {aux:.6f}; {spec['j_decode']} decode steps "
+        f"from its caches: {dec_ms:.3f} ms a token; {mem()}", timed=True)
+    out["jamba"] = dict(prefill_ms=pre_ms, decode_ms=dec_ms)
+    del params, o, caches
+    reset_peak()
+    # float32, 2 layers ((mamba, dense), (mamba, moe)): decode token by
+    # token against forward_train, capacity enough that neither drops
+    cfgj = cfg.replace(num_layers=2, exit_layers=(0,), dtype="float32", moe_capacity_factor=8.0)
+    pj = seeded(cfgj, seed=6)
+    fb = torch.as_tensor(next(iter(TokenIterator(lm_sequences(20_000, cfg.vocab_size, seed=6),
+                                                 *spec["j_f32"])))["tokens"], device=dev)
+    errs = {}
+    with torch.no_grad():
+        full = registry.forward_train(pj, cfgj, {"tokens": fb}, remat=False)
+        caches = registry.init_cache(cfgj, fb.shape[0], fb.shape[1], device=dev)
+        steps_ = [registry.decode_step(pj, cfgj, fb[:, t:t + 1], caches, t)[0]
+                  for t in range(fb.shape[1])]
+    for key, got, want in (("logits", torch.cat([s["logits"] for s in steps_], 1), full["logits"]),
+                           ("exit 0", torch.cat([s["exit_logits"][0] for s in steps_], 1),
+                            full["exit_logits"][0])):
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+        errs[key] = float((got - want).abs().max())
+    say(f"float32, 2 layers, {spec['j_f32'][0]} x {spec['j_f32'][1]}: decode step by step equals "
+        f"forward_train (rtol 2e-4, atol 2e-4), max |err| "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+    out["jamba"]["f32_err"] = max(errs.values())
+    del pj, full, steps_, caches
+    reset_peak()
+
+    # ---------------------------------------------------------------- e
+    t0 = time.perf_counter()
+    run = train.main(spec["whisper"] + ["--log-every", "1"])
+    params = run["params"]
+    wcfg = (get_smoke if "--smoke" in spec["whisper"] else get_config)("whisper-base")
+    n_exits = len(wcfg.exit_layers)
+    ms = 1e3 * float(np.median(run["step_s"][1:]))
+    say(f"e. launch.train {' '.join(spec['whisper'])}: {ms:.3f} ms per step (median; the first "
+        f"{1e3 * run['step_s'][0]:.1f} ms), {time.perf_counter() - t0:.2f} s in all; {mem()}",
+        timed=True)
+    bsz, seq = spec["w_serve"]
+    frames = torch.zeros((bsz, wcfg.encoder_seq, wcfg.d_model), dtype=torch.bfloat16, device=dev)
+    toks = torch.as_tensor(next(iter(TokenIterator(lm_sequences(50_000, wcfg.vocab_size, seed=7),
+                                                   bsz, seq)))["tokens"], device=dev)
+    before = log.now()
+    t0 = time.perf_counter()
+    o = make_prefill_step(wcfg, device=dev)(params, {"tokens": toks, "encoder_frames": frames})
+    _sync(dev)
+    pre_ms = 1e3 * (time.perf_counter() - t0)
+    log.expect("e. prefill", before, exit_gate=n_exits)
+    caches = grow_caches(wcfg, o["caches"], bsz, seq + spec["w_decode"], dev)
+    dec_ms, _, _ = decode_tokens(wcfg, params, make_serve_step(wcfg, device=dev),
+                                 o["logits"][:, 0].argmax(-1)[:, None], caches, seq,
+                                 spec["w_decode"], n_exits, "e. decode")
+    say(f"prefill {bsz} x {seq} with the (b, {wcfg.encoder_seq}, {wcfg.d_model}) frames: "
+        f"{pre_ms:.3f} ms (the step's first call); {spec['w_decode']} decode steps with the "
+        f"cross caches: {dec_ms:.3f} ms a token", timed=True)
+    out["whisper"] = dict(step_ms=ms, prefill_ms=pre_ms, decode_ms=dec_ms)
+    del params, run, o, caches
+    # float32 at full width: decode with prefill_cross_caches against
+    # forward_train on random frames
+    cfgw = wcfg.replace(dtype="float32")
+    pw = seeded(cfgw, seed=8)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    wb, ws = spec["w_f32"]
+    fr = torch.randn((wb, cfgw.encoder_seq, cfgw.d_model), generator=gen, device=dev)
+    tk = torch.randint(0, cfgw.vocab_size, (wb, ws), generator=gen, device=dev)
+    with torch.no_grad():
+        full = registry.forward_train(pw, cfgw, {"tokens": tk, "encoder_frames": fr}, remat=False)
+        wc = whisper.init_cache(cfgw, wb, ws, device=dev)
+        wc["cross"] = whisper.prefill_cross_caches(pw, cfgw, fr)
+        steps_ = [whisper.decode_step(pw, cfgw, tk[:, t:t + 1], wc, t)[0] for t in range(ws)]
+    errs = {}
+    for key, got, want in (("logits", torch.cat([s["logits"] for s in steps_], 1), full["logits"]),
+                           ("exit 0", torch.cat([s["exit_logits"][0] for s in steps_], 1),
+                            full["exit_logits"][0])):
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+        errs[key] = float((got - want).abs().max())
+    say(f"float32, full width, {wb} x {ws}: decode with prefill_cross_caches equals "
+        f"forward_train (rtol 2e-4, atol 2e-4), max |err| "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+    out["whisper"]["f32_err"] = max(errs.values())
+    del pw, full, steps_, wc
+    reset_peak()
+    say(f"{len(log.steps)} steps' launches (K1, K3, K4) asserted, e.g. "
+        + "; ".join(log.steps[:2] + log.steps[-3:]))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1931,19 +2541,21 @@ def main() -> int:
     # large cases hold +-1e4 and all-equal rows; row 3 a tie at columns 7
     # and 4000, which lie in different warps of the block layout; rows 4-19
     # a division tie (x1 at a lower column than x2) as the row's max.
-    # Last, the LM serving gate: one exit of a Qwen3-8B step at batch 8.
+    # Last, the LM serving gates: one exit of a Qwen3-8B step at batch 8, and
+    # one exit of a mamba2-130m decode step at batch 2 (raw bf16 logits).
     f32, bf16 = torch.float32, torch.bfloat16
     k1_cases = [((512, 10), f32), ((1, 10), f32), ((2048, 10), f32), ((1024, 10), f32),
                 ((3, 1), f32), ((3, 10), bf16), ((64, 32), f32), ((64, 33), bf16), ((64, 1024), f32), ((3, 1025), f32), ((3, 1025), bf16),
                 ((64, 4097), f32), ((64, 4097), bf16), ((5, 8193), f32), ((5, 8193), bf16),
-                ((256, 151_936), f32), ((256, 151_936), bf16), ((8, 151_936), bf16)]
+                ((256, 151_936), f32), ((256, 151_936), bf16), ((8, 151_936), bf16),
+                ((2, 50_280), bf16)]
     for shape, dtype in k1_cases:
         rows, vocab = shape
         temp = 1.37 if shape == (512, 10) else 1.3
         big = vocab == 151_936
         nbytes = rows * vocab * (2 if dtype == bf16 else 4) + rows * 12
         sets, calls = cold_plan(nbytes) if big else (1, calls_for(nbytes))
-        ties = division_ties(temp, min(16, rows - 4)) if vocab >= 8193 else []
+        ties = division_ties(temp, min(16, rows - 4)) if vocab >= 8193 and rows > 4 else []
         zs = []
         for _ in range(sets):
             zn = (rng.standard_normal(shape) * 6).astype(np.float32)
@@ -1951,7 +2563,7 @@ def main() -> int:
                 zn[0, :4] = [1e4, -1e4, 0.0, 500.0]
                 zn[1, :] = -1e4
                 zn[2, :] = 1e4
-            if vocab >= 8193:
+            if vocab >= 8193 and rows > 3:
                 zn[3, [7, 4000]] = 50.0
             for r, (x1, x2) in enumerate(ties, start=4):
                 zn[r, [100 + r, 3000 + 37 * r]] = [x1, x2]
@@ -1963,7 +2575,7 @@ def main() -> int:
         torch.testing.assert_close(conf, rconf, **K1_CONF)
         torch.testing.assert_close(ent, rent, **K1_ENT)
         assert torch.equal(idx, ridx), f"K1 argmax differs from the plain version at {shape}"
-        if vocab >= 8193:
+        if vocab >= 8193 and rows > 3:
             assert int(idx[3]) == 7, "K1 lost the lower index of a cross-warp tie"
         if ties and dtype == f32:
             assert idx[4:4 + len(ties)].tolist() == [100 + r for r in range(4, 4 + len(ties))], \
@@ -1982,14 +2594,15 @@ def main() -> int:
     # f32 and bf16 (622 and 311 MB, far above the L2, so cold in effect).
     # z_y must equal the input bit for bit; nll per row and the Newton
     # statistics within K2_NLL, K2_D1, K2_D2. Last, the LM's temperature
-    # fit: one exit's (128, 151936) bf16 validation logits at T 20.
+    # fit: one exit's (128, 151936) bf16 validation logits at T 20, and a
+    # mamba2-130m exit's (16 x 128, 50280) bf16 held-out logits.
     k2_edges = [(3, 1), (5, 32), (5, 33), (3, 1024), (3, 1025), (4, 4097), (5, 8193)]
     k2_cases = ([((2000, 10), 2.7, f32)]
                 + [(shape, temp, f32) for shape in k2_edges for temp in (0.5, 2.7)]
                 + [((5, 10), 2.7, bf16), ((5, 33), 2.7, bf16), ((3, 1025), 0.5, bf16),
                    ((5, 8193), 2.7, bf16), ((16, 10), -1.5, f32), ((3, 1025), -0.8, f32),
                    ((1024, 151_936), 1.3, f32), ((1024, 151_936), 1.3, bf16),
-                   ((128, 151_936), 20.0, bf16)])
+                   ((128, 151_936), 20.0, bf16), ((2048, 50_280), 1.3, bf16)])
     for shape, temp, dtype in k2_cases:
         rows, vocab = shape
         big = vocab == 151_936
@@ -2049,7 +2662,8 @@ def main() -> int:
     # fleet's: a context's (1024, 10) final logits (cloud tables) and the
     # controller core's four contexts' (4096, 10); the LM's: lm_engine's
     # refused rows of a Qwen3-8B (512, 4096) hidden, (4, 512 * 4096), with
-    # 16 384 groups a row (timed L2-warm and L2-cold)
+    # 16 384 groups a row, and of a granite-moe (512, 1536) hidden, (4, 512 *
+    # 1536) (both timed L2-warm and L2-cold)
     codec_cases = [((512, 16, 16, 64), 1, None), ((512, 16, 16, 64), 2, None),
                    ((1, 16, 16, 64), 2, None), ((1, 8, 8, 96), 2, None), ((2048, 10), 2, None),
                    ((252, 16, 16, 64), 1, None), ((252, 16, 16, 64), 2, None),
@@ -2061,7 +2675,8 @@ def main() -> int:
                    ((1024, 10), 2, None), ((4096, 10), 1, None), ((4096, 10), 2, None),
                    ((3000, 10), 1, None), ((3000, 10), 2, None),
                    ((7000, 10), 1, None), ((7000, 10), 2, None),
-                   ((4, 2_097_152), 1, None), ((4, 2_097_152), 2, None)]
+                   ((4, 2_097_152), 1, None), ((4, 2_097_152), 2, None),
+                   ((4, 786_432), 1, None), ((4, 786_432), 2, None)]
     for shape, level, fixed in codec_cases:
         xn = fixed if fixed is not None else (rng.standard_normal(shape) * 3).astype(np.float32)
         x = torch.as_tensor(xn, device=cuda)
@@ -2086,7 +2701,7 @@ def main() -> int:
                    device_ms(lambda i: compress.decode_kernel(words, scales, cols, bits)),
                    device_ms(lambda i: ref.decode_codec_ref(words, scales, shape, level)),
                    nbytes, 3.0 * rows * cols, launch_floor_ms=floor_ms)
-        if fixed is None and (shape[0] == 512 or shape == (4, 2_097_152)):
+        if fixed is None and (shape[0] == 512 or shape in ((4, 2_097_152), (4, 786_432))):
             # L2-warm: the same buffers every call;
             # L2-cold: inputs rotate over sets and every output is fresh
             wbytes = words.numel() * 4 + scales.numel() * 4
@@ -2305,6 +2920,11 @@ def main() -> int:
     run_phase("lm", lambda say: lm_phase(cuda, lm_cfg, say=say))
 
     # ---------------------------------------------------------------- 12
+    ckpt_dir = os.path.join(ROOT, "build", "chip_smoke")
+    os.makedirs(ckpt_dir, exist_ok=True)
+    run_phase("train_lm", lambda say: train_lm_phase(cuda, train_lm_spec(), ckpt_dir, say=say))
+
+    # ---------------------------------------------------------------- 13
     launches = {n: sum(c[n] for c in phase_launches.values()) for n in kernels}
     table = []
     for n in kernels:

@@ -1,1 +1,2 @@
-"""Launch entry points (port of `repro.launch`): the serving steps."""
+"""Launch entry points (port of `repro.launch`): the serving steps and
+the training driver."""

@@ -14,8 +14,9 @@ gates the calibrated float32 logits at T = 1, the shim gates the raw
 logits at T inside the kernel.
 
 The steps run on `device` (``cuda`` unless the caller passes ``"cpu"``):
-token batches land there, and params that live elsewhere raise
-ValueError. A decode step updates its caches in place.
+token batches (and an encoder-decoder's ``encoder_frames``) land there,
+and params that live elsewhere raise ValueError. A decode step updates
+its caches in place.
 """
 from __future__ import annotations
 
@@ -74,9 +75,10 @@ def make_prefill_step(cfg: ModelConfig, plan: OffloadPlan = None,
 
     def prefill_step(params, batch):
         require_device(params["embed"]["w"].device, device, "the params")
-        tokens = as_tensor(batch["tokens"], device).to(device)
+        batch = {k: as_tensor(v, device).to(device) for k, v in batch.items()}
+        tokens = batch["tokens"]
         with torch.no_grad():
-            out = registry.forward_prefill(params, cfg, {"tokens": tokens})
+            out = registry.forward_prefill(params, cfg, batch)
             conf, pred = _stack_gates(gater([l[:, 0, :] for l in out["exit_logits"]]),
                                       tokens.shape[0], device)
         return {

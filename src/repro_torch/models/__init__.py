@@ -1,2 +1,3 @@
-"""Models (port of `repro.models`): B-AlexNet and the decoder-only
-transformer (dense and vlm families) behind one registry."""
+"""Models (port of `repro.models`): B-AlexNet, the decoder-only stack
+(dense, vlm, moe, ssm and hybrid families) and the Whisper-style
+encoder-decoder behind one registry."""

@@ -3,23 +3,22 @@
 
 Dispatches on cfg.family:
   * convnet            -> repro_torch.models.convnet   (the paper's B-AlexNet)
-  * audio (enc-dec)    -> not ported yet: raises NotImplementedError
+  * audio (enc-dec)    -> repro_torch.models.whisper
   * everything else    -> repro_torch.models.transformer
 
 The reference's dry-run helpers (`input_specs`, `cache_specs`,
-`param_specs_shapes`) come with the dry-run tooling.
+`param_specs_shapes`) come with the dry-run tooling (ROADMAP.md queue 1
+item 7e).
 """
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import convnet, transformer
+from repro_torch.models import convnet, transformer, whisper
 
 
 def _mod(cfg: ModelConfig):
     if cfg.family == "audio" or cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder family (models/whisper) is not ported yet: "
-            "ROADMAP.md queue 1 item 7d")
+        return whisper
     return transformer
 
 
@@ -31,10 +30,10 @@ def init_params(generator, cfg: ModelConfig, device=None):
     return _mod(cfg).init_params(generator, cfg, device=device)
 
 
-def forward_train(params, cfg: ModelConfig, batch):
+def forward_train(params, cfg: ModelConfig, batch, remat: bool = True):
     if cfg.family == "convnet":
         return convnet.forward(params, batch["images"])
-    return _mod(cfg).forward_train(params, cfg, batch)
+    return _mod(cfg).forward_train(params, cfg, batch, remat=remat)
 
 
 def forward_prefill(params, cfg: ModelConfig, batch):

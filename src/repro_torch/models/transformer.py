@@ -8,18 +8,23 @@ a stacked ``(n, ...)`` cache; a segment of one layer holds neither. The
 tree is the reference's, so `params_from_jax` is a structural map and
 `edge_forward` / `cloud_forward` split at the same segment. Where the
 reference scans over a stacked segment, the port loops over the layers'
-``w[i]`` views in Python.
+views in Python.
 
 Early exits (the paper's technique): after segment boundaries listed in
 cfg.exit_layers, an exit head (norm + unembed) produces side-branch
 logits. The stack returns them all; gating/calibration live in
 `repro_torch.core`.
 
-Scope: the dense and vlm families, layer kinds ``("attn", "dense")`` and
-``("attn", "none")``. A ``"moe"`` ffn or a ``"mamba"`` mixer raises
-`NotImplementedError`. `forward_train` is forward-only (LM training,
-with its activation checkpointing, is not ported yet). Decode updates
-the caches in place (see `attention`).
+Every family but the encoder-decoder (`models.whisper`): layer kinds
+``(mixer, ffn)`` with an ``"attn"`` or ``"mamba"`` mixer and a
+``"dense"``, ``"moe"`` or ``"none"`` ffn. `forward_train` is
+differentiable: with ``remat`` each single-layer segment and each layer
+of a stacked segment is checkpointed (`torch.utils.checkpoint`, the
+reference's `jax.checkpoint` places), and the MoE aux loss is summed over
+the layers. A stacked segment's leaves are unbound once per pass
+(`_layers`): the backward of `torch.unbind` is one stack, where a select
+per layer would materialise a zero tensor of the whole stack per layer.
+Decode updates the caches in place (see `attention` and `mamba`).
 """
 from __future__ import annotations
 
@@ -28,10 +33,12 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 import torch.utils._pytree as pytree
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import as_tensor, require_device, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba as mb
 from repro_torch.models.layers import (
     apply_embed,
     apply_mlp,
@@ -45,19 +52,7 @@ from repro_torch.models.layers import (
     matmul,
     normal,
 )
-
-_UNPORTED = {
-    "moe": "a 'moe' ffn (models/moe) is not ported yet: ROADMAP.md queue 1 item 7b",
-    "mamba": "a 'mamba' mixer (models/mamba and the hybrid) is not ported yet: "
-             "ROADMAP.md queue 1 item 7c",
-}
-
-
-def _check_kind(kind):
-    mixer, ffn = kind
-    for part in (mixer, ffn):
-        if part in _UNPORTED:
-            raise NotImplementedError(_UNPORTED[part])
+from repro_torch.models.moe import apply_moe, init_moe
 
 
 # ---------------------------------------------------------------- segmentation
@@ -84,51 +79,81 @@ def _layer(tree, i):
     return pytree.tree_map(lambda a: a[i], tree)
 
 
+def _layers(tree, n):
+    """The n layers' views of a stacked (n, ...) tree, each leaf unbound
+    once."""
+    leaves, spec = pytree.tree_flatten(tree)
+    per_leaf = [torch.unbind(a) for a in leaves]
+    return [pytree.tree_unflatten([u[i] for u in per_leaf], spec) for i in range(n)]
+
+
 # ------------------------------------------------------------------- one block
 def init_block(generator, cfg, kind):
-    _check_kind(kind)
-    _, ffn = kind
+    mixer, ffn = kind
     p: Dict[str, Any] = {"mixer_norm": init_norm(generator, cfg)}
-    p["attn"] = attn.init_attention(generator, cfg)
+    if mixer == "attn":
+        p["attn"] = attn.init_attention(generator, cfg)
+    else:
+        p["mamba"] = mb.init_mamba(generator, cfg)
     if ffn != "none":
         p["ffn_norm"] = init_norm(generator, cfg)
-        p["mlp"] = init_mlp(generator, cfg)
+        if ffn == "dense":
+            p["mlp"] = init_mlp(generator, cfg)
+        else:
+            p["moe"] = init_moe(generator, cfg)
     return p
 
 
 def _ffn(p, cfg, ffn, x):
-    if ffn != "none":
-        x = x + apply_mlp(p["mlp"], cfg, apply_norm(p["ffn_norm"], cfg, x))
-    return x
+    """The block's ffn half with its residual. Returns (x, aux)."""
+    if ffn == "none":
+        return x, {}
+    h = apply_norm(p["ffn_norm"], cfg, x)
+    if ffn == "dense":
+        return x + apply_mlp(p["mlp"], cfg, h), {}
+    h, aux = apply_moe(p["moe"], cfg, h)
+    return x + h, aux
 
 
 def apply_block_seq(p, cfg, kind, x, positions):
     """Full-sequence (train/prefill) block. Returns (x, cache, aux)."""
-    _check_kind(kind)
+    mixer, ffn = kind
     h = apply_norm(p["mixer_norm"], cfg, x)
-    h, cache = attn.attention_prefill(p["attn"], cfg, h, positions)
-    x = _ffn(p, cfg, kind[1], x + h)
-    return x, cache, {}
+    if mixer == "attn":
+        h, cache = attn.attention_prefill(p["attn"], cfg, h, positions)
+    else:
+        h, cache = mb.mamba_prefill(p["mamba"], cfg, h)
+    x, aux = _ffn(p, cfg, ffn, x + h)
+    return x, cache, aux
 
 
 def apply_block_decode(p, cfg, kind, x, cache, pos):
-    _check_kind(kind)
+    mixer, ffn = kind
     h = apply_norm(p["mixer_norm"], cfg, x)
-    h, cache = attn.attention_decode(p["attn"], cfg, h, cache, pos)
-    return _ffn(p, cfg, kind[1], x + h), cache
+    if mixer == "attn":
+        h, cache = attn.attention_decode(p["attn"], cfg, h, cache, pos)
+    else:
+        h, cache = mb.mamba_decode(p["mamba"], cfg, h, cache)
+    return _ffn(p, cfg, ffn, x + h)[0], cache
 
 
 def _apply_block_decode_stacked(p, cfg, kind, x, cache, pos, layer_idx):
-    """Unrolled-decode block against a stacked (n_layers, ...) cache."""
-    _check_kind(kind)
+    """Unrolled-decode block against a stacked (n_layers, ...) cache,
+    layer `layer_idx`'s slice updated in place."""
+    mixer, ffn = kind
     h = apply_norm(p["mixer_norm"], cfg, x)
-    h, cache = attn.attention_decode_stacked(p["attn"], cfg, h, cache, pos, layer_idx)
-    return _ffn(p, cfg, kind[1], x + h), cache
+    if mixer == "attn":
+        h, cache = attn.attention_decode_stacked(p["attn"], cfg, h, cache, pos, layer_idx)
+    else:
+        # the mamba state IS the layer's whole payload: its views write through
+        h, _ = mb.mamba_decode(p["mamba"], cfg, h, _layer(cache, layer_idx))
+    return _ffn(p, cfg, ffn, x + h)[0], cache
 
 
 def init_block_cache(cfg, kind, batch, seq_len, device):
-    _check_kind(kind)
-    return attn.init_kv_cache(cfg, batch, seq_len, device)
+    if kind[0] == "attn":
+        return attn.init_kv_cache(cfg, batch, seq_len, device)
+    return mb.init_mamba_cache(cfg, batch, device)
 
 
 # ------------------------------------------------------------------- the model
@@ -220,48 +245,60 @@ def _embed(params, cfg, tokens):
     return x, positions
 
 
-def _run_segment_seq(sp, cfg, kind, n, x, positions, keep_cache=True):
-    """One segment over a full sequence. Returns (x, cache), the cache
-    stacked (n, ...) when n > 1, or None unless `keep_cache`."""
-    if n == 1:
-        x, cache, _ = apply_block_seq(sp, cfg, kind, x, positions)
-        return x, cache if keep_cache else None
+def _run_segment_seq(sp, cfg, kind, n, x, positions, keep_cache=True, remat=False):
+    """One segment over a full sequence. Returns (x, cache, aux_sum): the
+    cache stacked (n, ...) when n > 1, or None unless `keep_cache`; the
+    layers' MoE aux losses summed (float32). With `remat` each layer is
+    checkpointed."""
     caches = []
-    for i in range(n):
-        x, cache, _ = apply_block_seq(_layer(sp, i), cfg, kind, x, positions)
+    aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lp in [sp] if n == 1 else _layers(sp, n):
+        if remat:
+            x, cache, aux = checkpoint(apply_block_seq, lp, cfg, kind, x, positions,
+                                       use_reentrant=False)
+        else:
+            x, cache, aux = apply_block_seq(lp, cfg, kind, x, positions)
+        if "moe_aux_loss" in aux:
+            aux_sum = aux_sum + aux["moe_aux_loss"]
         if keep_cache:
             caches.append(cache)
-    return x, pytree.tree_map(lambda *a: torch.stack(a), *caches) if keep_cache else None
+    if not keep_cache:
+        return x, None, aux_sum
+    return x, caches[0] if n == 1 else pytree.tree_map(lambda *a: torch.stack(a), *caches), \
+        aux_sum
 
 
-def _run_segments_seq(params, cfg, x, positions, keep_cache):
-    """Returns (x, exit_hiddens, caches)."""
+def _run_segments_seq(params, cfg, x, positions, keep_cache, remat=False):
+    """Returns (x, exit_hiddens, aux_sum, caches)."""
     exit_hiddens: List[Any] = []
     caches: List[Any] = []
+    aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     for sp, (kind, n, exit_after) in zip(params["segments"], segment_plan(cfg)):
-        x, cache = _run_segment_seq(sp, cfg, kind, n, x, positions, keep_cache)
+        x, cache, aux = _run_segment_seq(sp, cfg, kind, n, x, positions, keep_cache, remat)
+        aux_sum = aux_sum + aux
         caches.append(cache)
         if exit_after:
             exit_hiddens.append(x)
-    return x, exit_hiddens, caches
+    return x, exit_hiddens, aux_sum, caches
 
 
-def forward_train(params, cfg: ModelConfig, batch):
-    """batch: {tokens (b, s) int, ...}. Returns logits dict for the loss
-    (forward only; `moe_aux_loss` is 0 for the ported families)."""
+def forward_train(params, cfg: ModelConfig, batch, remat: bool = True):
+    """batch: {tokens (b, s) int, ...}. Returns logits dict for the loss,
+    differentiable; `moe_aux_loss` is the layers' sum."""
     x, positions = _embed(params, cfg, batch["tokens"])
-    x, exit_hiddens, _ = _run_segments_seq(params, cfg, x, positions, keep_cache=False)
+    x, exit_hiddens, aux_sum, _ = _run_segments_seq(params, cfg, x, positions,
+                                                    keep_cache=False, remat=remat)
     return {
         "logits": _lm_logits(params, cfg, x),
         "exit_logits": [exit_logits_fn(params, cfg, i, h) for i, h in enumerate(exit_hiddens)],
-        "moe_aux_loss": torch.zeros((), dtype=torch.float32, device=x.device),
+        "moe_aux_loss": aux_sum,
     }
 
 
 def forward_prefill(params, cfg: ModelConfig, batch):
     """Prefill: full sequence, returns last-position logits + caches + exits."""
     x, positions = _embed(params, cfg, batch["tokens"])
-    x, exit_hiddens, caches = _run_segments_seq(params, cfg, x, positions, keep_cache=True)
+    x, exit_hiddens, _, caches = _run_segments_seq(params, cfg, x, positions, keep_cache=True)
     return {
         "logits": _lm_logits(params, cfg, x[:, -1:, :]),
         "exit_logits": [exit_logits_fn(params, cfg, i, h[:, -1:, :])
@@ -300,11 +337,11 @@ def decode_step(params, cfg: ModelConfig, token, caches, pos):
         if n == 1:
             x, _ = apply_block_decode(sp, cfg, kind, x, cache, pos)
         elif cfg.decode_unroll:
-            for i in range(n):
-                x, _ = _apply_block_decode_stacked(_layer(sp, i), cfg, kind, x, cache, pos, i)
-        else:
-            for i in range(n):  # layer i's cache views write through to the stack
-                x, _ = apply_block_decode(_layer(sp, i), cfg, kind, x, _layer(cache, i), pos)
+            for i, lp in enumerate(_layers(sp, n)):
+                x, _ = _apply_block_decode_stacked(lp, cfg, kind, x, cache, pos, i)
+        else:  # layer i's cache views write through to the stack
+            for lp, lc in zip(_layers(sp, n), _layers(cache, n)):
+                x, _ = apply_block_decode(lp, cfg, kind, x, lc, pos)
         if exit_after:
             exit_hiddens.append(x)
     logits = _lm_logits(params, cfg, x)
@@ -324,7 +361,7 @@ def edge_forward(params, cfg: ModelConfig, batch, exit_index: int = 0):
     caches = []
     n_exits_seen = 0
     for sp, (kind, n, exit_after) in zip(params["segments"], segment_plan(cfg)):
-        x, cache = _run_segment_seq(sp, cfg, kind, n, x, positions)
+        x, cache, _ = _run_segment_seq(sp, cfg, kind, n, x, positions)
         caches.append(cache)
         if exit_after:
             if n_exits_seen == exit_index:
@@ -345,7 +382,7 @@ def cloud_forward(params, cfg: ModelConfig, hidden, exit_index: int = 0):
     started = False
     for sp, (kind, n, exit_after) in zip(params["segments"], segment_plan(cfg)):
         if started:
-            x, _ = _run_segment_seq(sp, cfg, kind, n, x, positions, keep_cache=False)
+            x, _, _ = _run_segment_seq(sp, cfg, kind, n, x, positions, keep_cache=False)
         if exit_after and not started:
             if n_exits_seen == exit_index:
                 started = True

@@ -1,12 +1,15 @@
-"""Train and eval steps (port of `repro.training.loop`, convnet branch).
+"""Train and eval steps (port of `repro.training.loop`).
 
 `make_train_step(cfg, opt_cfg)` builds the (params, opt_state, batch) ->
-(params, opt_state, metrics) step: the joint loss under autograd
-(`torch.autograd.grad` over the parameter leaves), then the functional
-AdamW `optim.update`. The reference dispatches through
-`models.registry.forward_train`; the port calls `models.convnet.forward`
-for ``family == "convnet"`` and raises for every other family, which
-waits for the LM slice (with the registry itself).
+(params, opt_state, metrics) step for any zoo architecture: the joint
+loss under autograd (`torch.autograd.grad` over the parameter leaves),
+then the functional AdamW `optim.update`. The LM families go through
+`models.registry.forward_train` and `losses.multi_exit_loss` (the MoE aux
+loss weighted by ``cfg.moe_aux_loss_weight``); the convnet through its
+image loss. ``remat`` checkpoints the LM's layers (`registry`); the eval
+step runs without it, as the reference's does. With ``inplace`` the
+update overwrites the parameters and moments it was given (one copy of
+the AdamW state on the card instead of two; `optim.update`).
 
 Both steps run on `device` (``cuda`` unless the caller passes ``"cpu"``):
 the batch and the parameters move there, and without a GPU and without a
@@ -19,35 +22,29 @@ import torch.utils._pytree as pytree
 
 from repro_torch._device import as_tensor, resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import registry
 from repro_torch.training import optim
-from repro_torch.training.losses import softmax_xent
+from repro_torch.training.losses import multi_exit_loss, softmax_xent
 
 
-def _forward(params, cfg: ModelConfig, images):
-    if cfg.family != "convnet":
-        raise NotImplementedError(
-            f"family {cfg.family!r}: only the convnet is ported; the LM families "
-            "(and models.registry) wait for the LM slice"
-        )
-    from repro_torch.models import convnet
-
-    return convnet.forward(params, images)
-
-
-def loss_fn(params, cfg: ModelConfig, batch):
-    """BranchyNet joint loss: final-head CE + sum_i w_i * exit_i CE.
-    Returns (loss, metrics dict of 0-d tensors)."""
-    out = _forward(params, cfg, batch["images"])
-    labels = batch["labels"]
-    final = softmax_xent(out["logits"], labels)
-    loss = final
-    metrics = {"loss_final": final}
-    for i, (ex, w) in enumerate(zip(out["exit_logits"], cfg.exit_loss_weights)):
-        li = softmax_xent(ex, labels)
-        loss = loss + w * li
-        metrics[f"loss_exit{i}"] = li
-    metrics["loss"] = loss
-    return loss, metrics
+def loss_fn(params, cfg: ModelConfig, batch, remat: bool = True):
+    """BranchyNet joint loss: final-head CE + sum_i w_i * exit_i CE (+ the
+    weighted MoE aux loss for the LMs). Returns (loss, metrics dict of 0-d
+    tensors)."""
+    out = registry.forward_train(params, cfg, batch, remat=remat)
+    if cfg.family == "convnet":
+        labels = batch["labels"]
+        final = softmax_xent(out["logits"], labels)
+        loss = final
+        metrics = {"loss_final": final}
+        for i, (ex, w) in enumerate(zip(out["exit_logits"], cfg.exit_loss_weights)):
+            li = softmax_xent(ex, labels)
+            loss = loss + w * li
+            metrics[f"loss_exit{i}"] = li
+        metrics["loss"] = loss
+        return loss, metrics
+    return multi_exit_loss(out, batch["labels"], cfg.exit_loss_weights,
+                           cfg.moe_aux_loss_weight)
 
 
 def _on(device, params, batch):
@@ -56,19 +53,22 @@ def _on(device, params, batch):
     return params, batch
 
 
-def make_train_step(cfg: ModelConfig, opt_cfg: optim.AdamWConfig, device=None):
+def make_train_step(cfg: ModelConfig, opt_cfg: optim.AdamWConfig, remat: bool = True,
+                    device=None, inplace: bool = False):
     def train_step(params, opt_state, batch):
         dev = resolve_device(device)
         params, batch = _on(dev, params, batch)
         leaves, spec = pytree.tree_flatten(params)
         leaves = [p.detach().requires_grad_(True) for p in leaves]
         with torch.enable_grad():
-            loss, metrics = loss_fn(pytree.tree_unflatten(leaves, spec), cfg, batch)
-            grads = torch.autograd.grad(loss, leaves)
+            loss, metrics = loss_fn(pytree.tree_unflatten(leaves, spec), cfg, batch, remat)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                        materialize_grads=True)
         metrics = {k: v.detach() for k, v in metrics.items()}
+        del loss
         params, opt_state, opt_metrics = optim.update(
             opt_cfg, pytree.tree_unflatten([p.detach() for p in leaves], spec),
-            pytree.tree_unflatten(list(grads), spec), opt_state)
+            pytree.tree_unflatten(list(grads), spec), opt_state, inplace=inplace)
         metrics.update(opt_metrics)
         return params, opt_state, metrics
 
@@ -81,7 +81,7 @@ def make_eval_step(cfg: ModelConfig, device=None):
     def eval_step(params, batch):
         params, batch = _on(resolve_device(device), params, batch)
         with torch.no_grad():
-            out = _forward(params, cfg, batch["images"])
+            out = registry.forward_train(params, cfg, batch, remat=False)
         return {"logits": out["logits"], "exit_logits": out["exit_logits"]}
 
     return eval_step

@@ -14,8 +14,8 @@ the reference's arithmetic kept exactly, element by element:
 The step count, the learning rate and the clip scale stay 0-d tensors on
 the parameters' device, so an update never waits on the host.
 `torch.optim.AdamW` is not used: its clip and decay differ. The
-reference's `state_specs` (TPU optimizer sharding) waits for the launch
-slice.
+reference's `state_specs` (TPU optimizer sharding) waits for the dry-run
+tooling (ROADMAP.md queue 1 item 7e).
 """
 from __future__ import annotations
 
@@ -73,9 +73,13 @@ def global_norm(tree):
 
 
 @torch.no_grad()
-def update(cfg: AdamWConfig, params, grads, state: OptState):
-    """Returns (new_params, new_state, metrics); the inputs are not
-    modified."""
+def update(cfg: AdamWConfig, params, grads, state: OptState, inplace: bool = False):
+    """Returns (new_params, new_state, metrics). The inputs are not
+    modified, unless `inplace`: then each parameter and moment is
+    overwritten with its new value, leaf by leaf, and the returned trees
+    hold the same tensors: the memory of one copy of the parameters and
+    float32 moments, where the functional update holds two. The
+    arithmetic is the same either way."""
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     step = state.step + 1
@@ -85,14 +89,20 @@ def update(cfg: AdamWConfig, params, grads, state: OptState):
 
     def upd(p, g, mu, nu):
         g = g.to(torch.float32) * scale
-        mu = cfg.b1 * mu + (1 - cfg.b1) * g
-        nu = cfg.b2 * nu + (1 - cfg.b2) * torch.square(g)
-        mhat = mu / b1c
-        nhat = nu / b2c
+        new_mu = cfg.b1 * mu + (1 - cfg.b1) * g
+        new_nu = cfg.b2 * nu + (1 - cfg.b2) * torch.square(g)
+        mhat = new_mu / b1c
+        nhat = new_nu / b2c
         delta = mhat / (torch.sqrt(nhat) + cfg.eps)
         if p.dim() >= 2:  # decoupled weight decay on matrices only
             delta = delta + cfg.weight_decay * p.to(torch.float32)
-        return (p.to(torch.float32) - lr * delta).to(p.dtype), mu, nu
+        new_p = (p.to(torch.float32) - lr * delta).to(p.dtype)
+        if inplace:
+            p.copy_(new_p)
+            mu.copy_(new_mu)
+            nu.copy_(new_nu)
+            return p, mu, nu
+        return new_p, new_mu, new_nu
 
     # leaves are matched by key, whatever each dict's insertion order
     out = pytree.tree_map(upd, params, grads, state.mu, state.nu)

@@ -72,11 +72,15 @@ PORTED = [
     "repro_torch.kernels.ref",
     "repro_torch.launch",
     "repro_torch.launch.serve",
+    "repro_torch.launch.train",
     "repro_torch.models.attention",
     "repro_torch.models.convnet",
     "repro_torch.models.layers",
+    "repro_torch.models.mamba",
+    "repro_torch.models.moe",
     "repro_torch.models.registry",
     "repro_torch.models.transformer",
+    "repro_torch.models.whisper",
     "repro_torch.obs",
     "repro_torch.obs.audit",
     "repro_torch.obs.calibration",
@@ -102,6 +106,7 @@ PORTED = [
     "repro_torch.serving.scenarios",
     "repro_torch.serving.telemetry",
     "repro_torch.serving.workload",
+    "repro_torch.training.checkpoint",
     "repro_torch.training.loop",
     "repro_torch.training.losses",
     "repro_torch.training.optim",
@@ -132,9 +137,11 @@ def test_running_the_fleet_and_orchestration_loads_neither_jax_nor_repro():
     codec level 2 with every observability sink on, on the host and the
     compiled pipeline, one quick
     orchestration scenario (QoS, rollout, audit chain), the max-plus
-    solvers, and the LM serving path (a prefill step, a decode step and
-    lm_engine at codec level 2 on a smoke config), all on the CPU -- and
-    only then are the loaded modules checked."""
+    solvers, the LM serving path (a prefill step, a decode step and
+    lm_engine at codec level 2 on a smoke config), the training driver
+    (`launch.train --smoke`, with a checkpoint) and a forward pass of the
+    moe, mamba and whisper models, all on the CPU -- and only then are
+    the loaded modules checked."""
     code = (
         "import sys\n"
         "import numpy as np\n"
@@ -178,6 +185,21 @@ def test_running_the_fleet_and_orchestration_loads_neither_jax_nor_repro():
         "res = lm_engine(lm, cfg, plan.with_p_tar(2.0).with_compression(2),\n"
         "                device='cpu').infer({'tokens': toks})\n"
         "assert not res['on_device'].any() and res['prediction'].shape == (2,)\n"
+        "import contextlib, io, os, tempfile\n"
+        "from repro_torch.launch import train\n"
+        "with tempfile.TemporaryDirectory() as d, contextlib.redirect_stdout(io.StringIO()):\n"
+        "    ck = os.path.join(d, 'ck.msgpack')\n"
+        "    run = train.main(['--arch', 'granite-moe-3b-a800m', '--smoke', '--steps', '2',\n"
+        "                      '--batch', '2', '--seq', '16', '--device', 'cpu', '--ckpt', ck])\n"
+        "    assert len(run['step_s']) == 2 and os.path.exists(ck)\n"
+        "for arch in ('granite-moe-3b-a800m', 'mamba2-130m', 'jamba-v0.1-52b', 'whisper-base'):\n"
+        "    c = get_smoke(arch)\n"
+        "    p = registry.init_params(torch.Generator().manual_seed(0), c, device='cpu')\n"
+        "    b = {'tokens': toks}\n"
+        "    if c.is_encoder_decoder:\n"
+        "        b['encoder_frames'] = torch.zeros(2, c.encoder_seq, c.d_model, dtype=torch.bfloat16)\n"
+        "    o = registry.forward_train(p, c, b)\n"
+        "    assert tuple(o['logits'].shape) == (2, 8, c.vocab_size), arch\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "bad = [m for m in sys.modules if m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
@@ -362,6 +384,33 @@ def test_lm_serving_refuses_without_gpu(monkeypatch):
     toks = np.ones((2, 8), np.int32)
     make_prefill_step(cfg, plan=plan, device="cpu")(params, {"tokens": toks})
     lm_engine(params, cfg, plan, device="cpu").infer({"tokens": toks})
+    assert [k.launches for k in KERNELS] == [0, 0, 0, 0]
+
+
+def test_lm_training_refuses_without_gpu(monkeypatch):
+    """LM training follows the device rule: the train and eval steps, the
+    training driver and whisper's init raise without a device, and run on
+    the CPU when asked."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import train
+    from repro_torch.models import registry, whisper
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_smoke("mamba2-130m")
+    params = registry.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    batch = {"tokens": np.ones((2, 8), np.int32), "labels": np.ones((2, 8), np.int32)}
+    for call in (
+        lambda: make_train_step(cfg, optim.AdamWConfig())(params, optim.init(params), batch),
+        lambda: make_eval_step(cfg)(params, batch),
+        lambda: train.main(["--arch", "mamba2-130m", "--smoke", "--steps", "1"]),
+        lambda: whisper.init_params(None, get_smoke("whisper-base")),
+        lambda: registry.init_cache(get_smoke("whisper-base"), 1, 8),
+    ):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    _, _, m = make_train_step(cfg, optim.AdamWConfig(), device="cpu")(
+        params, optim.init(params), batch)
+    assert torch.isfinite(m["loss"])
     assert [k.launches for k in KERNELS] == [0, 0, 0, 0]
 
 

@@ -1,6 +1,7 @@
 """Port parity for the LM building blocks: `repro_torch.configs` (every
 architecture), `models.layers`, `models.attention`, `data.pipeline`, and
-the scope limits of `models.transformer` / `models.registry`.
+the registry's reach over every family (`models.transformer`,
+`models.whisper`).
 
 The same numpy inputs and parameters go through `repro` and
 `repro_torch`. Tolerances: configs equal field by field; layers rtol
@@ -20,6 +21,7 @@ from repro import configs as jconfigs
 from repro.data import pipeline as jpipe
 from repro.models import attention as jattn
 from repro.models import layers as jl
+from repro.models import registry as jregistry
 from repro_torch import configs as tconfigs
 from repro_torch.data import pipeline as tpipe
 from repro_torch.models import attention as tattn
@@ -261,9 +263,18 @@ def test_prefetch_yields_every_batch_in_order_and_places_it():
                                         ("jamba-v0.1-52b", "7"),
                                         ("whisper-base", "7d")])
 def test_unported_families_raise(arch, match):
+    """The families ROADMAP.md queue 1 item `match` named as unported no
+    longer raise: the registry builds the reference's params tree and
+    decode caches (shapes and dtypes) for each."""
     cfg = tconfigs.get_smoke(arch)
+    jcfg = jconfigs.get_smoke(arch)
     gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match=f"item {match}"):
-        registry.init_params(gen, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=f"item {match}"):
-        registry.init_cache(cfg, 1, 8, device="cpu")
+    for got, want in ((registry.init_params(gen, cfg, device="cpu"),
+                       jax.eval_shape(lambda k: jregistry.init_params(k, jcfg),
+                                      jax.random.PRNGKey(0))),
+                      (registry.init_cache(cfg, 1, 8, device="cpu"),
+                       jax.eval_shape(lambda: jregistry.init_cache(jcfg, 1, 8)))):
+        tl = jax.tree.leaves(jax.tree.map(lambda a: a, got,
+                                          is_leaf=lambda x: isinstance(x, torch.Tensor)))
+        assert [(tuple(t.shape), str(t.dtype)[6:]) for t in tl] == [
+            (a.shape, str(a.dtype)) for a in jax.tree.leaves(want)], (arch, match)

@@ -118,10 +118,20 @@ def test_loss_and_gradients_match_reference():
 
 
 def test_other_families_wait_for_the_lm_slice():
+    """The LM families no longer wait: their loss is the registry's
+    forward through `multi_exit_loss` (the LM slice ports it; held to the
+    reference in tests/test_torch_lm_train.py)."""
+    from repro_torch.models import registry
+
     cfg = ModelConfig(name="t", family="dense", num_layers=1, d_model=8, num_heads=1,
                       num_kv_heads=1, d_ff=8, vocab_size=10, head_dim=8)
-    with pytest.raises(NotImplementedError, match="LM slice"):
-        tloop.loss_fn({}, cfg, batch())
+    params = registry.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    rng = np.random.default_rng(0)
+    b = {"tokens": torch.as_tensor(rng.integers(0, 10, (2, 4))),
+         "labels": torch.as_tensor(rng.integers(0, 10, (2, 4)))}
+    loss, metrics = tloop.loss_fn(params, cfg, b)
+    want, _ = tlosses.multi_exit_loss(registry.forward_train(params, cfg, b), b["labels"], ())
+    assert torch.equal(loss, want) and sorted(metrics) == ["loss", "loss_final", "moe_aux"]
 
 
 # -------------------------------------------------------------- optimizer
