@@ -150,14 +150,27 @@ Phases, each printing its own lines:
             (e) whisper-base: 3 launch.train steps at 8 x 128 on zero
             frames, prefill, 8 decode steps with the cross caches, and
             decode against forward_train in float32.
-13. result  one JSON line with every kernel's numbers, the nvidia-smi
+13. dryrun  the dry run (`repro_torch.launch.dryrun`) on the card: every
+            LM arch at prefill_32k and qwen3-8b at all four input shapes,
+            traced on fake CUDA tensors in six processes at once, each
+            asserting that its trace launched no kernel and left
+            torch.cuda.memory_allocated() unchanged (GFLOPs, GB by part,
+            fits one card, trace s); then the steps phases 11-12 run --
+            Qwen3-8B prefill 8 x 512, olmo-1b remat train 8 x 512,
+            mamba2-130m train 16 x 128 -- traced and run for real: the
+            dry run's FLOPs beside the measured ms and the achieved
+            TFLOP/s against the bf16 dense peak, its peak bytes beside
+            max_memory_allocated; then latency.h100 from the trained
+            B-AlexNet engine's stats (both branches served warm with every
+            sample offloaded) beside paper_2020.
+14. result  one JSON line with every kernel's numbers, the nvidia-smi
             line, and last {"ok": true, "device": {...}}.
 
-Phases 4-12 are the main path: each sets the launch counts to 0 just
+Phases 4-13 are the main path: each sets the launch counts to 0 just
 before it and reads them just after, and fails if a kernel of its path
 did not run (train: K1; serving: K1-K4; paper: K1, K2; bank: K1, K3,
 K4; runtime: K1, K3, K4; fleet and compiled: K1, K3, K4; lm and
-train_lm: K1-K4).
+train_lm: K1-K4; dryrun: K1).
 Every line that prints a time names the card and its power limit.
 
 Any failure raises, so the process exits non-zero and prints no result;
@@ -179,6 +192,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # rate outside the tensor cores -- the roofline every bound_ms is against
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+# and the bf16 dense tensor-core rate, which phase 13 holds a step's
+# achieved FLOP/s against
+BF16_FLOP_PER_S = 989e12
 # an L2-cold timing keeps more than this much traffic between two uses of
 # a buffer: twice the H100's 50 MB L2
 COLD_BYTES = 100e6
@@ -203,7 +219,8 @@ PHASE_KERNELS = {"train": ("exit_gate",),
                  "fleet": ("exit_gate", "encode", "decode"),
                  "compiled": ("exit_gate", "encode", "decode"),
                  "lm": ("exit_gate", "calib_nll", "encode", "decode"),
-                 "train_lm": ("exit_gate", "calib_nll", "encode", "decode")}
+                 "train_lm": ("exit_gate", "calib_nll", "encode", "decode"),
+                 "dryrun": ("exit_gate",)}
 # the log grid K2's LM temperature fit starts its Newton steps from
 K2_GRID = (0.25, 0.5, 1.0, 2.0, 4.0)
 # K1's boundary: the kernel's conf = 1/S and the plain max(exp(logp)) are
@@ -2398,6 +2415,208 @@ def train_lm_phase(dev, spec, ckpt_dir, say=print):
     return out
 
 
+# the dry run's pairs on the card: every arch at prefill_32k and qwen3-8b
+# at its other three shapes, longest traces first (they run in parallel)
+DRYRUN_PAIRS = ([(a, "prefill_32k") for a in ("qwen2-72b", "internlm2-20b", "qwen3-moe-30b-a3b",
+                                              "chameleon-34b", "qwen3-8b", "granite-moe-3b-a800m",
+                                              "jamba-v0.1-52b", "olmo-1b", "mamba2-130m",
+                                              "whisper-base")]
+                + [("qwen3-8b", s) for s in ("train_4k", "decode_32k", "long_500k")])
+
+
+def dryrun_worker(job):
+    """Trace one dry-run pair, job = (arch, shape, device type), on fake
+    tensors in a process of its own: returns the record, the bytes the
+    trace left allocated on the card and the kernels it launched (both
+    must be 0)."""
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.kernels import calib_nll, compress, exit_gate
+    from repro_torch.launch import dryrun
+
+    arch, shape, device = job
+    kernels = (exit_gate.KERNEL, calib_nll.KERNEL, compress.ENCODE, compress.DECODE)
+    cuda = device == "cuda"
+    before = torch.cuda.memory_allocated() if cuda else 0
+    rec = dryrun.run_one(arch, shape, outdir=None, device=device)
+    if cuda:
+        torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated() if cuda else 0
+    return rec, after - before, sum(k.launches for k in kernels)
+
+
+def step_cross_check(dev, name, cfg, shape, remat, reps=3, say=print):
+    """The dry run's FLOPs and peak bytes for one step against the same
+    step run for real on `dev` (seeded params, random tokens): median ms
+    of `reps` calls after a warm-up (host clock to a sync), achieved
+    TFLOP/s, and the allocator's peak over those calls."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch import dryrun, hlo_cost
+    from repro_torch.launch.serve import make_prefill_step
+    from repro_torch.models import registry
+    from repro_torch.training import optim
+    from repro_torch.training.loop import make_train_step
+
+    t0 = time.perf_counter()
+    with FakeTensorMode(allow_fallback_kernels=False):
+        step, args, _ = dryrun.build_step(cfg, shape, dev, remat=remat)
+        cost = hlo_cost.analyze(step, *args)
+    del step, args
+    trace_s = time.perf_counter() - t0
+    b, s = shape.global_batch, shape.seq_len
+    params = registry.init_params(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=g, device=dev, dtype=torch.int32)
+    if shape.kind == "train":
+        labels = torch.randint(0, cfg.vocab_size, (b, s), generator=g, device=dev,
+                               dtype=torch.int32)
+        train = make_train_step(cfg, optim.AdamWConfig(), remat=remat, device=dev, inplace=True)
+        state = [params, optim.init(params), {"tokens": tokens, "labels": labels}]
+
+        def call():
+            state[0], state[1], m = train(*state)
+            return m["loss"]
+    else:
+        prefill = make_prefill_step(cfg, device=dev)
+
+        def call():
+            return prefill(params, {"tokens": tokens})["logits"]
+    out = call()
+    _sync(dev)
+    assert bool(torch.isfinite(out.float()).all()), f"{name}: the step's output is not finite"
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(reps):
+        t1 = time.perf_counter()
+        call()
+        _sync(dev)
+        times.append(1e3 * (time.perf_counter() - t1))
+    ms = float(np.median(times))
+    peak = torch.cuda.max_memory_allocated() if cuda else float("nan")
+    del out, params, tokens, call
+    if shape.kind == "train":
+        del state, train
+    if cuda:
+        torch.cuda.empty_cache()
+    tflops = cost["flops"] / (ms * 1e-3) / 1e12
+    say(f"{name} ({'remat ' if shape.kind == 'train' and remat else ''}{shape.kind} {b} x {s}): "
+        f"dry run {cost['flops']:.4e} FLOPs, {cost['bytes']:.4e} B unfused, peak "
+        f"{cost['peak_bytes'] / 1e9:.3f} GB (traced in {trace_s:.2f} s); measured {ms:.3f} ms "
+        f"(median of {[round(t, 3) for t in times]}): {tflops:.1f} TFLOP/s, "
+        f"{tflops * 1e12 / BF16_FLOP_PER_S:.1%} of the {BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s bf16 "
+        f"dense peak; max_memory_allocated {peak / 1e9:.3f} GB (dry run / measured "
+        f"{cost['peak_bytes'] / peak:.3f})", timed=True)
+    assert cost["flops"] > 0 and cost["peak_bytes"] > 0
+    return dict(flops=cost["flops"], bytes=cost["bytes"], dry_peak=cost["peak_bytes"], ms=ms,
+                tflops=tflops, peak=peak)
+
+
+def dryrun_steps(full=True):
+    """(name, config, shape, remat) of the steps phases 11-12 run: at full
+    width, or (full=False, to rehearse on the CPU) their smoke configs at
+    small shapes."""
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.configs.base import ShapeConfig
+
+    get = get_config if full else get_smoke
+    b, s, mb, ms = (8, 512, 16, 128) if full else (2, 32, 2, 32)
+    return [("qwen3-8b", get("qwen3-8b"), ShapeConfig("prefill", s, b, "prefill"), True),
+            ("olmo-1b", get("olmo-1b"), ShapeConfig("train", s, b, "train"), True),
+            ("mamba2-130m", get("mamba2-130m"), ShapeConfig("train", ms, mb, "train"), False)]
+
+
+def dryrun_phase(dev, params, plan, phase5_stats, test_x, pairs=DRYRUN_PAIRS, steps=None,
+                 workers=6, say=print):
+    """The dry run on `dev`: `pairs` traced on fake tensors in `workers`
+    processes (no kernel launched, no byte allocated); the three steps
+    phases 11-12 run (`dryrun_steps`), traced and run for real (FLOPs
+    against ms, peak bytes against max_memory_allocated); and
+    `latency.h100` from the trained B-AlexNet engine's measured stats,
+    beside `paper_2020`."""
+    import multiprocessing
+
+    import torch
+
+    from repro_torch.offload import latency
+    from repro_torch.offload.engine import EngineStats, convnet_engine
+
+    # (a) every arch at prefill_32k and qwen3-8b at all four shapes
+    cuda = dev.type == "cuda"
+    _sync(dev)
+    mem0 = torch.cuda.memory_allocated() if cuda else 0
+    t0 = time.perf_counter()
+    with multiprocessing.get_context("spawn").Pool(workers) as pool:
+        results = pool.map(dryrun_worker, [(a, s, dev.type) for a, s in pairs], chunksize=1)
+    wall = time.perf_counter() - t0
+    assert (torch.cuda.memory_allocated() if cuda else 0) == mem0
+    records = []
+    for (arch, shape), (rec, alloc, launched) in zip(pairs, results):
+        assert alloc == 0 and launched == 0, (arch, shape, alloc, launched)
+        assert rec["flops"] > 0 and rec["bytes_accessed"] > 0
+        assert rec["device"] == (torch.cuda.get_device_name(dev) if cuda else "cpu")
+        mem = rec["memory"]
+        say(f"dry run {arch} {shape}: {rec['flops'] / 1e9:.6g} GFLOPs, "
+            f"{rec['bytes_accessed'] / 1e9:.6g} GB unfused; GB params "
+            f"{mem['params_bytes'] / 1e9:.3f} opt {mem['opt_state_bytes'] / 1e9:.3f} cache "
+            f"{mem['cache_bytes'] / 1e9:.3f} batch {mem['batch_bytes'] / 1e9:.4f} peak "
+            f"{mem['peak_bytes'] / 1e9:.3f}; fits one card ({rec['card_bytes'] / 1e9:.2f} GB) "
+            f"{rec['fits_one_card']}; traced in {rec['trace_s']} s on {rec['device']}; "
+            f"0 kernels, 0 bytes allocated")
+        records.append(rec)
+    say(f"{len(pairs)} pairs traced on fake {dev.type} tensors in {workers} processes in "
+        f"{wall:.1f} s (trace s summed {sum(r['trace_s'] for r in records):.1f})")
+
+    # (b) the steps phases 11-12 run, dry and for real
+    cross = {name: step_cross_check(dev, name, cfg, shape, remat, say=say)
+             for name, cfg, shape, remat in (steps or dryrun_steps())}
+
+    # (c) the measured H100 profile. Phase 5's stats (branch 2's cloud paid
+    # cuDNN's set-up for each new refused-batch size, so its path looks
+    # slower than branch 1's longer one) are shown; the profile is built
+    # from both branches served warm with every sample offloaded (one
+    # batch size, 512), where the nesting of the paths holds.
+    for (branch, level), st in sorted(phase5_stats.items()):
+        say(f"phase 5 branch {branch} level {level}: edge {1e6 * st.edge_time_s / st.requests:.4f}"
+            f" us a sample, cloud {1e6 * st.cloud_time_s / max(st.offloaded, 1):.4f} us an "
+            f"offloaded sample", timed=True)
+    stats = {}
+    for branch in (1, 2):
+        engine = convnet_engine(params, plan.with_p_tar(2.0), branch=branch, use_kernel=True,
+                                device=dev)
+        engine.infer({"images": test_x[:512]})  # warm-up: cuDNN plans the 512-row batch
+        engine.stats = EngineStats()
+        for i in range(0, len(test_x), 512):
+            engine.infer({"images": test_x[i:i + 512]})
+        assert engine.stats.offloaded == engine.stats.requests == len(test_x)
+        stats[branch] = engine.stats
+    h100 = latency.h100(stats, uplink_bps=latency.paper_2020().uplink_bps)
+    paper = latency.paper_2020()
+    for branch, st in stats.items():
+        for got, want in ((latency.edge_time(h100, branch), st.edge_time_s / st.requests),
+                          (latency.cloud_time(h100, branch), st.cloud_time_s / st.offloaded)):
+            assert abs(got - want) <= 1e-9 * want, (branch, got, want)
+    say("h100 profile (us a sample) against paper_2020: "
+        + "; ".join(f"{k} edge {1e6 * h100.edge_layer_s[k]:.4f} / {1e6 * paper.edge_layer_s[k]:.2f}"
+                    f" cloud {1e6 * h100.cloud_layer_s[k]:.4f} / {1e6 * paper.cloud_layer_s[k]:.2f}"
+                    for k in h100.edge_layer_s)
+        + "; " + "; ".join(f"{k} {1e6 * v:.4f} / {1e6 * paper.branch_s[k]:.2f}"
+                          for k, v in h100.branch_s.items()), timed=True)
+    for branch in (1, 2):
+        say(f"branch {branch}: edge_time {1e6 * latency.edge_time(h100, branch):.4f} us "
+            f"(paper_2020 {1e6 * latency.edge_time(paper, branch):.2f}), cloud_time "
+            f"{1e6 * latency.cloud_time(h100, branch):.4f} us "
+            f"({1e6 * latency.cloud_time(paper, branch):.2f}), comm_time at level 0 "
+            f"{1e3 * latency.comm_time(h100, branch):.3f} ms over "
+            f"{h100.uplink_bps / 1e6:.1f} Mbps; measured with every sample offloaded, the "
+            f"profile gives them back", timed=True)
+    return {"records": records, "cross": cross, "h100": h100}
+
+
 def main() -> int:
     import torch
 
@@ -2785,7 +3004,7 @@ def main() -> int:
         assert plan.to_json() == text
         say(f"p_tar {plan.p_tar:.6f}; partition exit {plan.exit_index} "
             f"(offload probs {[round(c.offload_prob, 4) for c in cands]}); JSON round trip ok")
-        offload_rates = {}
+        offload_rates, stats = {}, {}
         for branch, level in [(1, 0), (1, 1), (1, 2), (2, 2)]:
             engine = convnet_engine(params, plan.with_compression(level), branch=branch,
                                     use_kernel=True)
@@ -2819,6 +3038,7 @@ def main() -> int:
                 f" cloud {1e3 * st.cloud_time_s / len(res):.3f}) launches {delta}", timed=True)
             assert 0.0 < st.offload_rate < 1.0, (branch, level, st.offload_rate)
             offload_rates[branch, level] = st.offload_rate
+            stats[branch, level] = st
             assert st.payload_bytes == want, (st.payload_bytes, want)
             assert delta["exit_gate"] >= len(res)
             if level == 0:
@@ -2827,8 +3047,9 @@ def main() -> int:
                 assert delta["encode"] >= 1 and delta["decode"] >= 1
         # the gate runs before the codec, so the level cannot move who offloads
         assert offload_rates[1, 0] == offload_rates[1, 1] == offload_rates[1, 2], offload_rates
+        return plan, stats
 
-    run_phase("serving", serving)
+    serving_plan, serving_stats = run_phase("serving", serving)
 
     # edge_forward on the card against the CPU port, on the trained weights
     # the serving phase served and on the seeded initial ones. cuDNN and the
@@ -2925,6 +3146,10 @@ def main() -> int:
     run_phase("train_lm", lambda say: train_lm_phase(cuda, train_lm_spec(), ckpt_dir, say=say))
 
     # ---------------------------------------------------------------- 13
+    run_phase("dryrun", lambda say: dryrun_phase(cuda, params, serving_plan, serving_stats,
+                                                 test_x, say=say))
+
+    # ---------------------------------------------------------------- 14
     launches = {n: sum(c[n] for c in phase_launches.values()) for n in kernels}
     table = []
     for n in kernels:

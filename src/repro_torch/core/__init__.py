@@ -24,8 +24,7 @@ gating criterion, `p_tar` and the chosen partition point into an
   metrics      ECE, reliability diagrams, inference outage
 
 Exports what the reference exports, with `TorchGateBackend` in place of
-`JaxGateBackend` and without the deprecated `OffloadPolicy` /
-`make_policy` shims.
+`JaxGateBackend`.
 """
 from repro_torch.core.bank import (  # noqa: F401
     UNKNOWN_CONTEXT,
@@ -77,6 +76,8 @@ from repro_torch.core.metrics import (  # noqa: F401
 from repro_torch.core.partition import choose_partition, select_partition  # noqa: F401
 from repro_torch.core.policy import (  # noqa: F401
     OffloadPlan,
+    OffloadPolicy,
     make_plan,
+    make_policy,
     rescore_plan,
 )

@@ -8,17 +8,15 @@ the reference's JSON schema (`PLAN_FORMAT_VERSION = 1`): a plan saved by
 way round. Consumed by `repro_torch.offload.engine`,
 `repro_torch.core.partition`, `repro_torch.core.exits.cascade_gate`,
 `repro_torch.core.gatepath` (`gate_block`) and `repro_torch.core.control`
-(`rescore_plan`, re-exported here as in the reference).
-
-The reference's deprecated `OffloadPolicy` / `make_policy` shims are left
-out: nothing calls them, and `OffloadPlan` / `make_plan` cover what they
-did.
+(`rescore_plan`, re-exported here as in the reference). The deprecated
+`OffloadPolicy` / `make_policy` shims of the seed API are kept, as in the
+reference.
 """
 from __future__ import annotations
 
 import json
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 from repro_torch._device import as_tensor
 from repro_torch.core.calibration import (
@@ -243,3 +241,49 @@ def make_plan(
 # as in the reference. It sits below the class definitions so the control
 # module can be imported first without a cycle.
 from repro_torch.core.control import rescore_plan  # noqa: E402,F401
+
+
+# ------------------------------------------------------- deprecation shims
+class OffloadPolicy(OffloadPlan):
+    """Deprecated temperature-list constructor; use OffloadPlan/make_plan."""
+
+    def __init__(
+        self,
+        p_tar: float,
+        temperatures: Sequence[float],
+        criterion: str = "confidence",
+        entropy_threshold: Optional[float] = None,
+        exit_index: int = 0,
+        calibrated: bool = True,
+    ):
+        OffloadPlan.__init__(
+            self,
+            p_tar=p_tar,
+            calibrators=[TemperatureScaling.from_temperature(t) for t in temperatures],
+            criterion=criterion,
+            entropy_threshold=entropy_threshold,
+            exit_index=exit_index,
+            metadata={"calibrated": calibrated},
+        )
+        self.calibrated = calibrated
+
+
+def make_policy(
+    exit_logits_list,
+    labels,
+    p_tar: float,
+    calibrated: bool = True,
+    sequential: bool = False,
+    device=None,
+) -> OffloadPlan:
+    """Deprecated: thin wrapper over make_plan (kept for the seed API).
+    Logits and labels that are not tensors land on `device` (``cuda`` by
+    default)."""
+    return make_plan(
+        exit_logits_list,
+        labels,
+        p_tar=p_tar,
+        calibrated=calibrated,
+        sequential=sequential,
+        device=device,
+    )

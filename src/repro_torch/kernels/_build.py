@@ -17,6 +17,13 @@ runs at import.
 `Kernel` binds one exported C function. Calling it launches on PyTorch's
 current stream, raises if `cudaGetLastError()` was not 0, and adds one to
 its `launches` count -- the only place a count moves.
+
+`LIB` is the ``repro_torch`` operator namespace: each kernel module
+defines its op there with a CUDA implementation (the launcher), a CPU one
+(the plain version) and a fake one (shapes and types only, for traced
+steps). `torch.library.Library` rather than `torch.library.custom_op`:
+the latter wraps every call in a Python autograd layer, which the serving
+runtime's host-bound requests pay for (`PERF.md`, section 6).
 """
 from __future__ import annotations
 
@@ -38,6 +45,18 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib: Optional[ctypes.CDLL] = None
+
+LIB = torch.library.Library("repro_torch", "FRAGMENT")
+
+
+def define_op(schema: str, cuda, cpu, fake) -> None:
+    """Define ``repro_torch::<schema>`` with its CUDA, CPU and fake
+    implementations."""
+    name = schema.split("(", 1)[0]
+    LIB.define(schema)
+    LIB.impl(name, cuda, "CUDA")
+    LIB.impl(name, cpu, "CPU")
+    torch.library.register_fake(f"repro_torch::{name}", fake, lib=LIB)
 
 
 def _nvcc() -> str:

@@ -13,8 +13,12 @@ consecutive features per sample, so for B-AlexNet an NHWC activation.
 `encode` raises on a non-contiguous input rather than copying a permuted
 view (which would regroup every scale).
 
-Dispatch: CPU tensors go to `ref.encode_codec_ref` / `decode_codec_ref`;
-CUDA tensors go to the kernels or the call raises.
+Dispatch: `encode` and `decode` call the ops ``repro_torch::encode``
+and ``repro_torch::decode`` on the (rows, features) layout. The dispatcher
+sends CPU tensors to `ref.encode_codec_ref` / `decode_codec_ref`, CUDA
+tensors to the kernels (`encode_kernel` / `decode_kernel`, which refuse
+anything else) or the call raises, and fake or meta tensors to the ops'
+fake implementations, which read no data.
 """
 from __future__ import annotations
 
@@ -70,6 +74,9 @@ def _groups(cols: int) -> int:
     return -(-cols // CODEC_TILE)
 
 
+_LEVEL_OF_BITS = {bits: level for level, bits in CODEC_BITS.items()}
+
+
 # ---------------------------------------------------------------- kernels
 def encode_kernel(z: torch.Tensor, bits: int):
     """z: (rows, cols) contiguous float32 on the card. Returns (words
@@ -102,6 +109,32 @@ def decode_kernel(words: torch.Tensor, scales: torch.Tensor, cols: int, bits: in
     return out
 
 
+# ---------------------------------------------------------------- the ops
+def _encode_cpu(z, bits):
+    return encode_codec_ref(z, _LEVEL_OF_BITS[bits])
+
+
+def _encode_fake(z, bits):
+    rows, cols = z.shape
+    g = _groups(cols)
+    return (z.new_empty((rows, g * CODEC_TILE * bits // 32), dtype=torch.uint32),
+            z.new_empty((rows, g), dtype=torch.float32))
+
+
+def _decode_cpu(words, scales, cols, bits):
+    return decode_codec_ref(words, scales, (words.shape[0], cols), _LEVEL_OF_BITS[bits])
+
+
+def _decode_fake(words, scales, cols, bits):
+    return words.new_empty((words.shape[0], cols), dtype=torch.float32)
+
+
+_build.define_op("encode(Tensor z, int bits) -> (Tensor, Tensor)", encode_kernel, _encode_cpu,
+                 _encode_fake)
+_build.define_op("decode(Tensor words, Tensor scales, int cols, int bits) -> Tensor",
+                 decode_kernel, _decode_cpu, _decode_fake)
+
+
 # ----------------------------------------------------------- public wrappers
 @dataclass(frozen=True)
 class EncodedPayload:
@@ -130,20 +163,17 @@ def encode(x, level: int, device=None) -> EncodedPayload:
     if not x.is_contiguous():
         raise ValueError("the codec groups consecutive features: pass a contiguous payload")
     shape = tuple(int(d) for d in x.shape)
-    if x.device.type == "cpu":
-        words, scales = encode_codec_ref(x, level)
-    else:
-        rows, cols = _codec_layout(shape)
-        words, scales = encode_kernel(x.reshape(rows, cols).to(torch.float32), CODEC_BITS[level])
+    rows, cols = _codec_layout(shape)
+    words, scales = torch.ops.repro_torch.encode.default(x.reshape(rows, cols).to(torch.float32),
+                                                         CODEC_BITS[level])
     return EncodedPayload(words=words, scales=scales, shape=shape, level=level)
 
 
 def decode(enc: EncodedPayload) -> torch.Tensor:
     """Decode an `EncodedPayload` back to float32 in its original shape."""
-    if enc.words.device.type == "cpu":
-        return decode_codec_ref(enc.words, enc.scales, enc.shape, enc.level)
     _, cols = _codec_layout(enc.shape)
-    return decode_kernel(enc.words, enc.scales, cols, CODEC_BITS[int(enc.level)]).reshape(enc.shape)
+    return torch.ops.repro_torch.decode.default(enc.words, enc.scales, cols,
+                                                CODEC_BITS[int(enc.level)]).reshape(enc.shape)
 
 
 def roundtrip(x, level: int, device=None):

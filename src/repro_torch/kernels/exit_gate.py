@@ -8,17 +8,26 @@ without materialising the softmax: one online pass keeps (m, S, W, idx)
 per row. Port of `repro.kernels.exit_gate.exit_gate_kernel`; the CUDA
 source says what bounds it and how its design answers that.
 
-Dispatch: a CPU tensor goes to `ref.exit_gate_ref`; a CUDA tensor goes to
-the kernel or the call raises.
+Dispatch: `exit_gate_kernel` calls the op ``repro_torch::exit_gate``.
+The dispatcher sends a CPU tensor to `ref.exit_gate_ref`, a CUDA tensor to
+the kernel (or the call raises), and a fake or meta tensor to the op's
+fake implementation, which only makes outputs of the right shape and
+type: a traced step (`launch.hlo_cost`) never reads a `data_ptr()`. The
+op's FLOP formula counts 6 operations a logit (divide, subtract, exp, and
+the running max, sum and entropy sum), the work `PERF.md`'s bound assumes.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import exit_gate_ref
+
+#: operations per logit, for the FLOP counter and the roofline bound
+FLOPS_PER_LOGIT = 6
 
 KERNEL = _build.Kernel(
     "exit_gate",
@@ -30,8 +39,10 @@ KERNEL = _build.Kernel(
 def exit_gate_kernel(logits: torch.Tensor, temperature=1.0):
     """logits: (rows, vocab) float32 or bfloat16; temperature: scalar.
     Returns (conf float32, ent float32, idx int32), each (rows,)."""
-    if logits.device.type == "cpu":
-        return exit_gate_ref(logits, temperature)
+    return torch.ops.repro_torch.exit_gate.default(logits, float(temperature))
+
+
+def _exit_gate_cuda(logits, temperature):
     _build.check_cuda_tensor(logits, "logits", (torch.float32, torch.bfloat16), 2)
     rows, vocab = logits.shape
     if vocab < 1 or rows >= 2**31 or vocab >= 2**31:
@@ -40,5 +51,21 @@ def exit_gate_kernel(logits: torch.Tensor, temperature=1.0):
     ent = torch.empty(rows, dtype=torch.float32, device=logits.device)
     idx = torch.empty(rows, dtype=torch.int32, device=logits.device)
     KERNEL(logits.device, logits.data_ptr(), int(logits.dtype == torch.bfloat16), rows, vocab,
-           float(temperature), conf.data_ptr(), ent.data_ptr(), idx.data_ptr())
+           temperature, conf.data_ptr(), ent.data_ptr(), idx.data_ptr())
     return conf, ent, idx
+
+
+def _exit_gate_fake(logits, temperature):
+    rows = logits.shape[0]
+    return (logits.new_empty(rows, dtype=torch.float32), logits.new_empty(rows, dtype=torch.float32),
+            logits.new_empty(rows, dtype=torch.int32))
+
+
+_build.define_op("exit_gate(Tensor logits, float temperature) -> (Tensor, Tensor, Tensor)",
+                 _exit_gate_cuda, exit_gate_ref, _exit_gate_fake)
+
+
+@register_flop_formula(torch.ops.repro_torch.exit_gate)
+def _exit_gate_flops(logits_shape, *args, **kwargs) -> int:
+    rows, vocab = logits_shape
+    return FLOPS_PER_LOGIT * rows * vocab

@@ -11,8 +11,9 @@ since the loop keeps only the newest.
       --steps 50 --batch 8 --seq 128 --ckpt build/ck.msgpack --device cpu
 
 `--production-mesh` (the reference's TPU pod mesh) raises
-NotImplementedError: meshes and sharding wait for ROADMAP.md queue 1
-item 7e.
+NotImplementedError: one card has no 256- or 512-chip mesh.
+`launch.dryrun --mesh 16x16` (or ``2x16x16``) gives the bytes each card of
+such a mesh would hold.
 """
 from __future__ import annotations
 
@@ -54,8 +55,9 @@ def main(argv=None):
 
     if args.production_mesh:
         raise NotImplementedError(
-            "--production-mesh: TPU pod meshes and sharding are not ported; they wait for "
-            "ROADMAP.md queue 1 item 7e")
+            "--production-mesh: one card has no 256- or 512-chip mesh; run "
+            "`python -m repro_torch.launch.dryrun --mesh 16x16` (or 2x16x16) for the bytes "
+            "each card of such a mesh would hold")
     device = resolve_device(args.device)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     print(f"arch={cfg.name} params={cfg.param_count():,} "

@@ -6,14 +6,20 @@ Dispatches on cfg.family:
   * audio (enc-dec)    -> repro_torch.models.whisper
   * everything else    -> repro_torch.models.transformer
 
-The reference's dry-run helpers (`input_specs`, `cache_specs`,
-`param_specs_shapes`) come with the dry-run tooling (ROADMAP.md queue 1
-item 7e).
+Also provides the dry run's stand-ins (`input_specs`, `cache_specs`,
+`param_specs_shapes`): trees of ``meta`` tensors, with the reference's keys
+and nesting, that carry a shape and a dtype and allocate nothing.
+`launch.dryrun` traces each step against fake tensors made from them.
 """
 from __future__ import annotations
 
-from repro_torch.configs.base import ModelConfig
+import torch
+import torch.utils._pytree as pytree
+from torch._subclasses.fake_tensor import FakeTensorMode
+
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import convnet, transformer, whisper
+from repro_torch.models.layers import DTYPES
 
 
 def _mod(cfg: ModelConfig):
@@ -46,3 +52,43 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device=None):
 
 def decode_step(params, cfg: ModelConfig, token, caches, pos):
     return _mod(cfg).decode_step(params, cfg, token, caches, pos)
+
+
+# ----------------------------------------------------------------- input specs
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig):
+    """Meta tensors for the inputs of the step the shape exercises.
+
+    train  -> {tokens, labels[, encoder_frames]}
+    prefill-> {tokens[, encoder_frames]}
+    decode -> {token (b,1), pos scalar} (+cache specs via cache_specs()).
+    """
+    b, s = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    if cfg.family == "convnet":
+        return {"images": _meta((b, 32, 32, 3), torch.float32), "labels": _meta((b,), i32)}
+    if shape.kind == "train":
+        out = {"tokens": _meta((b, s), i32), "labels": _meta((b, s), i32)}
+    elif shape.kind == "prefill":
+        out = {"tokens": _meta((b, s), i32)}
+    else:  # decode
+        out = {"token": _meta((b, 1), i32), "pos": _meta((), i32)}
+    if cfg.is_encoder_decoder and shape.kind != "decode":
+        out["encoder_frames"] = _meta((b, cfg.encoder_seq, cfg.d_model), DTYPES[cfg.dtype])
+    return out
+
+
+def cache_specs(cfg: ModelConfig, shape: ShapeConfig):
+    """Meta tensors for the decode cache (no allocation)."""
+    return init_cache(cfg, shape.global_batch, shape.seq_len, device="meta")
+
+
+def param_specs_shapes(cfg: ModelConfig):
+    """Meta tensors for the parameters: the seeded init runs on fake CPU
+    tensors (no allocation), and each leaf keeps its shape and dtype."""
+    with FakeTensorMode(allow_fallback_kernels=False):
+        params = init_params(None, cfg, device="cpu")
+    return pytree.tree_map(lambda t: _meta(t.shape, t.dtype), params)

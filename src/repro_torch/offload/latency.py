@@ -13,17 +13,21 @@ FLOPs at the i7's measured effective throughput for AlexNet conv layers
 (~12 GFLOP/s dense f32) -- the simulator consumes profiles as plain data,
 so measured tables drop in unchanged.
 
-Port of `repro.offload.latency` (pure Python); the reference's TPU tier
-profile is not carried over.
+Port of `repro.offload.latency` (pure Python). In place of the reference's
+`tpu_v5e` tier profile, whose constants are a TPU's, `h100` builds the
+profile from times the serving engine measured on the card.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Tuple
+from typing import TYPE_CHECKING, Callable, Dict, Mapping, Optional, Tuple
 
 from repro_torch.kernels.compress import LEVELS as COMPRESSION_LEVELS
 from repro_torch.kernels.compress import scaled_payload_nbytes
 from repro_torch.models.convnet import LAYER_TABLE, payload_bytes
+
+if TYPE_CHECKING:
+    from repro_torch.offload.engine import EngineStats
 
 
 @dataclass(frozen=True)
@@ -55,6 +59,13 @@ def _alexnet_layer_flops() -> Dict[str, float]:
     return flops
 
 
+# per-sample forward FLOPs of each side branch's head (conv + fc)
+_BRANCH_FLOPS = {
+    "branch1": 2.0 * 16 * 16 * 9 * 64 * 32 + 2.0 * 32 * 8 * 8 * 10,
+    "branch2": 2.0 * 8 * 8 * 9 * 96 * 32 + 2.0 * 32 * 4 * 4 * 10,
+}
+
+
 def paper_2020() -> LatencyProfile:
     """The paper's constants: i7 edge, K80 cloud, 18.8 Mbps uplink."""
     flops = _alexnet_layer_flops()
@@ -62,17 +73,67 @@ def paper_2020() -> LatencyProfile:
     CLOUD_GFLOPS = 240e9  # K80 effective (fp32, small batches)
     edge = {k: v / EDGE_GFLOPS for k, v in flops.items()}
     cloud = {k: v / CLOUD_GFLOPS for k, v in flops.items()}
-    branch_flops = {
-        "branch1": 2.0 * 16 * 16 * 9 * 64 * 32 + 2.0 * 32 * 8 * 8 * 10,
-        "branch2": 2.0 * 8 * 8 * 9 * 96 * 32 + 2.0 * 32 * 4 * 4 * 10,
-    }
-    branch = {k: v / EDGE_GFLOPS for k, v in branch_flops.items()}
+    branch = {k: v / EDGE_GFLOPS for k, v in _BRANCH_FLOPS.items()}
     return LatencyProfile(
         name="paper_2020",
         edge_layer_s=edge,
         cloud_layer_s=cloud,
         branch_s=branch,
         uplink_bps=18.8e6,  # [7]'s Wi-Fi scenario, as used in the paper
+    )
+
+
+def _split(measured: Mapping[int, float], parts_by_branch, flops) -> Dict[str, float]:
+    """Per-part seconds whose sums over each branch's parts give back the
+    measured seconds: branches are taken from the fewest parts up; each
+    one's time, less what its parts already hold, is split over its new
+    parts in proportion to their FLOPs."""
+    out: Dict[str, float] = {}
+    for b in sorted(measured, key=lambda b: len(parts_by_branch[b])):
+        parts = parts_by_branch[b]
+        new = [p for p in parts if p not in out]
+        rest = measured[b] - sum(out[p] for p in parts if p in out)
+        if not new or rest <= 0:
+            raise ValueError(
+                f"the measured {measured[b]:.6g} s of branch {b} leaves {rest:.6g} s for its "
+                f"parts {new} beyond those of a shorter path: the times contradict the layer "
+                f"nesting (measure both branches warm, at the same batch)")
+        total = sum(flops[p] for p in new)
+        out.update({p: rest * flops[p] / total for p in new})
+    return out
+
+
+def h100(stats: Mapping[int, "EngineStats"], uplink_bps: float, name: str = "h100"
+         ) -> LatencyProfile:
+    """A profile measured on the card: `stats` maps each branch (1 and 2)
+    to the `offload.engine.EngineStats` of the convnet engine serving at
+    that branch, whose per-sample edge seconds (``edge_time_s /
+    requests``) and cloud seconds (``cloud_time_s / offloaded``) are split
+    over the layers in proportion to `_alexnet_layer_flops()`, so that
+    `edge_time` and `cloud_time` give back the measured values. A layer on
+    no measured path of its tier (the cloud's conv1, the edge's conv3 to
+    fc3) takes the tier's measured seconds per FLOP. `uplink_bps` is the
+    link's rate; nothing of the card's own is assumed."""
+    if set(stats) != {1, 2}:
+        raise ValueError(f"h100 needs the stats of branches 1 and 2, got {sorted(stats)}")
+    if any(s.requests == 0 or s.offloaded == 0 for s in stats.values()):
+        raise ValueError("every branch's stats need served and offloaded samples")
+    flops = dict(_alexnet_layer_flops(), **_BRANCH_FLOPS)
+    edge = _split({b: s.edge_time_s / s.requests for b, s in stats.items()},
+                  {b: EDGE_LAYERS_BY_BRANCH[b] + [f"branch{b}"] for b in stats}, flops)
+    cloud = _split({b: s.cloud_time_s / s.offloaded for b, s in stats.items()},
+                   CLOUD_LAYERS_BY_BRANCH, flops)
+    tables = []
+    for table in (edge, cloud):
+        layers = {k: v for k, v in table.items() if not k.startswith("branch")}
+        per_flop = sum(layers.values()) / sum(flops[k] for k in layers)
+        tables.append({k: layers.get(k, flops[k] * per_flop) for k in _alexnet_layer_flops()})
+    return LatencyProfile(
+        name=name,
+        edge_layer_s=tables[0],
+        cloud_layer_s=tables[1],
+        branch_s={k: v for k, v in edge.items() if k.startswith("branch")},
+        uplink_bps=float(uplink_bps),
     )
 
 

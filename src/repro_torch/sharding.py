@@ -1,0 +1,188 @@
+"""Sharding rules over a described mesh (port of `repro.sharding`).
+
+Conventions (Megatron-style tensor parallelism + (pod,) data parallelism):
+  * batch dims shard on the data axes ('pod','data') when present;
+  * attention heads / ffn hidden / vocab / MoE experts / mamba channels
+    shard on the 'model' axis;
+  * norms, routers, scalar SSM params replicate.
+
+Parameter specs are assigned by *path rules* over the params tree, so they
+can never drift from the initializers: `param_specs` walks the actual
+tree. Stacked segments have one extra leading layer dim, which maps to
+None (specs are aligned to trailing dims).
+
+Every function here is pure shape arithmetic over a `launch.mesh.MeshSpec`
+passed as ``mesh`` (None: no mesh, as the reference's ``set_mesh(None)``);
+the reference keeps the mesh in module state instead. A spec is a tuple
+with the entries of the reference's ``PartitionSpec``: one per dim, each
+None, an axis name or a tuple of axis names (a one-name tuple is the
+name, as ``PartitionSpec`` normalizes it).
+
+No counterpart, by design: ``constrain`` (the reference's activation
+sharding constraint; the port runs each step on one card, so the model
+code has none), ``named_shardings`` (binds specs to JAX devices) and
+``fleet_mesh`` (the compiled fleet's 1-D device mesh; the port's compiled
+fleet takes ``mesh=None`` or ``"auto"`` on one card).
+"""
+from __future__ import annotations
+
+import math
+import re
+from typing import Optional
+
+import torch.utils._pytree as pytree
+
+from repro_torch.launch.mesh import MeshSpec
+
+
+def _spec(*entries) -> tuple:
+    return tuple(e[0] if isinstance(e, tuple) and len(e) == 1 else e for e in entries)
+
+
+def dp_axes(mesh: Optional[MeshSpec]) -> tuple:
+    """The data-parallel axes of `mesh`, in mesh order."""
+    return () if mesh is None else tuple(n for n in mesh.axis_names if n in ("pod", "data"))
+
+
+def tp_axis(mesh: Optional[MeshSpec]) -> Optional[str]:
+    return "model" if mesh is not None and "model" in mesh.axis_names else None
+
+
+def _resolve(sym, mesh):
+    if sym == "dp":
+        return dp_axes(mesh) or None
+    if sym == "tp":
+        return tp_axis(mesh)
+    return sym
+
+
+def axis_size(ax, mesh: Optional[MeshSpec]) -> int:
+    """Devices along a spec entry: 1 for None or no mesh."""
+    if ax is None or mesh is None:
+        return 1
+    if isinstance(ax, (tuple, list)):
+        return math.prod(mesh.axis_size(a) for a in ax)
+    return mesh.axis_size(ax)
+
+
+def fit_spec(spec_axes, shape, mesh: Optional[MeshSpec]) -> tuple:
+    """Drop sharding on dims the mesh axes don't evenly divide (e.g. a
+    global_batch=1 decode can't shard batch over 16 data shards)."""
+    fitted = []
+    for ax, dim in zip(spec_axes, shape):
+        n = axis_size(ax, mesh)
+        fitted.append(ax if (n > 1 and dim % n == 0) else (None if n > 1 else ax))
+    return _spec(*fitted)
+
+
+# ---------------------------------------------------------- param spec rules
+# (path-regex, trailing-dim spec symbols). First match wins. The spec covers
+# the LAST len(spec) dims; any leading dims (stacked scan layers) get None.
+_RULES = [
+    (r"embed/w$", ("tp", None)),
+    (r"(lm_head|head)/w$", (None, "tp")),
+    (r"pos_embed$", (None, None)),
+    # attention
+    (r"attn.*/w[qkv]$", (None, "tp", None)),
+    (r"attn.*/b[qkv]$", ("tp", None)),
+    (r"attn.*/wo$", ("tp", None, None)),
+    (r"attn.*/(q_norm|k_norm)$", (None,)),
+    # dense mlp
+    (r"mlp/w_(gate|up)$", (None, "tp")),
+    (r"mlp/w_down$", ("tp", None)),
+    # moe (expert parallel on model axis)
+    (r"moe/router$", (None, None)),
+    (r"moe/w_(gate|up|down)$", ("tp", None, None)),
+    # mamba
+    (r"mamba/in_proj$", (None, "tp")),
+    (r"mamba/dt_proj$", None),  # head-count width; replicate (split-proj variant)
+    (r"mamba/conv_w$", (None, "tp")),
+    (r"mamba/conv_b$", ("tp",)),
+    (r"mamba/(A_log|D|dt_bias)$", ("tp",)),
+    (r"mamba/norm_scale$", ("tp",)),
+    (r"mamba/out_proj$", ("tp", None)),
+    # convnet (paper's B-AlexNet): small; replicate
+    (r"conv\d*/(w|b)$", None),
+    (r"fc\d*/(w|b)$", None),
+    # norms and everything else: replicate
+    (r".*", None),
+]
+
+
+def path_str(path) -> str:
+    """A tree path as the reference's `_path_str` writes it: dict keys and
+    list indices joined by '/' (``exits/0/head/w``)."""
+    return "/".join(str(k.key) if hasattr(k, "key") else str(k.idx) if hasattr(k, "idx")
+                    else str(k) for k in path)
+
+
+def spec_for(path: str, shape, mesh: Optional[MeshSpec]) -> tuple:
+    ndim = len(shape)
+    for pat, spec in _RULES:
+        if re.search(pat, path):
+            if spec is None:
+                return ()
+            spec = [_resolve(s, mesh) for s in spec]
+            if ndim < len(spec):
+                return ()
+            return fit_spec([None] * (ndim - len(spec)) + spec, shape, mesh)
+    return ()
+
+
+def _map_with_path(fn, tree):
+    leaves, treedef = pytree.tree_flatten_with_path(tree)
+    return pytree.tree_unflatten([fn(path_str(p), leaf) for p, leaf in leaves], treedef)
+
+
+def param_specs(params, mesh: Optional[MeshSpec]):
+    """A spec tree matching `params` (tensors, meta tensors or anything
+    with a ``shape``)."""
+    return _map_with_path(lambda p, leaf: spec_for(p, leaf.shape, mesh), params)
+
+
+# ------------------------------------------------------------ decode caches
+def cache_specs_tree(cache_shapes, mesh: Optional[MeshSpec], batch_sharded: bool = True):
+    """Specs for a decode cache tree (from registry.cache_specs).
+
+    batch_sharded=True: shard the cache batch dim over the data axes (the
+    decode_32k regime). batch_sharded=False (long_500k, global_batch=1):
+    shard the KV *sequence* dim over the data axes instead (distributed
+    flash-decode).
+    """
+    dp = dp_axes(mesh)
+    b = dp if (batch_sharded and dp) else None
+    s = None if batch_sharded else (dp or None)
+    tp = tp_axis(mesh)
+
+    def f(path, leaf):
+        nd = len(leaf.shape)
+        if path.endswith("conv"):
+            spec = [b, None, tp]
+        elif path.endswith("ssd"):
+            spec = [b, tp, None, None]
+        else:  # k / v KV caches: (batch, L, kv_heads, head_dim)
+            spec = [b, s, tp, None]
+        if nd < len(spec):
+            spec = spec[-nd:] if nd else []
+        return fit_spec([None] * (nd - len(spec)) + spec, leaf.shape, mesh)
+
+    return _map_with_path(f, cache_shapes)
+
+
+def batch_specs_tree(batch_shapes, mesh: Optional[MeshSpec]):
+    """Specs for model inputs: batch dim on data axes, rest replicated."""
+    b = dp_axes(mesh) or None
+
+    def f(path, leaf):
+        nd = len(leaf.shape)
+        if nd == 0:
+            return ()
+        return fit_spec([b] + [None] * (nd - 1), leaf.shape, mesh)
+
+    return _map_with_path(f, batch_shapes)
+
+
+def shard_bytes(leaf, spec, mesh: Optional[MeshSpec]) -> int:
+    """Bytes of `leaf` that one device of `mesh` holds under `spec`."""
+    n = math.prod(leaf.shape) * leaf.element_size()
+    return n // math.prod(axis_size(ax, mesh) for ax in spec) if spec else n

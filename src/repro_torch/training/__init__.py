@@ -1,5 +1,5 @@
 """Training (port of `repro.training`): the BranchyNet joint loss, AdamW
 with warmup-cosine schedule and global-norm clipping, the train and eval
-steps for every zoo architecture, and msgpack checkpoints. `state_specs`
-(optimizer sharding) waits for the dry-run tooling (ROADMAP.md queue 1
-item 7e)."""
+steps for every zoo architecture, msgpack checkpoints, and the ZeRO-1
+moment specs (`optim.state_specs`) that `launch.dryrun` lays out over a
+described mesh."""

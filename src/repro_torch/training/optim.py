@@ -13,9 +13,9 @@ the reference's arithmetic kept exactly, element by element:
 
 The step count, the learning rate and the clip scale stay 0-d tensors on
 the parameters' device, so an update never waits on the host.
-`torch.optim.AdamW` is not used: its clip and decay differ. The
-reference's `state_specs` (TPU optimizer sharding) waits for the dry-run
-tooling (ROADMAP.md queue 1 item 7e).
+`torch.optim.AdamW` is not used: its clip and decay differ.
+`state_specs` lays out the moments over a described mesh (ZeRO-1), for
+`launch.dryrun`'s per-card bytes.
 """
 from __future__ import annotations
 
@@ -111,3 +111,33 @@ def update(cfg: AdamWConfig, params, grads, state: OptState, inplace: bool = Fal
         return pytree.tree_map(lambda o: o[i], out, is_leaf=lambda o: isinstance(o, tuple))
 
     return part(0), OptState(step, part(1), part(2)), {"grad_norm": gnorm, "lr": lr}
+
+
+def state_specs(param_specs, zero1: bool = False, dp_axes=("data",), param_shapes=None,
+                dp_size: int = 1) -> OptState:
+    """Specs (tuples, as `repro_torch.sharding` makes them) for the
+    OptState, given the params' specs.
+
+    zero1=True: shard each moment's first replicated dim that `dp_size`
+    divides over `dp_axes` (ZeRO-1 optimizer sharding). `param_shapes` (a
+    matching tree of tensors or meta tensors) is needed to check
+    divisibility; without it the first replicated dim is taken.
+    """
+    def is_spec(x):
+        return isinstance(x, tuple)
+
+    def moment_spec(spec, shape=None):
+        if not zero1:
+            return spec
+        parts = list(spec) if spec else ([None] * len(shape) if shape is not None else [])
+        for i, s in enumerate(parts):
+            if s is None and (shape is None or shape[i] % max(dp_size, 1) == 0):
+                parts[i] = dp_axes[0] if len(dp_axes) == 1 else tuple(dp_axes)
+                return tuple(parts)
+        return spec
+
+    specs, treedef = pytree.tree_flatten(param_specs, is_leaf=is_spec)
+    shapes = ([None] * len(specs) if param_shapes is None
+              else [tuple(t.shape) for t in pytree.tree_leaves(param_shapes)])
+    mu = pytree.tree_unflatten([moment_spec(s, sh) for s, sh in zip(specs, shapes)], treedef)
+    return OptState((), mu, mu)

@@ -143,5 +143,5 @@ def test_launch_train_writes_a_checkpoint_the_reference_loads(tmp_path):
 def test_launch_train_refuses_the_production_mesh():
     from repro_torch.launch import train
 
-    with pytest.raises(NotImplementedError, match="item 7e"):
+    with pytest.raises(NotImplementedError, match="one card has no 256- or 512-chip mesh"):
         train.main(["--arch", "olmo-1b", "--production-mesh", "--device", "cpu"])

@@ -245,3 +245,83 @@ def test_metrics_match_reference():
         assert tmetrics.outage_probability_cascade([T(e) for e in exits], T(y), p_tar) == \
             jmetrics.outage_probability_cascade([jnp.asarray(e) for e in exits],
                                                 jnp.asarray(y), p_tar)
+
+
+# ------------------------------------------------- the deprecated shims
+def test_policy_shims_match_reference():
+    """OffloadPolicy and make_policy (the seed API's shims) build the
+    reference's plans and gate as the reference's do, from either
+    package's exports."""
+    import repro_torch.core as tcore
+
+    assert tcore.OffloadPolicy is tpolicy.OffloadPolicy and tcore.make_policy is tpolicy.make_policy
+    exits, _, y = _cascade()
+    for kw in (dict(criterion="confidence"), dict(criterion="entropy", entropy_threshold=1.2,
+                                                  exit_index=1, calibrated=False)):
+        tpol = tpolicy.OffloadPolicy(p_tar=0.65, temperatures=[1.5, 2.0], **kw)
+        jpol = jpolicy.OffloadPolicy(p_tar=0.65, temperatures=[1.5, 2.0], **kw)
+        assert isinstance(tpol, tpolicy.OffloadPlan) and tpol.calibrated == jpol.calibrated
+        assert tpol.to_json() == jpol.to_json()
+        for i, z in enumerate(exits):
+            g, jg = tpol.gate(T(z), branch=i), jpol.gate(jnp.asarray(z), branch=i)
+            np.testing.assert_array_equal(g.exit_mask.numpy(), np.asarray(jg.exit_mask))
+            np.testing.assert_array_equal(g.prediction.numpy(), np.asarray(jg.prediction))
+    for calibrated in (False, True):
+        for sequential in (False, True):
+            tplan = tpolicy.make_policy(exits, y, p_tar=0.8, calibrated=calibrated,
+                                        sequential=sequential, device="cpu")
+            jplan = jpolicy.make_policy([jnp.asarray(z) for z in exits], jnp.asarray(y),
+                                        p_tar=0.8, calibrated=calibrated, sequential=sequential)
+            np.testing.assert_allclose(tplan.temperatures, jplan.temperatures, rtol=1e-4)
+            for i, z in enumerate(exits):
+                g, jg = tplan.gate(T(z), branch=i), jplan.gate(jnp.asarray(z), branch=i)
+                clear = np.abs(g.confidence.numpy() - 0.8) > 1e-3  # away from p_tar (fit gap)
+                np.testing.assert_array_equal(g.exit_mask.numpy()[clear],
+                                              np.asarray(jg.exit_mask)[clear])
+
+
+# ------------------------------------------------- the measured H100 profile
+def _stats(edge_s, cloud_s, requests=4096, offloaded=1024):
+    from repro_torch.offload.engine import EngineStats
+
+    return EngineStats(requests=requests, offloaded=offloaded, edge_time_s=edge_s * requests,
+                       cloud_time_s=cloud_s * offloaded)
+
+
+def test_h100_profile_gives_back_the_measured_times():
+    from repro.offload import latency as jlat
+    from repro_torch.offload import latency as tlat
+
+    edge = {1: 2.6e-6, 2: 3.9e-6}
+    cloud = {1: 9.4e-6, 2: 8.1e-6}
+    prof = tlat.h100({b: _stats(edge[b], cloud[b]) for b in (1, 2)}, uplink_bps=18.8e6)
+    assert prof.name == "h100" and prof.uplink_bps == 18.8e6
+    assert set(prof.edge_layer_s) == set(prof.cloud_layer_s) == set(tlat._alexnet_layer_flops())
+    assert set(prof.branch_s) == {"branch1", "branch2"}
+    for table in (prof.edge_layer_s, prof.cloud_layer_s, prof.branch_s):
+        assert all(v > 0 for v in table.values())
+    for b in (1, 2):
+        assert tlat.edge_time(prof, b) == pytest.approx(edge[b], rel=1e-12)
+        assert tlat.cloud_time(prof, b) == pytest.approx(cloud[b], rel=1e-12)
+        # the reference's path sums read the same profile alike
+        assert jlat.edge_time(prof, b) == tlat.edge_time(prof, b)
+        assert jlat.cloud_time(prof, b) == tlat.cloud_time(prof, b)
+        assert tlat.comm_time(prof, b, level=2) == jlat.comm_time(prof, b, level=2)
+    # split in proportion to the layers' FLOPs
+    flops = tlat._alexnet_layer_flops()
+    assert (prof.cloud_layer_s["conv3"] / prof.cloud_layer_s["fc1"]
+            == pytest.approx(flops["conv3"] / flops["fc1"], rel=1e-12))
+    assert prof.cloud_layer_s["conv2"] == pytest.approx(cloud[1] - cloud[2], rel=1e-9)
+    assert (prof.edge_layer_s["conv1"] / prof.branch_s["branch1"]
+            == pytest.approx(flops["conv1"] / tlat._BRANCH_FLOPS["branch1"], rel=1e-12))
+
+
+def test_h100_profile_refuses_contradicting_or_missing_measurements():
+    from repro_torch.offload import latency as tlat
+
+    with pytest.raises(ValueError, match="contradict"):  # branch 2's cloud path is a subset
+        tlat.h100({1: _stats(2e-6, 5e-6), 2: _stats(3e-6, 6e-6)}, uplink_bps=1e9)
+    with pytest.raises(ValueError, match="branches 1 and 2"):
+        tlat.h100({1: _stats(2e-6, 5e-6)}, uplink_bps=1e9)
+    with pytest.raises(ValueError, match="offloaded"):
+        tlat.h100({1: _stats(2e-6, 5e-6), 2: _stats(3e-6, 4e-6, offloaded=0)}, uplink_bps=1e9)

@@ -71,6 +71,9 @@ PORTED = [
     "repro_torch.kernels.ops",
     "repro_torch.kernels.ref",
     "repro_torch.launch",
+    "repro_torch.launch.dryrun",
+    "repro_torch.launch.hlo_cost",
+    "repro_torch.launch.mesh",
     "repro_torch.launch.serve",
     "repro_torch.launch.train",
     "repro_torch.models.attention",
@@ -106,6 +109,7 @@ PORTED = [
     "repro_torch.serving.scenarios",
     "repro_torch.serving.telemetry",
     "repro_torch.serving.workload",
+    "repro_torch.sharding",
     "repro_torch.training.checkpoint",
     "repro_torch.training.loop",
     "repro_torch.training.losses",
@@ -139,9 +143,10 @@ def test_running_the_fleet_and_orchestration_loads_neither_jax_nor_repro():
     orchestration scenario (QoS, rollout, audit chain), the max-plus
     solvers, the LM serving path (a prefill step, a decode step and
     lm_engine at codec level 2 on a smoke config), the training driver
-    (`launch.train --smoke`, with a checkpoint) and a forward pass of the
-    moe, mamba and whisper models, all on the CPU -- and only then are
-    the loaded modules checked."""
+    (`launch.train --smoke`, with a checkpoint), a forward pass of the
+    moe, mamba and whisper models, and one dry-run pair on a described
+    16x16 mesh with ZeRO-1, all on the CPU -- and only then are the loaded
+    modules checked."""
     code = (
         "import sys\n"
         "import numpy as np\n"
@@ -200,6 +205,10 @@ def test_running_the_fleet_and_orchestration_loads_neither_jax_nor_repro():
         "        b['encoder_frames'] = torch.zeros(2, c.encoder_seq, c.d_model, dtype=torch.bfloat16)\n"
         "    o = registry.forward_train(p, c, b)\n"
         "    assert tuple(o['logits'].shape) == (2, 8, c.vocab_size), arch\n"
+        "from repro_torch.launch import dryrun\n"
+        "r = dryrun.run_one('mamba2-130m', 'long_500k', None, mesh='16x16', zero1=True,\n"
+        "                   device='cpu')\n"
+        "assert r['flops'] > 0 and r['fits_one_card'] and r['chips'] == 256, r\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "bad = [m for m in sys.modules if m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
