@@ -16,10 +16,11 @@ Phases, each printing its own lines:
             around a replayed CUDA graph of back-to-back calls (no host
             overhead), beside a 1-element add_ as the launch floor. They
             are L2-warm (the same buffers every call) except K1 at
-            (256,151936) and K3/K4 at (512,16384), which are L2-cold:
-            inputs rotate over sets and every call writes fresh outputs,
-            so over 100 MB pass between two uses of a buffer. K3/K4 print
-            their L2-warm time beside it. K2 at (1024,151936) reuses its
+            (256,151936) and K3/K4 at every payload of 1 MB or more (the
+            served batches' and the LMs'), which are L2-cold: inputs
+            rotate over sets and every call writes fresh outputs, so over
+            100 MB pass between two uses of a buffer. K3/K4 print their
+            L2-warm time beside it. K2 at (1024,151936) reuses its
             buffers, but its 311 MB (bf16) and 622 MB (f32) inputs are far
             above the 50 MB L2.
             The codec also runs bit-exact at the (n, 10) logit shapes
@@ -31,6 +32,10 @@ Phases, each printing its own lines:
             warm); the trained LM's: K1 at mamba2-130m's serve step (2,
             50280) bf16, K2 at its exit logits (2048, 50280) bf16, K3/K4
             at granite-moe's refused rows (4, 786 432) int8 and int4.
+            K3/K4 at the runtime's one-request payloads, (1, 16, 16, 64)
+            and (1, 8, 8, 96) at levels 1 and 2, L2-warm beside the launch
+            floor; K3 also on division ties in each of its five layouts
+            and on base pointers off 16 bytes, bit-exact.
 4. train    B-AlexNet at full width trained with the BranchyNet joint
             loss on cifar_like(seed=0) (45 000 / 3 000 / 7 000), the twin
             of benchmarks/paper_common.train_and_collect: 6 epochs at
@@ -2733,7 +2738,8 @@ def main() -> int:
                                     bound_ms=bms, bound_by=by)
         more = "".join(f"  {k[:-3]} {v * 1e3:.2f} us" for k, v in extra.items())
         print(f"[kernels] {kernel} {case}: max_abs_err {err:.3g}  kernel {ms * 1e3:.2f} us  "
-              f"plain {plain_ms * 1e3:.2f} us  bound {bms * 1e3:.2f} us ({by}){more} {card}")
+              f"plain {plain_ms * 1e3:.2f} us  bound {bms * 1e3:.2f} us ({by}, {bms / ms:.1%} of "
+              f"it){more} {card}")
 
     def maxdiff(a, b):
         return float((a.double() - b.double()).abs().max())
@@ -2877,14 +2883,22 @@ def main() -> int:
     # (5, 301: cols % 4 != 0), an all-zero group and inf/nan inputs, and
     # rescore_plan's codec axis: (n, 10) logits, one partial group per row
     # and cols % 4 != 0; the runtime's shapes: one request's payload per
-    # branch and the congested scenario's (2048, 10) final logits; the
-    # fleet's: a context's (1024, 10) final logits (cloud tables) and the
-    # controller core's four contexts' (4096, 10); the LM's: lm_engine's
-    # refused rows of a Qwen3-8B (512, 4096) hidden, (4, 512 * 4096), with
-    # 16 384 groups a row, and of a granite-moe (512, 1536) hidden, (4, 512 *
-    # 1536) (both timed L2-warm and L2-cold)
+    # branch at levels 1 and 2 (timed L2-warm beside the launch floor: the
+    # edge forward has just written it) and the congested scenario's
+    # (2048, 10) final logits; the fleet's: a context's (1024, 10) final
+    # logits (cloud tables) and the controller core's four contexts'
+    # (4096, 10); the LM's: lm_engine's refused rows of a Qwen3-8B (512,
+    # 4096) hidden, (4, 512 * 4096), with 16 384 groups a row, and of a
+    # granite-moe (512, 1536) hidden, (4, 512 * 1536). Every payload of 1 MB
+    # or more is timed L2-warm and L2-cold. Last, K3's division ties in each
+    # of its five layouts (asserted): quotients z / scale exactly on k + 0.5,
+    # their float32 neighbours, absmax-only and +-absmax groups and a
+    # subnormal scale (`ref.codec_tie_payload`), where a divide off by one
+    # ulp changes codes; the wide layouts take payloads of more than
+    # `compress.QUAD_PAIRS` (row, group) pairs.
     codec_cases = [((512, 16, 16, 64), 1, None), ((512, 16, 16, 64), 2, None),
-                   ((1, 16, 16, 64), 2, None), ((1, 8, 8, 96), 2, None), ((2048, 10), 2, None),
+                   ((1, 16, 16, 64), 1, None), ((1, 16, 16, 64), 2, None),
+                   ((1, 8, 8, 96), 1, None), ((1, 8, 8, 96), 2, None), ((2048, 10), 2, None),
                    ((252, 16, 16, 64), 1, None), ((252, 16, 16, 64), 2, None),
                    ((256, 8, 8, 96), 1, None), ((256, 8, 8, 96), 2, None),
                    ((252, 8, 8, 96), 1, None), ((252, 8, 8, 96), 2, None),
@@ -2896,12 +2910,20 @@ def main() -> int:
                    ((7000, 10), 1, None), ((7000, 10), 2, None),
                    ((4, 2_097_152), 1, None), ((4, 2_097_152), 2, None),
                    ((4, 786_432), 1, None), ((4, 786_432), 2, None)]
+    wide_rows = compress.QUAD_PAIRS // 128 + 8  # at 16 384 features: more than QUAD_PAIRS pairs
+    tie_shapes = ((64, 1024), (33, 301), (257, 10), (wide_rows, 16_384), (wide_rows, 16_383))
+    codec_cases += [((rows, cols), level, ref.codec_tie_payload(rows, cols, ref.CODEC_BITS[level],
+                                                                seed=rows + level))
+                    for rows, cols in tie_shapes for level in (1, 2)]
+    tie_kinds = set()
     for shape, level, fixed in codec_cases:
         xn = fixed if fixed is not None else (rng.standard_normal(shape) * 3).astype(np.float32)
         x = torch.as_tensor(xn, device=cuda)
         bits = ref.CODEC_BITS[level]
         rows, cols = ref._codec_layout(shape)
         x2 = x.reshape(rows, cols)
+        if fixed is not None and shape in tie_shapes:
+            tie_kinds.add(compress.encode_layout(rows, cols, x2.data_ptr() % 16 == 0).kind)
         words, scales = compress.encode_kernel(x2, bits)
         rwords, rscales = ref.encode_codec_ref(x, level)
         assert bits_equal(words, rwords), f"K3 words differ at {shape} level {level}"
@@ -2910,7 +2932,7 @@ def main() -> int:
         rout = ref.decode_codec_ref(words, scales, shape, level)
         assert bits_equal(out, rout), f"K4 floats differ at {shape} level {level}"
         assert torch.isfinite(out).all()
-        if shape[1:] == (10,):  # the logit shapes, L2-warm
+        if fixed is None and (shape[1:] == (10,) or shape[0] == 1):  # logits, one request: L2-warm
             nbytes = rows * cols * 4 + words.numel() * 4 + scales.numel() * 4
             case = f"{shape} level {level}"
             record("encode", case, 0.0, device_ms(lambda i: compress.encode_kernel(x2, bits)),
@@ -2920,7 +2942,7 @@ def main() -> int:
                    device_ms(lambda i: compress.decode_kernel(words, scales, cols, bits)),
                    device_ms(lambda i: ref.decode_codec_ref(words, scales, shape, level)),
                    nbytes, 3.0 * rows * cols, launch_floor_ms=floor_ms)
-        if fixed is None and (shape[0] == 512 or shape in ((4, 2_097_152), (4, 786_432))):
+        if fixed is None and rows * cols * 4 >= 1e6:  # the batches' and the LMs' payloads
             # L2-warm: the same buffers every call;
             # L2-cold: inputs rotate over sets and every output is fresh
             wbytes = words.numel() * 4 + scales.numel() * 4
@@ -2947,7 +2969,23 @@ def main() -> int:
                              calls, keep=True),
                    nbytes, 3.0 * rows * cols, path=(level == 2 and rows == 512),
                    warm_ms=dec_warm)
-    print(f"[kernels] codec bit-exact on {len(codec_cases)} cases (words, scales, floats)")
+    assert tie_kinds == set(compress.ENCODE_LAYOUTS), f"K3 ties missed layouts: {tie_kinds}"
+    # a base pointer off 16 bytes takes K3's quad_scalar and wide_scalar layouts
+    for (rows, cols), kind in (((4, 16_384), "quad_scalar"), ((wide_rows, 16_384), "wide_scalar")):
+        xo = (torch.randn(rows * cols + 1, device=cuda) * 3)[1:].view(rows, cols)
+        for level in (1, 2):
+            bits = ref.CODEC_BITS[level]
+            assert compress.encode_layout(rows, cols, xo.data_ptr() % 16 == 0).kind == kind
+            words, scales = compress.encode_kernel(xo, bits)
+            rwords, rscales = ref.encode_codec_ref(xo, level)
+            assert bits_equal(words, rwords) and bits_equal(scales, rscales), \
+                f"K3 differs on an unaligned base pointer ({kind}, level {level})"
+    print("[kernels] K3 layouts: " + "; ".join(
+        f"{shape} {lay.kind} {lay.blocks} x {lay.threads}"
+        for shape, lay in ((shape, compress.encode_layout(*shape, True))
+                           for shape in ((1, 16_384), (1, 6144), (3000, 10), (5, 301),
+                                         (512, 16_384), (4, 786_432)))))
+    print(f"[kernels] codec bit-exact on {len(codec_cases) + 4} cases (words, scales, floats)")
 
     # ---------------------------------------------------------------- 4
     phase_launches = {}

@@ -13,6 +13,13 @@ consecutive features per sample, so for B-AlexNet an NHWC activation.
 `encode` raises on a non-contiguous input rather than copying a permuted
 view (which would regroup every scale).
 
+On the card, `encode_layout` picks K3's layout and grid from the payload's
+shape and alignment (a pure function, so the CPU tests check the choice):
+`narrow` for rows of at most 32 features, several rows a warp; `quad`, a
+warp per (row, group), for payloads of up to `QUAD_PAIRS` groups; else
+`wide`, a half-warp per (row, group); `_scalar` where a row start is not
+16-byte aligned.
+
 Dispatch: `encode` and `decode` call the ops ``repro_torch::encode``
 and ``repro_torch::decode`` on the (rows, features) layout. The dispatcher
 sends CPU tensors to `ref.encode_codec_ref` / `decode_codec_ref`, CUDA
@@ -43,7 +50,8 @@ LEVELS = (0, 1, 2)
 
 ENCODE = _build.Kernel(
     "encode",
-    [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
+    [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+     ctypes.c_int, ctypes.c_int, ctypes.c_int],
 )
 DECODE = _build.Kernel(
     "decode",
@@ -76,6 +84,49 @@ def _groups(cols: int) -> int:
 
 _LEVEL_OF_BITS = {bits: level for level, bits in CODEC_BITS.items()}
 
+#: K3's layouts, numbered as `csrc/codec.cu` numbers them
+ENCODE_LAYOUTS = ("wide", "wide_scalar", "quad", "quad_scalar", "narrow")
+#: rows of at most this many features take the narrow layout
+NARROW_COLS = 32
+NARROW_ROWS_PER_WARP = 4
+#: payloads of at most this many (row, group) pairs take the quad layout: on
+#: the H100 it led the wide one up to 16 384 pairs and tied it at 24 576 and
+#: 32 256; wide led by 2-4% at 65 536 (`tools/codec_ab.py --layouts`, PERF.md)
+QUAD_PAIRS = 32768
+THREADS = 128
+MAX_BLOCKS = 65535
+
+
+@dataclass(frozen=True)
+class EncodeLayout:
+    """How K3 is launched: `kind` one of `ENCODE_LAYOUTS`, on a grid of
+    `blocks` blocks of `threads` threads."""
+
+    kind: str
+    threads: int
+    blocks: int
+
+
+def encode_layout(rows: int, cols: int, aligned: bool) -> EncodeLayout:
+    """K3's layout and grid for a (rows, cols) payload, at either width,
+    whose base pointer is 16-byte aligned if `aligned`.
+
+    narrow (cols <= 32): a row is one partial group on 8 lanes, 4 rows a
+    warp. Otherwise a (row, group) pair is a warp's (quad, 4 values a
+    lane) for at most `QUAD_PAIRS` pairs, else a half-warp's (wide, two
+    pairs a warp, 8 values a lane); the `_scalar` kinds load a value at a
+    time where a row start is not 16-byte aligned. A warp for each step,
+    in blocks of `THREADS` threads, up to `MAX_BLOCKS` blocks (past that the
+    warps loop)."""
+    if cols <= NARROW_COLS:
+        kind, warps = "narrow", -(-rows // NARROW_ROWS_PER_WARP)
+    else:
+        pairs = rows * _groups(cols)
+        kind, warps = ("quad", pairs) if pairs <= QUAD_PAIRS else ("wide", -(-pairs // 2))
+        if not (aligned and cols % 4 == 0):
+            kind += "_scalar"
+    return EncodeLayout(kind, THREADS, min(-(-warps * 32 // THREADS), MAX_BLOCKS))
+
 
 # ---------------------------------------------------------------- kernels
 def encode_kernel(z: torch.Tensor, bits: int):
@@ -86,10 +137,16 @@ def encode_kernel(z: torch.Tensor, bits: int):
     rows, cols = z.shape
     if rows >= 2**31 or cols >= 2**31:
         raise ValueError(f"encode takes dims < 2^31, got {tuple(z.shape)}")
+    if bits not in _LEVEL_OF_BITS:
+        raise ValueError(f"encode takes 8 or 4 bits, got {bits}")
     g = _groups(cols)
+    if rows * g >= 2**31:
+        raise ValueError(f"encode takes fewer than 2^31 (row, group) pairs, got {rows * g}")
     words = torch.empty((rows, g * CODEC_TILE * bits // 32), dtype=torch.uint32, device=z.device)
     scales = torch.empty((rows, g), dtype=torch.float32, device=z.device)
-    ENCODE(z.device, z.data_ptr(), rows, cols, bits, words.data_ptr(), scales.data_ptr())
+    lay = encode_layout(rows, cols, z.data_ptr() % 16 == 0)
+    ENCODE(z.device, z.data_ptr(), rows, cols, bits, words.data_ptr(), scales.data_ptr(),
+           ENCODE_LAYOUTS.index(lay.kind), lay.threads, lay.blocks)
     return words, scales
 
 

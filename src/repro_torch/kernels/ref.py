@@ -137,3 +137,54 @@ def roundtrip_codec_ref(x, level: int):
         return x
     words, scales = encode_codec_ref(x, level)
     return decode_codec_ref(words, scales, tuple(x.shape), level)
+
+
+#: absmax magnitudes of `codec_tie_payload`'s groups; the last gives a
+#: subnormal int8 scale (1e-37 / 127)
+_TIE_ABSMAX = (1.0, 3.7, 0.0123, 250.0, 6.1e4, 1e-37)
+
+
+def _tie_values(absmax: np.float32, bits: int) -> np.ndarray:
+    """Every z with fl(z / scale) == k + 0.5 exactly (k = 0 .. qmax - 1;
+    scale = absmax * f32(1/qmax), rounded as the codec rounds it) that
+    lies within 4 ulps of (k + 0.5) * scale, each beside its float32
+    neighbours on either side."""
+    qmax, inv = _qmax(bits)
+    s = np.float32(absmax * np.float32(inv))
+    out = []
+    for k in range(int(qmax)):
+        h = np.float32(k + 0.5)
+        z0 = np.float32(h * s).view(np.uint32).astype(np.int64)
+        zs = (z0 + np.arange(-4, 5)).astype(np.uint32).view(np.float32)
+        for z in zs[zs / s == h]:
+            out += [np.nextafter(z, np.float32(0)), z, np.nextafter(z, np.float32(np.inf))]
+    return np.asarray(out, np.float32)
+
+
+def codec_tie_payload(rows: int, cols: int, bits: int, seed: int = 0,
+                      absmax=_TIE_ABSMAX) -> np.ndarray:
+    """A (rows, cols) float32 payload of the codec's rounding ties: in each
+    (row, 128-feature group) one value is +-absmax, at a random place, and
+    the rest are values whose quotient by the group's scale is exactly
+    k + 0.5 after the divide's rounding, and their float32 neighbours,
+    with random signs. A divide that is off by one ulp changes codes here;
+    on standard normals it almost never does. The groups' absmax cycles
+    through `absmax`; each group repeats its list from a random offset. Row
+    0's first group holds its absmax and zeros, row 1's only +-absmax."""
+    rng = np.random.default_rng(seed)
+    x = np.zeros((rows, cols), np.float32)
+    ties = {a: _tie_values(np.float32(a), bits) for a in absmax}
+    n = 0
+    for r in range(rows):
+        for c0 in range(0, cols, CODEC_TILE):
+            w = min(CODEC_TILE, cols - c0)
+            a = absmax[n % len(absmax)]
+            n += 1
+            t = ties[a]
+            vals = np.resize(np.roll(t, -int(rng.integers(len(t)))), w)
+            vals *= rng.choice(np.float32([-1, 1]), w)
+            if c0 == 0 and r < 2:
+                vals[:] = 0 if r == 0 else np.float32(a) * rng.choice([-1, 1], w)
+            vals[rng.integers(w)] = np.float32(a) * rng.choice([-1, 1])
+            x[r, c0:c0 + w] = vals
+    return x

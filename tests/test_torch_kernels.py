@@ -252,3 +252,140 @@ def test_codec_sizes_and_level0():
         tcompress.encode(x, 0)
     with pytest.raises(ValueError):  # a permuted view would regroup every scale
         tcompress.encode(torch.zeros(2, 4, 4, 8).permute(0, 3, 1, 2), 1)
+
+
+# --------------------------------------------- K3: division ties, layouts
+#: the absmax values whose scale stays a normal float32: XLA on the CPU
+#: flushes subnormals, so the Pallas encode is held to the oracle on these
+_NORMAL_TIE_ABSMAX = tuple(a for a in tref._TIE_ABSMAX if a * (1 / 127) > 1.2e-38)
+
+
+@pytest.mark.parametrize("level", [1, 2])
+@pytest.mark.parametrize("shape", [(6, 384), (5, 301), (12, 10)])
+def test_codec_division_ties_bitexact(level, shape):
+    """Quotients z / scale exactly on k + 0.5 after the divide's rounding,
+    their float32 neighbours, a group of absmax and zeros, a group of
+    +-absmax and a subnormal scale: the plain version against the
+    reference's oracle bit for bit, and against its Pallas encode on the
+    groups whose scale is normal."""
+    bits = tref.CODEC_BITS[level]
+    x = tref.codec_tie_payload(*shape, bits, seed=shape[0] + level)
+    enc = tcompress.encode(torch.as_tensor(x), level)
+    words, scales = jref.encode_codec_ref(x, level)
+    np.testing.assert_array_equal(_u32(enc.words), words)
+    np.testing.assert_array_equal(enc.scales.numpy().view(np.uint32), scales.view(np.uint32))
+    out = tcompress.decode(enc).numpy()
+    want = jref.decode_codec_ref(words, scales, x.shape, level)
+    np.testing.assert_array_equal(out.view(np.uint32), want.view(np.uint32))
+    # the payload does hold exact ties: some fl(z / scale) is k + 0.5
+    zt = np.pad(x, ((0, 0), (0, (-shape[1]) % 128))).reshape(shape[0], -1, 128)
+    safe = np.where(scales > 0, scales, np.float32(1))[:, :, None]
+    q = zt / safe
+    assert ((q - np.floor(q)) == 0.5).sum() >= 4
+    xn = tref.codec_tie_payload(*shape, bits, seed=shape[0] + level, absmax=_NORMAL_TIE_ABSMAX)
+    jenc = jcompress.encode(xn, level)
+    enc = tcompress.encode(torch.as_tensor(xn), level)
+    np.testing.assert_array_equal(_u32(enc.words), np.asarray(jenc.words))
+    np.testing.assert_array_equal(enc.scales.numpy(), np.asarray(jenc.scales))
+
+
+def _kernel_codes(x, bits, fix_up=True):
+    """codec.cu's `pack_codes` in numpy float32, one rounding an operation:
+    t = z * f32(1/safe) rounded half-to-even through 1.5 * 2^23; a value
+    with t within 2^-14 of a half-integer, or a subnormal safe, takes the
+    IEEE quotient instead (`fix_up=False` leaves the fast path alone).
+    Returns the clamped codes (rows, groups, 128)."""
+    qmax, inv = tref._qmax(bits)
+    rows, cols = x.shape
+    z = np.pad(x, ((0, 0), (0, (-cols) % 128))).reshape(rows, -1, 128)
+    z = np.where(np.isfinite(z), z, np.float32(0))
+    scale = np.abs(z).max(-1) * np.float32(inv)
+    safe = np.where(scale > 0, scale, np.float32(1))[:, :, None]
+    magic = np.float32(12582912.0)
+    with np.errstate(over="ignore", invalid="ignore"):
+        t = z * (np.float32(1) / safe)
+        m = t + magic
+        near = np.abs(t - (m - magic)) >= np.float32(0.5 - 2.0**-14)
+        fast = m.view(np.int32).astype(np.int64) - 0x4B400000
+    q = fast
+    if fix_up:
+        slow = near | (safe < np.finfo(np.float32).tiny)
+        q = np.where(slow, np.rint(z / safe), fast)
+    return np.clip(q, -qmax, qmax)
+
+
+@pytest.mark.parametrize("level", [1, 2])
+def test_codec_kernel_quantizer_is_the_ieee_divide(level):
+    """The kernel's reciprocal multiply with its near-tie fix-up gives the
+    IEEE divide's codes on the tie payload (subnormal scale included) and
+    on normals over 78 decades of magnitude; without the fix-up the tie
+    payload changes codes, so these cases would catch a divide that is off
+    by one ulp."""
+    bits = tref.CODEC_BITS[level]
+    qmax, _ = tref._qmax(bits)
+    rng = np.random.default_rng(level)
+    wide = (rng.standard_normal((64, 10, 128))
+            * np.exp(rng.uniform(-95, 85, (64, 10, 1)))).astype(np.float32).reshape(64, 1280)
+    for x in (tref.codec_tie_payload(24, 640, bits, seed=level), wide, _rand((300, 384), seed=9)):
+        words, scales = jref.encode_codec_ref(x, level)
+        zt = np.pad(x, ((0, 0), (0, (-x.shape[1]) % 128))).reshape(x.shape[0], -1, 128)
+        zt = np.where(np.isfinite(zt), zt, np.float32(0))
+        safe = np.where(scales > 0, scales, np.float32(1))[:, :, None]
+        want = np.clip(np.rint(zt / safe), -qmax, qmax)
+        np.testing.assert_array_equal(_kernel_codes(x, bits), want)
+    ties = tref.codec_tie_payload(24, 640, bits, seed=level)
+    words, scales = jref.encode_codec_ref(ties, level)
+    zt = ties.reshape(24, -1, 128)
+    safe = np.where(scales > 0, scales, np.float32(1))[:, :, None]
+    assert (_kernel_codes(ties, bits, fix_up=False) != np.clip(np.rint(zt / safe), -qmax, qmax)).any()
+
+
+def _encode_walk(lay, rows, cols):
+    """The (row, group) pairs K3's grid encodes, as `codec.cu` walks them,
+    as flat indices row * groups + group. wide: warp w of the grid's W takes
+    steps s = w, w + W, ..., pairs 2s and 2s + 1. quad: warp w takes pairs
+    w, w + W, .... narrow: warp w takes rows w * R .. w * R + R - 1 (R =
+    `NARROW_ROWS_PER_WARP`), then W * R on."""
+    nwarps = lay.blocks * lay.threads // 32
+    if lay.kind.startswith("quad"):  # warp w: pairs w, w + W, ...
+        got = np.add.outer(np.arange(0, rows * -(-cols // 128), nwarps), np.arange(nwarps)).ravel()
+        return got[got < rows * -(-cols // 128)]
+    if lay.kind == "narrow":
+        per = tcompress.NARROW_ROWS_PER_WARP
+        # warp w's bases w * per + i * nwarps * per, for every i the loop runs
+        bases = np.add.outer(np.arange(0, rows, nwarps * per), np.arange(nwarps) * per).ravel()
+        got = np.add.outer(bases[bases < rows], np.arange(per)).ravel()
+        return got[got < rows]
+    pairs = rows * -(-cols // 128)
+    steps = -(-pairs // 2)
+    s = np.add.outer(np.arange(0, steps, nwarps), np.arange(nwarps)).ravel()
+    got = np.add.outer(2 * s[s < steps], np.arange(2)).ravel()
+    return got[got < pairs]
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("rows,cols", [(1, 10), (3000, 10), (5, 301), (3, 700), (1, 16384),
+                                       (512, 16384), (4, 786_432),
+                                       # either side of QUAD_PAIRS = 256 * 128
+                                       (256, 16384), (257, 16384),
+                                       # more work than MAX_BLOCKS blocks: the warps loop
+                                       (3_000_000, 10), (4096, 65536)])
+def test_encode_layout_covers_every_pair_once(rows, cols, aligned):
+    """The layout K3 takes for a payload (the same at int8 and int4), and
+    its grid encodes every (row, group) exactly once; a one-request payload
+    spreads over more blocks than a block of 8 warps a group would give it."""
+    lay = tcompress.encode_layout(rows, cols, aligned)
+    groups = -(-cols // 128)
+    if cols <= 32:
+        want = "narrow"
+    else:
+        want = "quad" if rows * groups <= tcompress.QUAD_PAIRS else "wide"
+        want += "" if aligned and cols % 4 == 0 else "_scalar"
+    assert lay.kind == want
+    assert lay.kind in tcompress.ENCODE_LAYOUTS
+    assert lay.threads % 32 == 0 and 32 <= lay.threads <= 256  # codec.cu's kMaxEncodeThreads
+    assert 1 <= lay.blocks <= tcompress.MAX_BLOCKS
+    counts = np.bincount(_encode_walk(lay, rows, cols), minlength=rows * groups)
+    assert counts.shape == (rows * groups,) and (counts == 1).all()
+    if rows == 1 and cols > 32:
+        assert lay.blocks > -(-groups // 8)
