@@ -168,14 +168,35 @@ Phases, each printing its own lines:
             max_memory_allocated; then latency.h100 from the trained
             B-AlexNet engine's stats (both branches served warm with every
             sample offloaded) beside paper_2020.
-14. result  one JSON line with every kernel's numbers, the nvidia-smi
+14. ranks   several ranks (`python -m torch.distributed.run --standalone
+            --nproc-per-node W` on this script with ``--ranks DIR``, one
+            process per rank, each a full replica): W is the card count
+            where it is 2 or more (NCCL, a card a rank), else 2 ranks
+            sharing the one card (gloo). The same runs first on one rank
+            in this process, which then frees its cache. (a) olmo-1b at
+            full width and depth through launch.train, 3 steps at a global
+            8 x 512 with remat: per-step loss and grad_norm held to the
+            one-rank run within the derived bf16 bound (W + 2) 2^-8, and a
+            float32 2-layer twin at rtol / atol 2e-4; (b) B-AlexNet at full
+            width, 3 steps at a global 256, float32, 2e-4; (c) granite-moe's
+            widths reduced to 4 layers (capacity factor 1.0, so tokens
+            drop), float32, one step at 4 x 512: 2e-4 and the dropped
+            (token, slot) counts per layer equal; (d) the compiled fleet
+            sharded over cells: phase 10's 64-cell global-plan arm at codec
+            level 2 and its 256 x 4096 arm, from the plans (PlanBank JSON)
+            and results phase 10 wrote to build/chip_smoke/ranks/, equal to
+            them at rel 1e-9 on every rank. Every rank's params equal;
+            each rank's peak GB; each rank's K1/K3/K4 launches worked out
+            from the code and asserted, and summed under "ranks".
+15. result  one JSON line with every kernel's numbers, the nvidia-smi
             line, and last {"ok": true, "device": {...}}.
 
-Phases 4-13 are the main path: each sets the launch counts to 0 just
+Phases 4-14 are the main path: each sets the launch counts to 0 just
 before it and reads them just after, and fails if a kernel of its path
 did not run (train: K1; serving: K1-K4; paper: K1, K2; bank: K1, K3,
 K4; runtime: K1, K3, K4; fleet and compiled: K1, K3, K4; lm and
-train_lm: K1-K4; dryrun: K1).
+train_lm: K1-K4; dryrun: K1; ranks: K1, K3, K4, counted in each rank
+from 0 over its runs, while this process launches none).
 Every line that prints a time names the card and its power limit.
 
 Any failure raises, so the process exits non-zero and prints no result;
@@ -225,7 +246,8 @@ PHASE_KERNELS = {"train": ("exit_gate",),
                  "compiled": ("exit_gate", "encode", "decode"),
                  "lm": ("exit_gate", "calib_nll", "encode", "decode"),
                  "train_lm": ("exit_gate", "calib_nll", "encode", "decode"),
-                 "dryrun": ("exit_gate",)}
+                 "dryrun": ("exit_gate",),
+                 "ranks": ("exit_gate", "encode", "decode")}
 # the log grid K2's LM temperature fit starts its Newton steps from
 K2_GRID = (0.25, 0.5, 1.0, 2.0, 4.0)
 # K1's boundary: the kernel's conf = 1/S and the plain max(exp(logp)) are
@@ -838,29 +860,41 @@ def same_fleet_summary(a, b, keys, what):
         assert ok, f"{what}: {k} {x!r} against {y!r}"
 
 
-def same_fleet(tel, host, what, atol=0.0):
-    """Two fleet runs agree: every cell's per-request columns (latencies to
-    rel 1e-9 and `atol`, the rest equal), the per-cell and fleet summaries
-    (latencies to rel 1e-9, every decision-derived number equal) and the
-    controller's switches."""
+def fleet_digest(tel):
+    """What two fleet runs must agree on, as plain data: every cell's
+    per-request columns, the fleet and per-cell summaries, the
+    orchestration events and the controller's switches."""
     from repro_torch.fleet.telemetry import _CellColumns
 
-    assert tel.n_cells == host.n_cells, what
-    for c in range(tel.n_cells):
-        for f in _CellColumns.FIELDS:
-            a, b = tel._cells[c].column(f), host._cells[c].column(f)
+    return {"cols": [{f: tel._cells[c].column(f) for f in _CellColumns.FIELDS}
+                     for c in range(tel.n_cells)],
+            "fleet": tel.fleet_summary(), "cells": tel.per_cell_summary(),
+            "events": list(tel.orchestration_events), "switches": list(tel.controller_events)}
+
+
+def same_digest(a, b, what, atol=0.0):
+    """Two fleet digests agree: latencies to rel 1e-9 and `atol`, every
+    other column equal; the summaries as `same_fleet_summary`; the same
+    events and switches."""
+    assert len(a["cols"]) == len(b["cols"]), what
+    for c, (x, y) in enumerate(zip(a["cols"], b["cols"])):
+        for f in x:
             if f == "latency_s":
-                np.testing.assert_allclose(a, b, rtol=1e-9, atol=atol, err_msg=f"{what}: cell {c}")
+                np.testing.assert_allclose(x[f], y[f], rtol=1e-9, atol=atol,
+                                           err_msg=f"{what}: cell {c}")
             else:
-                np.testing.assert_array_equal(a, b, err_msg=f"{what}: cell {c} {f}")
-    pairs = [("fleet", tel.fleet_summary(), host.fleet_summary())] + [
-        (f"cell {c}", a, b)
-        for c, (a, b) in enumerate(zip(tel.per_cell_summary(), host.per_cell_summary()))]
-    for where, a, b in pairs:
-        assert a.keys() == b.keys(), what
-        same_fleet_summary(a, b, a, f"{what} {where}")
-    assert tel.controller_events == host.controller_events, what
-    assert tel.orchestration_events == host.orchestration_events, what
+                np.testing.assert_array_equal(x[f], y[f], err_msg=f"{what}: cell {c} {f}")
+    for where, x, y in [("fleet", a["fleet"], b["fleet"])] + [
+            (f"cell {c}", x, y) for c, (x, y) in enumerate(zip(a["cells"], b["cells"]))]:
+        assert x.keys() == y.keys(), what
+        same_fleet_summary(x, y, x, f"{what} {where}")
+    assert a["switches"] == b["switches"], what
+    assert a["events"] == b["events"], what
+
+
+def same_fleet(tel, host, what, atol=0.0):
+    """Two fleet runs agree (`same_digest`)."""
+    same_digest(fleet_digest(tel), fleet_digest(host), what, atol)
 
 
 #: numbers of an adversarial record computed from gate confidences
@@ -1253,7 +1287,7 @@ def compiled_phase(dev, val, test, plans, fleet_summaries, n_cells=64, small=(6,
     topo = scn.topology
     say(f"reference fleet: {topo.n_cells} cells, {topo.n_requests} requests, "
         f"{topo.cloud_servers} cloud servers, 0.5 s windows")
-    tables = {}
+    tables, tels = {}, {}
     for name, p in (("expert_bank_static", bank), ("static_uncalibrated", uncal),
                     ("global_level2", glob.with_compression(2))):
         before = log.now()
@@ -1275,6 +1309,7 @@ def compiled_phase(dev, val, test, plans, fleet_summaries, n_cells=64, small=(6,
         host_wall = time.perf_counter() - t0
         log.expect(f"{name} host", before)  # the same table: nothing new
         same_fleet(tel, host, f"{name}: compiled against host", atol=1e-12)
+        tels[name] = tel
         s = tel.fleet_summary()
         ref = bench["plans"].get(name, {}).get("fleet")
         if n_cells != 64:
@@ -1421,6 +1456,7 @@ def compiled_phase(dev, val, test, plans, fleet_summaries, n_cells=64, small=(6,
         f"({n / host_wall:.0f} requests/s); compiled, first run: {first}; again: {stages(sim)}",
         timed=True)
     say("launches per run (K1, K3, K4): " + "; ".join(log.steps))
+    return {"global_level2": tels["global_level2"], "scale": tel}
 
 
 def lm_reductions(cfg, n_layers, seq=None):
@@ -1876,17 +1912,30 @@ def grow_caches(cfg, caches, batch, length, dev):
 
 
 class MoeTap:
-    """Records the aux (load-balance loss, dropped share) of every MoE
-    layer the model runs while the tap is open."""
+    """Records the aux (load-balance loss, dropped share) and the expert
+    buffer's rows of every MoE layer the model runs while the tap is
+    open."""
 
     def __enter__(self):
-        from repro_torch.models import transformer
+        from repro_torch.models import moe, transformer
 
-        self.saved, self.aux = transformer.apply_moe, []
+        self.saved, self.aux, self.rows = transformer.apply_moe, [], []
 
         def tapped(p, cfg, x):
-            y, aux = self.saved(p, cfg, x)
+            einsum, seen = moe.einsum, []
+
+            def rows(spec, a, b):
+                if spec == "ecd,edf->ecf" and not seen:
+                    seen.append(a.shape[1])
+                return einsum(spec, a, b)
+
+            moe.einsum = rows
+            try:
+                y, aux = self.saved(p, cfg, x)
+            finally:
+                moe.einsum = einsum
             self.aux.append({k: v.detach() for k, v in aux.items()})
+            self.rows.append(seen[0])
             return y, aux
 
         transformer.apply_moe = tapped
@@ -2622,6 +2671,396 @@ def dryrun_phase(dev, params, plan, phase5_stats, test_x, pairs=DRYRUN_PAIRS, st
     return {"records": records, "cross": cross, "h100": h100}
 
 
+# ------------------------------------------------------------------ ranks
+#: bf16's unit roundoff: 8 significant bits, rounded to nearest
+BF16_U = 2.0 ** -8
+
+
+def ranks_spec(full=True):
+    """Phase 14's configurations and sizes: the published ones (`full`),
+    or a CPU rehearsal of the same runs (two gloo ranks on the CPU)."""
+    from repro_torch.configs import get_config, get_smoke
+
+    if full:
+        olmo, granite = get_config("olmo-1b"), get_config("granite-moe-3b-a800m")
+        return dict(
+            device=None,
+            olmo=["--arch", "olmo-1b", "--steps", "3", "--batch", "8", "--seq", "512",
+                  "--log-every", "1"],
+            twin=olmo.replace(num_layers=2, exit_layers=(0,), exit_loss_weights=(1.0,),
+                              dtype="float32"),
+            twin_batch=(8, 512), twin_steps=2, alexnet=(256, 3),
+            # reduced: 32 -> 4 layers; capacity factor 1.25 -> 1.0, so that
+            # tokens drop (a seeded router spreads 2048 x 8 slots over 40
+            # experts about evenly, under a 1.25 capacity)
+            moe=granite.replace(num_layers=4, exit_layers=(1,), exit_loss_weights=(1.0,),
+                                dtype="float32", moe_capacity_factor=1.0),
+            moe_batch=(4, 512), fleet_cells=64, scale=(256, 4096))
+    return dict(
+        device="cpu",
+        olmo=["--arch", "olmo-1b", "--smoke", "--steps", "3", "--batch", "4", "--seq", "32",
+              "--log-every", "1", "--device", "cpu"],
+        twin=get_smoke("olmo-1b").replace(dtype="float32"),
+        twin_batch=(4, 32), twin_steps=2, alexnet=(16, 2),
+        moe=get_smoke("granite-moe-3b-a800m").replace(num_layers=4, dtype="float32",
+                                                      moe_capacity_factor=0.5),
+        moe_batch=(4, 16), fleet_cells=4, scale=(4, 256))
+
+
+def ranks_data(spec, train_x, train_y):
+    """The global batches phase 14 steps on, from seeded numpy: the twin's
+    and the MoE's token windows, B-AlexNet's images from its train split."""
+    from repro_torch.data.pipeline import TokenIterator
+    from repro_torch.data.synthetic import lm_sequences
+
+    def windows(cfg, shape, n, seed):
+        b, s = shape
+        it = iter(TokenIterator(lm_sequences(max(50_000, 4 * b * (s + 1)), cfg.vocab_size,
+                                             seed=seed), b, s, seed=seed))
+        return [next(it) for _ in range(n)]
+
+    rows, steps = spec["alexnet"]
+    order = np.random.default_rng(0).permutation(len(train_y))
+    return {"twin": windows(spec["twin"], spec["twin_batch"], spec["twin_steps"], 1),
+            "moe": windows(spec["moe"], spec["moe_batch"], 1, 2),
+            "alexnet": [{"images": train_x[order[i * rows:(i + 1) * rows]],
+                         "labels": train_y[order[i * rows:(i + 1) * rows]]}
+                        for i in range(steps)]}
+
+
+def dp_runs(dev, spec, data, mesh):
+    """Phase 14's training runs on `dev`, over the data `mesh` (None: one
+    rank): (a) `launch.train` on olmo-1b (its own mesh under
+    `torch.distributed.run`) and the float32 2-layer twin through
+    `make_train_step`, (b) B-AlexNet, (c) the MoE step with its dropped
+    (token, slot) counts per layer. Returns plain numbers: each step's
+    metrics, ms, peak GB, and each param leaf's float64 sum after."""
+    import torch
+    import torch.utils._pytree as pytree
+
+    from repro_torch.launch import train
+    from repro_torch.models import convnet, registry
+    from repro_torch.training import optim
+    from repro_torch.training.loop import make_train_step
+
+    def fresh():
+        _sync(dev)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+
+    def peak():
+        return torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else None
+
+    def sums(params):
+        return [float(x.double().sum()) for x in pytree.tree_leaves(params)]
+
+    def steps(cfg, params, opt_cfg, batches, remat=True):
+        step = make_train_step(cfg, opt_cfg, remat=remat, device=dev, inplace=True, mesh=mesh)
+        state, ms, metrics = optim.init(params), [], []
+        for b in batches:
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, b)
+            _sync(dev)
+            ms.append(1e3 * (time.perf_counter() - t0))
+            metrics.append({k: float(v) for k, v in m.items()})
+        return {"metrics": metrics, "ms": ms, "peak": peak(), "sums": sums(params)}
+
+    def seeded(cfg):
+        gen = torch.Generator(device=dev).manual_seed(0)
+        if cfg.family == "convnet":
+            return convnet.init_params(gen, device=dev)
+        return registry.init_params(gen, cfg, device=dev)
+
+    out = {}
+    fresh()
+    run = train.main(spec["olmo"])
+    out["olmo"] = {"metrics": run["metrics"], "ms": [1e3 * t for t in run["step_s"]],
+                   "peak": peak(), "sums": sums(run["params"])}
+    del run
+    fresh()
+    out["twin"] = steps(spec["twin"], seeded(spec["twin"]),
+                        optim.AdamWConfig(lr=3e-4, warmup_steps=1,
+                                          total_steps=spec["twin_steps"]), data["twin"])
+    fresh()
+    # phase 4's recipe: AdamW lr 2e-3, warmup 200, no weight decay
+    out["alexnet"] = steps(convnet.B_ALEXNET, seeded(convnet.B_ALEXNET),
+                           optim.AdamWConfig(lr=2e-3, weight_decay=0.0, total_steps=2000,
+                                             warmup_steps=200), data["alexnet"])
+    fresh()
+    with MoeTap() as tap:
+        out["moe"] = steps(spec["moe"], seeded(spec["moe"]), optim.AdamWConfig(), data["moe"])
+    b, s = spec["moe_batch"]
+    slots = b * s * spec["moe"].moe_top_k
+    # the forward's layers (a checkpointed layer's recompute stops before
+    # its MoE returns)
+    out["moe"]["dropped"] = [round(float(a["moe_dropped_frac"]) * slots) for a in tap.aux]
+    out["moe"]["rows"] = tap.rows
+    fresh()
+    return out
+
+
+def ranks_fleet(dev, job, want, world, rank, log):
+    """Phase 10's 64-cell global-plan arm at codec level 2 and its scale
+    arm through the compiled fleet on this rank, sharded over the ranks
+    (``mesh="auto"``), each held to phase 10's one-device result."""
+    from repro_torch.core.bank import PlanBank
+    from repro_torch.core.policy import OffloadPlan
+    from repro_torch.fleet import CompiledFleetSimulator, CompiledGateBackend, FleetConfig
+    from repro_torch.fleet.scenarios import fleet_gate_table, reference_fleet
+    from repro_torch.offload import latency
+
+    spec, (val, test) = job["spec"], job["fleet_data"]
+    comp = CompiledGateBackend(device=dev)
+    n_ctx = len(test["final"])
+    glob, bank = OffloadPlan.from_json(job["glob"]), PlanBank.from_json(job["bank"])
+    out = {}
+    for name, plan, cells, per in (("global_level2", glob.with_compression(2),
+                                    spec["fleet_cells"], None),
+                                   ("scale", bank) + tuple(spec["scale"])):
+        t0 = time.perf_counter()
+        scn = reference_fleet(n_cells=cells, val=val, test=test,
+                              **({} if per is None else {"requests_per_cell": per}))
+        before = log.now()
+        sim = CompiledFleetSimulator(fleet_gate_table(plan, scn, backend=comp), scn.topology,
+                                     latency.paper_2020(), config=FleetConfig(window_s=0.5))
+        assert sim._shard()[:2] == (rank, world), sim._shard()
+        t1 = time.perf_counter()
+        tel = sim.run()
+        wall = time.perf_counter() - t1
+        codec = n_ctx if name == "global_level2" else 0
+        log.expect(f"{name} over {world} ranks", before, exit_gate=2 * n_ctx, encode=codec,
+                   decode=codec)
+        same_digest(fleet_digest(tel), want[name], f"{name}: rank {rank} against phase 10",
+                    atol=1e-12)
+        out[name] = {"requests": scn.topology.n_requests, "set_up_s": t1 - t0, "run_s": wall,
+                     "host_s": sim.host_s, "stage_ms": sim.stage_ms}
+    return out
+
+
+def rank_main(out_dir) -> int:
+    """One rank of phase 14, under ``torch.distributed.run``: the training
+    runs of `dp_runs` over the data mesh, then `ranks_fleet`; the kernels'
+    launches counted from 0 over both. Writes rank<r>.json to `out_dir`."""
+    import pickle
+
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.launch.mesh import join_ranks
+
+    with open(os.path.join(out_dir, "job.pkl"), "rb") as f:
+        job = pickle.load(f)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh, backend = join_ranks(job["spec"]["device"])
+    dev, rank, world = mesh.device, mesh.coordinate("data"), mesh.axis_size("data")
+    log = LaunchLog(dev)
+    with open(os.path.join(out_dir, "expect.pkl"), "rb") as f:
+        want = pickle.load(f)
+    for k in log.counters.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    rep = {"rank": rank, "world": world, "backend": backend, "device": str(dev),
+           "card": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"}
+    rep.update(dp_runs(dev, job["spec"], job["data"], mesh))
+    rep["fleet"] = ranks_fleet(dev, job, want, world, rank, log)
+    _sync(dev)
+    rep["launches"] = log.now()
+    rep["steps"] = log.steps
+    rep["seconds"] = time.perf_counter() - t0
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rep, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def bf16_dp_bound(world):
+    """Relative bound on the gap between a bf16 data-parallel step's loss
+    or grad_norm and the one-rank step's on the same global batch.
+
+    A one-rank bf16 gradient element is rounded to bf16 once, after the
+    whole batch is summed; over `world` ranks each rank's partial is
+    rounded, then each of the world - 1 sums of the all-reduce, so the two
+    differ by at most (world + 1) u relative (u = 2^-8) where the partials
+    share a sign, plus the one-rank rounding itself: (world + 2) u, which
+    the global norm, a 1-Lipschitz function of the elements, keeps. The
+    forward's activations differ only where a GEMM's float32 accumulation
+    order depends on the batch rows; each such value is one bf16 rounding
+    apart, u. AdamW's first update is lr * g / |g| elementwise, blind to
+    a relative change of g, and the later ones move with it at first
+    order; the losses of later steps are held to the same (world + 2) u.
+    A first-order bound, not a proof: the float32 twin is held to rtol /
+    atol 2e-4, the LM tests' tolerance."""
+    return (world + 2) * BF16_U
+
+
+def ms3(xs):
+    """A list of times, three decimals each, for a log line."""
+    return "[" + ", ".join(f"{x:.3f}" for x in xs) + "]"
+
+
+def gb(x):
+    """A peak in GB, for a log line."""
+    return "not measured off the card" if x is None else f"{x:.2f} GB"
+
+
+def ranks_phase(dev, spec, data, fleet, out_dir, timeout=600, say=print):
+    """Phase 14: data-parallel training and the compiled fleet over W ranks
+    of ``python -m torch.distributed.run --standalone``, each rank this
+    script under ``--ranks`` (`rank_main`). W is the card count where it is
+    2 or more (NCCL, a card a rank), else 2 ranks sharing the one card
+    (gloo), or 2 gloo ranks on the CPU for a rehearsal. The same runs on
+    one rank in this process first (`dp_runs`); `fleet` is (val, test,
+    plans, phase 10's results). Returns the K1-K4 launches summed over the
+    ranks."""
+    import pickle
+
+    import torch
+
+    from repro_torch.models.moe import moe_capacity
+
+    world = torch.cuda.device_count() if dev.type == "cuda" else 2
+    world = world if world >= 2 else 2
+    backend = "nccl" if dev.type == "cuda" and torch.cuda.device_count() >= world else "gloo"
+    os.makedirs(out_dir, exist_ok=True)
+    val, test, plans, tels = fleet
+    t0 = time.perf_counter()
+    with open(os.path.join(out_dir, "job.pkl"), "wb") as f:
+        pickle.dump({"spec": spec, "data": data, "fleet_data": (val, test),
+                     "glob": plans[1].to_json(), "bank": plans[2].to_json()}, f)
+    with open(os.path.join(out_dir, "expect.pkl"), "wb") as f:
+        pickle.dump({k: fleet_digest(v) for k, v in tels.items()}, f)
+    for name in ("rank%d.json" % r for r in range(world)):
+        if os.path.exists(os.path.join(out_dir, name)):
+            os.remove(os.path.join(out_dir, name))
+    say(f"the plans (PlanBank JSON), phase 10's results and the batches written to "
+        f"{os.path.relpath(out_dir, ROOT)} in {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    one = dp_runs(dev, spec, data, None)
+    say(f"one rank in this process, {time.perf_counter() - t0:.2f} s: olmo-1b "
+        f"{ms3(one['olmo']['ms'])} ms a step, peak {gb(one['olmo']['peak'])}; twin "
+        f"{ms3(one['twin']['ms'])} ms; B-AlexNet {ms3(one['alexnet']['ms'])} ms; MoE "
+        f"{ms3(one['moe']['ms'])} ms, dropped (token, slot) pairs per layer "
+        f"{one['moe']['dropped']}", timed=True)
+    assert sum(one["moe"]["dropped"]) > 0, "no token dropped: the MoE check needs drops"
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()  # the ranks share the card(s) with this process
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           str(world), os.path.abspath(__file__), "--ranks", out_dir]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src")] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    log_path = os.path.join(out_dir, "ranks.log")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as logf:
+        proc = subprocess.Popen(cmd, stdout=logf, stderr=subprocess.STDOUT, env=env, cwd=ROOT)
+        try:
+            rc = proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            rc = "timeout"
+        finally:
+            if proc.poll() is None:  # torchrun stops its ranks on SIGTERM
+                proc.terminate()
+                try:
+                    proc.wait(timeout=60)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait()
+    wall = time.perf_counter() - t0
+    with open(log_path) as f:
+        text = f.read()
+    assert rc == 0, f"the ranks failed ({rc}); their output ends:\n{text[-6000:]}"
+    reps = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            reps.append(json.load(f))
+    say(f"{world} ranks over {backend} (python -m torch.distributed.run --standalone "
+        f"--nproc-per-node {world}), {wall:.2f} s from launch to exit: " + "; ".join(
+            f"rank {p['rank']} on {p['device']} ({p['card']}, {p['backend']}), its runs "
+            f"{p['seconds']:.2f} s" for p in reps), timed=True)
+    assert [p["rank"] for p in reps] == list(range(world))
+    assert all(p["world"] == world and p["backend"] == backend for p in reps)
+
+    # (a) olmo-1b in bf16: within the derived bound, every rank the same
+    bound = bf16_dp_bound(world)
+    gaps = []
+    for s, step in enumerate(one["olmo"]["metrics"]):
+        for k in ("loss", "grad_norm"):
+            got, want = reps[0]["olmo"]["metrics"][s][k], step[k]
+            gap = abs(got - want) / abs(want)
+            gaps.append(gap)
+            assert gap <= bound, (f"olmo-1b step {s} {k}: {got} over {world} ranks against "
+                                  f"{want} on one, rel {gap:.3g} > {bound:.3g}")
+    for name in ("olmo", "twin", "alexnet", "moe"):
+        assert all(p[name]["metrics"] == reps[0][name]["metrics"] for p in reps), name
+        assert all(p[name]["sums"] == reps[0][name]["sums"] for p in reps), \
+            f"{name}: the ranks' params differ"
+    say(f"a. launch.train {' '.join(spec['olmo'])}: per-step loss and grad_norm over "
+        f"{world} ranks against one rank within rel {max(gaps):.3g} (the derived bf16 bound "
+        f"(W + 2) u = {bound:.4g}); ms per step one rank {ms3(one['olmo']['ms'])}, rank 0 "
+        f"{ms3(reps[0]['olmo']['ms'])}; peak one rank {gb(one['olmo']['peak'])}, per rank "
+        f"{[gb(p['olmo']['peak']) for p in reps]}; every rank's params equal", timed=True)
+
+    def held(name):
+        worst = 0.0
+        for got, want in zip(reps[0][name]["metrics"], one[name]["metrics"]):
+            assert got.keys() == want.keys(), name
+            for k in want:
+                np.testing.assert_allclose(got[k], want[k], rtol=2e-4, atol=2e-4,
+                                           err_msg=f"{name} {k}")
+                worst = max(worst, abs(got[k] - want[k]) / max(abs(want[k]), 1e-30))
+        return worst
+
+    tw = held("twin")
+    say(f"float32 twin ({spec['twin'].num_layers} layers, {spec['twin_batch'][0]} x "
+        f"{spec['twin_batch'][1]}, {spec['twin_steps']} steps): every metric within rel "
+        f"{tw:.3g} of one rank (rtol / atol 2e-4); ms per step {ms3(reps[0]['twin']['ms'])} "
+        f"against {ms3(one['twin']['ms'])}", timed=True)
+    aw = held("alexnet")
+    say(f"b. B-AlexNet, {len(data['alexnet'])} steps at a global {spec['alexnet'][0]}: every "
+        f"metric within rel {aw:.3g} of one rank (rtol / atol 2e-4); ms per step "
+        f"{ms3(reps[0]['alexnet']['ms'])} against {ms3(one['alexnet']['ms'])}; peak per "
+        f"rank {[gb(p['alexnet']['peak']) for p in reps]}", timed=True)
+    mw = held("moe")
+    for p in reps:
+        assert p["moe"]["dropped"] == one["moe"]["dropped"], (p["rank"], p["moe"]["dropped"])
+    cfg = spec["moe"]
+    cap = moe_capacity(cfg, spec["moe_batch"][0] * spec["moe_batch"][1])
+    assert one["moe"]["rows"] == [cap] * len(one["moe"]["rows"]), one["moe"]["rows"]
+    for p in reps:  # a rank's buffer holds its kept rows, at most C
+        assert len(p["moe"]["rows"]) == len(one["moe"]["rows"])
+        assert all(0 < r <= cap for r in p["moe"]["rows"]), (p["rank"], p["moe"]["rows"])
+    say(f"c. {cfg.name} widths (d {cfg.d_model}, {cfg.moe_num_experts} experts top-"
+        f"{cfg.moe_top_k}) reduced to {cfg.num_layers} layers, capacity factor "
+        f"{cfg.moe_capacity_factor}, float32, one step at {spec['moe_batch'][0]} x "
+        f"{spec['moe_batch'][1]}: dropped (token, slot) pairs per layer "
+        f"{reps[0]['moe']['dropped']} on every rank, as on one; every metric within rel "
+        f"{mw:.3g} (rtol / atol 2e-4); expert buffer rows per layer: one rank "
+        f"{one['moe']['rows']} (C), " + ", ".join(
+            f"rank {p['rank']} {p['moe']['rows']}" for p in reps)
+        + f"; ms {ms3(reps[0]['moe']['ms'])} against "
+        f"{ms3(one['moe']['ms'])}; peak per rank {[gb(p['moe']['peak']) for p in reps]}",
+        timed=True)
+    for name in ("global_level2", "scale"):
+        f0 = reps[0]["fleet"][name]
+        say(f"d. compiled fleet {name}: {f0['requests']} requests over {world} ranks, equal on "
+            f"every rank to phase 10's one-device run (columns, summaries; latencies to rel "
+            f"1e-9); rank 0: set-up {f0['set_up_s']:.3f} s, run {f0['run_s']:.3f} s (host s "
+            + ", ".join(f"{k} {v:.3f}" for k, v in f0["host_s"].items()) + "; device ms "
+            + (", ".join(f"{k} {v:.3f}" for k, v in f0["stage_ms"].items())
+               or "not measured off the card") + ")", timed=True)
+    counts = {}
+    for p in reps:
+        for k, v in p["launches"].items():
+            counts[k] = counts.get(k, 0) + v
+    say("launches per rank (K1, K3, K4): " + "; ".join(
+        f"rank {p['rank']} {tuple(p['launches'].values())}: " + ", ".join(p["steps"])
+        for p in reps))
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -2990,9 +3429,12 @@ def main() -> int:
     # ---------------------------------------------------------------- 4
     phase_launches = {}
 
-    def run_phase(phase, fn):
+    def run_phase(phase, fn, in_ranks=False):
         """Drive one main-path phase with the launch counts set to 0 just
-        before it and read just after; every kernel of its path must run."""
+        before it and read just after; every kernel of its path must run.
+        `in_ranks`: the phase runs its path in other processes, whose
+        counts (each set to 0 before its path and read after) it returns;
+        this process must launch nothing."""
         torch.cuda.synchronize()
         for k in kernels.values():
             k.launches = 0
@@ -3000,6 +3442,9 @@ def main() -> int:
         out = fn(sayer(phase))
         torch.cuda.synchronize()
         counts = {n: k.launches for n, k in kernels.items()}
+        if in_ranks:
+            assert not any(counts.values()), f"the {phase} phase launched here: {counts}"
+            counts = {n: out.get(n, 0) for n in kernels}
         phase_launches[phase] = counts
         print(f"[{phase}] phase in {time.perf_counter() - t0:.2f} s; launches {counts} {card}")
         missing = [n for n in PHASE_KERNELS[phase] if counts[n] == 0]
@@ -3169,8 +3614,8 @@ def main() -> int:
                                                             say=say))
 
     # ---------------------------------------------------------------- 10
-    run_phase("compiled", lambda say: compiled_phase(cuda, val_f, test_f, fleet_plans,
-                                                     fleet_sums, say=say))
+    compiled_tels = run_phase("compiled", lambda say: compiled_phase(
+        cuda, val_f, test_f, fleet_plans, fleet_sums, say=say))
 
     # ---------------------------------------------------------------- 11
     from repro_torch.configs import get_config
@@ -3188,6 +3633,13 @@ def main() -> int:
                                                  test_x, say=say))
 
     # ---------------------------------------------------------------- 14
+    spec = ranks_spec()
+    run_phase("ranks", lambda say: ranks_phase(
+        cuda, spec, ranks_data(spec, data.train_x, data.train_y),
+        (val_f, test_f, fleet_plans, compiled_tels), os.path.join(ckpt_dir, "ranks"),
+        say=say), in_ranks=True)
+
+    # ---------------------------------------------------------------- 15
     launches = {n: sum(c[n] for c in phase_launches.values()) for n in kernels}
     table = []
     for n in kernels:
@@ -3206,4 +3658,6 @@ def main() -> int:
     return 0
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--ranks":
+        sys.exit(rank_main(sys.argv[2]))
     sys.exit(main())

@@ -1,6 +1,8 @@
 """Device resolution shared by the port's entry points."""
 from __future__ import annotations
 
+from typing import Tuple
+
 import numpy as np
 import torch
 
@@ -16,6 +18,33 @@ def resolve_device(device=None) -> torch.device:
             )
         return torch.device("cuda")
     return torch.device(device)
+
+
+def rank_device(device=None, local_rank: int = 0,
+                local_world: int = 1) -> Tuple[torch.device, str]:
+    """The device and the process-group backend of local rank
+    `local_rank` of `local_world` ranks on this machine.
+
+    * ``cuda:LOCAL_RANK`` with NCCL when the machine has a card per rank;
+    * ``cuda:0`` with gloo for every rank when the ranks outnumber the
+      cards (NCCL refuses two ranks on one card);
+    * the CPU with gloo only when the caller names ``"cpu"``.
+
+    Without a GPU and without a named device it raises, as
+    `resolve_device` does; a named device other than ``"cpu"`` or
+    ``"cuda"`` is an error, never a silent switch."""
+    if not 0 <= local_rank < local_world:
+        raise ValueError(f"local rank {local_rank} is not one of {local_world} ranks")
+    if device is not None and torch.device(device).type == "cpu":
+        return torch.device("cpu"), "gloo"
+    if device is not None and torch.device(device) != torch.device("cuda"):
+        raise ValueError(f"a rank takes device None, 'cuda' or 'cpu', not {device!r}: "
+                         "its card follows from LOCAL_RANK")
+    resolve_device(None)  # raises without a GPU
+    n = torch.cuda.device_count()
+    if n >= local_world:
+        return torch.device("cuda", local_rank), "nccl"
+    return torch.device("cuda", 0), "gloo"
 
 
 def same_device(a, b) -> bool:

@@ -44,9 +44,17 @@ simulator's order.
 
 Port of `repro.fleet.compiled`. The reference jits the program with
 `vmap` (and `shard_map` over a cell mesh) under `enable_x64`; here cells
-are the leading axis of float64 / int64 tensors on one device, and eager
-torch has nothing to retrace, so nothing is cached or padded to powers
-of two.
+are the leading axis of float64 / int64 tensors, and eager torch has
+nothing to retrace, so nothing is cached or padded to powers of two.
+
+Over a ``"cells"`` mesh of ranks (`sharding.fleet_mesh`, W ranks of a
+`torch.distributed` launch, each with the whole table) each rank runs
+the per-cell stages, the edge tier and the uplink, on its contiguous
+block of C/W cells; the columns are then gathered along the cell axis
+(`launch.mesh.gather_blocks`, an all-reduce), and the shared cloud tier,
+the sketch and the host replay run on the whole fleet on every rank, as
+the reference's `shard_map` covers its per-cell function only. Every
+rank returns the same telemetry; `host_s` and `stage_ms` are rank 0's.
 """
 from __future__ import annotations
 
@@ -64,6 +72,7 @@ from repro_torch.fleet.maxplus import maxplus_fifo
 from repro_torch.fleet.simulator import FleetConfig, FleetSimulator, _LiveCloud
 from repro_torch.fleet.telemetry import FleetTelemetry
 from repro_torch.fleet.topology import FleetTopology
+from repro_torch.launch.mesh import MeshSpec, all_sum, gather_blocks
 from repro_torch.obs.calibration import bin_edges
 from repro_torch.offload import latency as L
 from repro_torch.serving.drift import MarkovContextSchedule, PiecewiseSchedule
@@ -171,10 +180,11 @@ def _scale_at(t, slowdowns):
     return sc
 
 
-def _edge_tier(lane, bh, tbl, n_devices: int):
+def _edge_tier(lane, bh, tbl, n_devices: int, cell0: int = 0):
     """Edge lanes, context and gate; backhaul lanes. One masked max-plus
     chain per (cell, device): rows arrive in (window, origin) batch order,
-    which is exactly the host's carried-dev_free chain order."""
+    which is exactly the host's carried-dev_free chain order. The lanes
+    are cells cell0, cell0 + 1, ... of the fleet."""
     arr, valid = lane["arr"], lane["valid"]
     srv = torch.full_like(arr, tbl["s_edge"])
     edge_done = torch.zeros_like(arr)
@@ -188,17 +198,18 @@ def _edge_tier(lane, bh, tbl, n_devices: int):
     # whole-fleet outage: nominal-rate cloud backhaul, one chain per origin
     bh_done = maxplus_fifo(bh["arr"], torch.full_like(bh["arr"], tbl["comm_bh"]),
                            bh["valid"], 0.0, dim=-1)
-    org = torch.arange(bh["arr"].shape[0], device=arr.device)[:, None].expand_as(bh["gid"])
+    org = torch.arange(cell0, cell0 + bh["arr"].shape[0],
+                       device=arr.device)[:, None].expand_as(bh["gid"])
     ctx_bh = torch.where(bh["valid"], _ctx_at(tbl, org, bh["arr"]), torch.zeros_like(org))
     return edge_done, ctx, conf, on, ctx_bh, bh_done
 
 
-def _uplink(lane, tbl, edge_done, offl, n_batches: int, batch_rows: int):
+def _uplink(lane, tbl, edge_done, offl, n_batches: int, batch_rows: int, cell0: int = 0):
     """Per-cell uplink: offloads sorted to the front in (batch, ready-time)
     order, then each batch priced with the host's two-pass link repricing
-    in a loop over batch slots, vectorized over cells, carrying each
-    cell's uplink-free time. The loop stays sequential: a batch's pricing
-    reads the previous batch's free time."""
+    in a loop over batch slots, vectorized over cells (cells cell0,
+    cell0 + 1, ...), carrying each cell's uplink-free time. The loop stays
+    sequential: a batch's pricing reads the previous batch's free time."""
     C, R = edge_done.shape
     dev = edge_done.device
     bl = lane["bl"]
@@ -211,7 +222,7 @@ def _uplink(lane, tbl, edge_done, offl, n_batches: int, batch_rows: int):
     idx = (starts[:, :, None] + sub).clamp(max=R - 1).reshape(C, -1)  # (C, B * Rb)
     sv = (sub < counts[:, :, None]).reshape(C, n_batches, batch_rows)
     t_b = t_s.gather(1, idx).reshape(C, n_batches, batch_rows)
-    cells = torch.arange(C, device=dev)[:, None].expand(C, batch_rows)
+    cells = torch.arange(cell0, cell0 + C, device=dev)[:, None].expand(C, batch_rows)
     nbytes8 = tbl["nbytes8"]
     free = torch.zeros(C, 1, dtype=torch.float64, device=dev)
     done, comm = [], []
@@ -294,10 +305,30 @@ def _sketch(lane, tbl, ctx, conf, on, n_ctx: int, n_bins: int):
     return cal.index_add_(1, seg, rows).reshape(7, C, n_ctx, nb1)
 
 
-def _program(lane, bh, tbl, dims):
+def _gather_cells(cols, index: int, n: int, group):
+    """Every rank's block of the per-cell columns, in cell order on every
+    rank: one all-reduce of the columns packed as float64 (context ids and
+    gate verdicts are exact there, NaN and infinities pass through).
+    `cols`: edge_done, ctx, conf, on, up_done, up_comm (cells, rows) and
+    ctx_bh, bh_done (cells, backhaul rows)."""
+    a = torch.stack([x.to(torch.float64) for x in cols[:6]], dim=-1)
+    b = torch.stack([x.to(torch.float64) for x in cols[6:]], dim=-1)
+    every = gather_blocks(torch.cat([a.reshape(-1), b.reshape(-1)]), index, n, group)
+    ga = [x.contiguous() for x in
+          every[:, :a.numel()].reshape((-1,) + tuple(a.shape[1:])).unbind(-1)]
+    gb = [x.contiguous() for x in
+          every[:, a.numel():].reshape((-1,) + tuple(b.shape[1:])).unbind(-1)]
+    edge_done, ctx, conf, on, up_done, up_comm = ga
+    ctx_bh, bh_done = gb
+    return (edge_done, ctx.to(torch.int64), conf, on.to(torch.bool), ctx_bh.to(torch.int64),
+            bh_done, up_done, up_comm)
+
+
+def _program(lane, bh, tbl, dims, shard=None):
     """The device program: -> (output columns on the device, [(stage, CUDA
     event recorded at its end)], empty off the card). Nothing in it waits
-    for the device."""
+    for the device, except the gather of a sharded run. `shard` is (this
+    rank's index, ranks, process group) over a "cells" mesh, or None."""
     dev = lane["arr"].device
     marks = []
 
@@ -308,11 +339,23 @@ def _program(lane, bh, tbl, dims):
             marks.append((stage, e))
 
     mark("start")
-    edge_done, ctx, conf, on, ctx_bh, bh_done = _edge_tier(lane, bh, tbl, dims["D"])
+    lane_c, bh_c, cell0 = lane, bh, 0
+    if shard is not None:
+        index, n, group = shard
+        per = lane["arr"].shape[0] // n
+        cell0 = index * per
+        lane_c = {k: v[cell0:cell0 + per] for k, v in lane.items()}
+        bh_c = {k: v[cell0:cell0 + per] for k, v in bh.items()}
+    edge_done, ctx, conf, on, ctx_bh, bh_done = _edge_tier(lane_c, bh_c, tbl, dims["D"], cell0)
     mark("edge")
-    offl = lane["valid"] & ~on
-    up_done, up_comm = _uplink(lane, tbl, edge_done, offl, dims["B"], dims["Rb"])
+    up_done, up_comm = _uplink(lane_c, tbl, edge_done, lane_c["valid"] & ~on, dims["B"],
+                               dims["Rb"], cell0)
     mark("uplink")
+    if shard is not None:
+        edge_done, ctx, conf, on, ctx_bh, bh_done, up_done, up_comm = _gather_cells(
+            [edge_done, ctx, conf, on, up_done, up_comm, ctx_bh, bh_done], index, n, group)
+        mark("gather")
+    offl = lane["valid"] & ~on
     s_a, cloud, s_b, cloud_bh = _cloud_tier(lane, bh, tbl, edge_done, offl, up_done, bh_done,
                                             dims["K"], dims["slowdowns"])
     mark("cloud")
@@ -330,13 +373,19 @@ class CompiledFleetSimulator(FleetSimulator):
     on the table's gate-backend device (the card under ``"compiled"``, the
     CPU under ``CompiledGateBackend(device="cpu")``).
 
-    mesh: kept for the reference's signature. There is one device: None
-    and "auto" mean the backend's device; anything else raises.
+    mesh: None runs the program on the backend's device alone; "auto"
+    shards the cells over `sharding.fleet_mesh()` when the process group
+    has more than one rank and they divide the cell count, else runs
+    alone (`repro.fleet.compiled`'s rule); or a ``"cells"`` `MeshSpec`
+    from `sharding.fleet_mesh`. A mesh that does not divide the cells,
+    or any other object, raises ValueError. Every rank of a mesh must
+    build and run the simulator; a rank outside the mesh runs alone.
 
     After `run`, `host_s` holds the host seconds of the pre-pass, the
     program (upload, program, one sync, download) and the recovery, and
-    `stage_ms` the device ms of each program stage (edge, uplink, cloud,
-    sketch) from CUDA events on the card (empty elsewhere).
+    `stage_ms` the device ms of each program stage (edge, uplink, the
+    gather over the mesh, cloud, sketch) from CUDA events on the card
+    (empty elsewhere); over a mesh both are rank 0's on every rank.
     """
 
     def __init__(
@@ -352,11 +401,7 @@ class CompiledFleetSimulator(FleetSimulator):
         mesh="auto",
     ):
         _check_scope(controller is not None, orchestrator)
-        if mesh is not None and not (isinstance(mesh, str) and mesh == "auto"):
-            raise ValueError(
-                "the compiled fleet pipeline runs on one device, the gate "
-                f"backend's; mesh must be None or 'auto', not {mesh!r}"
-            )
+        self.mesh = self._resolve_mesh(mesh, topology.n_cells)
         super().__init__(
             table, topology, profile, config=config, controller=None,
             payload_nbytes=payload_nbytes, orchestrator=orchestrator, obs=obs,
@@ -366,6 +411,44 @@ class CompiledFleetSimulator(FleetSimulator):
         self.stage_ms: Dict[str, float] = {}
 
     # ------------------------------------------------------------- helpers
+    @staticmethod
+    def _resolve_mesh(mesh, n_cells: int) -> Optional[MeshSpec]:
+        if mesh is None:
+            return None
+        if isinstance(mesh, str) and mesh == "auto":
+            import torch.distributed as dist
+
+            world = dist.get_world_size() if dist.is_initialized() else 1
+            if world > 1 and n_cells % world == 0:
+                from repro_torch.sharding import fleet_mesh
+
+                return fleet_mesh()
+            return None
+        if not isinstance(mesh, MeshSpec) or mesh.axis_names != ("cells",):
+            raise ValueError(
+                "the compiled fleet pipeline takes mesh=None, 'auto' or a "
+                f"'cells' mesh (sharding.fleet_mesh), not {mesh!r}"
+            )
+        if n_cells % mesh.size != 0:
+            raise ValueError(
+                f"{n_cells} cells do not shard evenly over a "
+                f"{mesh.size}-device mesh"
+            )
+        if mesh.size > 1 and mesh.device_mesh is None:
+            raise ValueError(
+                f"a described {mesh.size}-device 'cells' mesh has no ranks: build it "
+                "with sharding.fleet_mesh() under torch.distributed.run"
+            )
+        return mesh
+
+    def _shard(self):
+        """(this rank's index, ranks, group) over the mesh, or None when
+        the run is not sharded."""
+        m = self.mesh
+        if m is None or m.size == 1 or m.coordinate("cells") is None:
+            return None
+        return m.coordinate("cells"), m.size, m.group("cells")
+
     def _min_rate(self, net) -> float:
         if isinstance(net, MarkovNetwork):
             return min(net.good_bps, net.bad_bps)
@@ -657,8 +740,9 @@ class CompiledFleetSimulator(FleetSimulator):
         tbl["conf"] = as_tensor(table._conf_t, dev)[:, bi].to(dev)
         tbl.update(s_edge=s_edge, s_cloud=s_cloud, nbytes8=nbytes * 8.0,
                    comm_bh=self._comm_bh, p_tar=p_tar)
+        shard = self._shard()
         out_t, marks = _program({k: up(v) for k, v in lane.items()},
-                                {k: up(v) for k, v in bh.items()}, tbl, dims)
+                                {k: up(v) for k, v in bh.items()}, tbl, dims, shard)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         out = {k: v.cpu().numpy() for k, v in out_t.items()}
@@ -705,7 +789,19 @@ class CompiledFleetSimulator(FleetSimulator):
         t_end = time.perf_counter()
         self.host_s = {"prepass": t_prog - t_start, "program": t_rec - t_prog,
                        "recovery": t_end - t_rec}
+        if shard is not None:
+            self._rank0_times(shard)
         return tel
+
+    def _rank0_times(self, shard) -> None:
+        """Replace `host_s` and `stage_ms` by rank 0's on every rank."""
+        index, _, group = shard
+        keys = [("host_s", k) for k in self.host_s] + [("stage_ms", k) for k in self.stage_ms]
+        vals = torch.tensor([getattr(self, a)[k] for a, k in keys], dtype=torch.float64,
+                            device=self.device)
+        vals = all_sum(vals if index == 0 else torch.zeros_like(vals), group).tolist()
+        for (a, k), v in zip(keys, vals):
+            getattr(self, a)[k] = v
 
     # ------------------------------------------------- host-side recovery
     def _est_mapped(self, est, ctx):

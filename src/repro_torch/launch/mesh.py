@@ -1,28 +1,47 @@
-"""Described device meshes (counterpart of `repro.launch.mesh`).
+"""Device meshes (counterpart of `repro.launch.mesh`): described ones, and
+the mesh of ranks a `torch.distributed` launch gives.
 
 The reference builds TPU v5e meshes of real devices: one pod of 256 chips
 as (data=16, model=16), or two pods, 512 chips, as (pod=2, data=16,
-model=16), where the pod axis carries data parallelism only. One H100 has
-no such mesh, and this port runs every step on one card. A `MeshSpec`
-describes a mesh instead, by its axis names and sizes, and needs no
+model=16), where the pod axis carries data parallelism only. A
+`MeshSpec` describes a mesh by its axis names and sizes and needs no
 device: `repro_torch.sharding` reads it to lay out the specs of every
 parameter, cache and batch leaf, and `launch.dryrun` divides each leaf's
 bytes by the product of the mesh axes that shard it, to give the bytes
-one card of such a mesh would hold.
+one card of such a mesh would hold. The production meshes stay
+described: 256 or 512 ranks are not on one machine.
+
+`join_ranks` makes a mesh real: one process per rank, as
+``python -m torch.distributed.run --nproc-per-node W`` starts them, each
+holding a full replica. It returns a (data=W, model=1) `MeshSpec` bound
+to the process group (a `torch.distributed.device_mesh.DeviceMesh`) and
+to the rank's device; `sharding.fleet_mesh` binds a 1-D ``"cells"`` mesh
+the same way. The collectives below are the only ones the port issues.
+They are all-reduces, the one collective that both NCCL and gloo take on
+CUDA tensors, so the same code runs on either backend.
 """
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
-from typing import Tuple
+import os
+from dataclasses import dataclass, field
+from typing import Any, Optional, Tuple
+
+import torch
+
+from repro_torch._device import rank_device
 
 
 @dataclass(frozen=True)
 class MeshSpec:
-    """A mesh's axis names and sizes, in order; no devices behind it."""
+    """A mesh's axis names and sizes, in order; with `device_mesh` (and
+    `device`, this rank's) it is bound to a process group, else it is
+    only described."""
 
     axis_names: Tuple[str, ...]
     shape: Tuple[int, ...]
+    device_mesh: Any = field(default=None, compare=False, repr=False)
+    device: Optional[torch.device] = field(default=None, compare=False)
 
     def __post_init__(self):
         if len(self.axis_names) != len(self.shape) or min(self.shape, default=1) < 1:
@@ -39,6 +58,21 @@ class MeshSpec:
     def name(self) -> str:
         return "x".join(str(n) for n in self.shape)
 
+    def group(self, axis: str):
+        """The process group along `axis` (None when the mesh is only
+        described, or this rank is not in it)."""
+        if self.device_mesh is None or self.coordinate(axis) is None:
+            return None
+        return self.device_mesh.get_group(axis)
+
+    def coordinate(self, axis: str) -> Optional[int]:
+        """This rank's index along `axis`: None when the mesh is only
+        described or does not hold this rank."""
+        if self.device_mesh is None:
+            return None
+        coord = self.device_mesh.get_coordinate()
+        return None if coord is None else coord[self.axis_names.index(axis)]
+
 
 def make_production_mesh(*, multi_pod: bool = False) -> MeshSpec:
     """The reference's production layout: (data=16, model=16), or with
@@ -51,3 +85,57 @@ def make_production_mesh(*, multi_pod: bool = False) -> MeshSpec:
 def make_debug_mesh(data: int = 1, model: int = 1) -> MeshSpec:
     """A (data, model) mesh of any size, for tests and `dryrun --mesh`."""
     return MeshSpec(("data", "model"), (data, model))
+
+
+def join_ranks(device=None) -> Tuple[MeshSpec, str]:
+    """Join the process group of a `torch.distributed.run` launch and
+    return (the (data=W, model=1) mesh bound to it, the backend).
+
+    The rank's device and backend follow `_device.rank_device`: a card
+    per rank with NCCL, or every rank on ``cuda:0`` with gloo when the
+    ranks outnumber the cards, or the CPU with gloo when `device` is
+    ``"cpu"``. Without a GPU it raises unless `device` is ``"cpu"``."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    missing = [k for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+                           "MASTER_ADDR", "MASTER_PORT") if k not in os.environ]
+    if missing:
+        raise RuntimeError(f"join_ranks runs under `python -m torch.distributed.run`; "
+                           f"the environment lacks {missing}")
+    world = int(os.environ["WORLD_SIZE"])
+    dev, backend = rank_device(device, int(os.environ["LOCAL_RANK"]),
+                               int(os.environ["LOCAL_WORLD_SIZE"]))
+    if dev.type == "cuda":
+        # bind the card before the group and the mesh: DeviceMesh would
+        # otherwise pick cuda:LOCAL_RANK, which two ranks on one card lack
+        torch.cuda.init()
+        torch.cuda.set_device(dev)
+    if dist.is_initialized():
+        if dist.get_backend() != backend:
+            raise RuntimeError(f"the process group runs {dist.get_backend()}, this rank "
+                               f"needs {backend}")
+    else:
+        dist.init_process_group(backend)
+    dm = DeviceMesh(dev.type, torch.arange(world).reshape(world, 1),
+                    mesh_dim_names=("data", "model"))
+    return MeshSpec(("data", "model"), (world, 1), device_mesh=dm, device=dev), backend
+
+
+# ---------------------------------------------------------------- collectives
+def all_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """Sum `x` over the ranks of `group`, in place; returns `x`."""
+    import torch.distributed as dist
+
+    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+    return x
+
+
+def gather_blocks(block: torch.Tensor, index: int, n: int, group) -> torch.Tensor:
+    """(n, *block.shape): every rank's `block` at its `index`. An
+    all-reduce of a zeroed buffer into which each rank writes its own
+    block: exact, since x + 0 = x (NaN and infinities included), and
+    taken by gloo on CUDA tensors, which gloo's all-gather is not."""
+    out = block.new_zeros((n,) + tuple(block.shape))
+    out[index] = block
+    return all_sum(out, group)

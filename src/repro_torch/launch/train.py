@@ -10,22 +10,38 @@ since the loop keeps only the newest.
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m --smoke \
       --steps 50 --batch 8 --seq 128 --ckpt build/ck.msgpack --device cpu
 
+Under ``python -m torch.distributed.run --nproc-per-node W`` it trains
+data-parallel on a (data=W, model=1) mesh of ranks
+(`launch.mesh.join_ranks`), as the reference trains on
+``make_debug_mesh(jax.device_count(), 1)``: every rank draws the same
+seeded init (checked equal once), reads the same stream and takes its
+rows of each global ``--batch`` (`data.pipeline`), and the gradients are
+reduced over the ranks (`training.loop`). Rank 0 alone prints the log
+lines and writes ``--ckpt``; every rank returns the same params. A world
+of one is the one-device run.
+
+  python -m torch.distributed.run --standalone --nproc-per-node 2 \
+      -m repro_torch.launch.train --arch mamba2-130m --smoke --device cpu
+
 `--production-mesh` (the reference's TPU pod mesh) raises
-NotImplementedError: one card has no 256- or 512-chip mesh.
+NotImplementedError: one machine has no 256- or 512-chip mesh.
 `launch.dryrun --mesh 16x16` (or ``2x16x16``) gives the bytes each card of
 such a mesh would hold.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import torch
+import torch.utils._pytree as pytree
 
 from repro_torch._device import resolve_device
 from repro_torch.configs import get_config, get_smoke
-from repro_torch.data.pipeline import TokenIterator
+from repro_torch.data.pipeline import TokenIterator, prefetch
 from repro_torch.data.synthetic import lm_sequences
+from repro_torch.launch.mesh import gather_blocks, join_ranks
 from repro_torch.models import registry, transformer
 from repro_torch.training import checkpoint, optim
 from repro_torch.training.loop import make_train_step
@@ -36,9 +52,22 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+def check_same_params(params, mesh):
+    """Raise unless every rank of `mesh`'s data axis holds the same
+    params: each leaf's float64 sum and sum of squares, compared over the
+    ranks."""
+    sums = torch.stack([torch.stack([x.double().sum(), x.double().square().sum()])
+                        for x in pytree.tree_leaves(params)])
+    every = gather_blocks(sums, mesh.coordinate("data"), mesh.axis_size("data"),
+                          mesh.group("data"))
+    if not bool((every == every[0]).all()):
+        raise RuntimeError("the ranks' seeded params differ")
+
+
 def main(argv=None):
     """Run the driver on `argv` (the command line when None). Returns the
-    trained params and each step's seconds (host clock to a device sync)."""
+    trained params, each step's seconds (host clock to a device sync) and
+    each step's metrics (floats; the global batch's under a mesh)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
@@ -58,54 +87,72 @@ def main(argv=None):
             "--production-mesh: one card has no 256- or 512-chip mesh; run "
             "`python -m repro_torch.launch.dryrun --mesh 16x16` (or 2x16x16) for the bytes "
             "each card of such a mesh would hold")
-    device = resolve_device(args.device)
+    mesh = None
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:  # under torch.distributed.run
+        mesh, backend = join_ranks(args.device)
+        device = mesh.device
+    else:
+        device = resolve_device(args.device)
+    lead = mesh is None or mesh.coordinate("data") == 0
+    say = print if lead else (lambda *a, **k: None)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
-    print(f"arch={cfg.name} params={cfg.param_count():,} "
-          f"active={cfg.active_param_count():,}")
+    say(f"arch={cfg.name} params={cfg.param_count():,} "
+        f"active={cfg.active_param_count():,}")
+    if mesh is not None:
+        say(f"mesh (data={mesh.axis_size('data')}, model=1) over {backend}, rank 0 on {device}")
 
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = registry.init_params(gen, cfg, device=device)
-    print(f"instantiated params: {transformer.num_params(params):,}")
+    if mesh is not None:
+        check_same_params(params, mesh)
+    say(f"instantiated params: {transformer.num_params(params):,}")
 
     opt_cfg = optim.AdamWConfig(lr=args.lr, total_steps=args.steps,
                                 warmup_steps=min(20, args.steps // 5 + 1))
     opt_state = optim.init(params)
-    step_fn = make_train_step(cfg, opt_cfg, remat=not args.smoke, device=device, inplace=True)
+    step_fn = make_train_step(cfg, opt_cfg, remat=not args.smoke, device=device, inplace=True,
+                              mesh=mesh)
 
     stream = lm_sequences(
         max(600_000, args.batch * (args.seq + 1) * 4), cfg.vocab_size, seed=args.seed
     )
-    it = iter(TokenIterator(stream, args.batch, args.seq, seed=args.seed))
+    # each batch arrives on the device as this rank's rows (all of them
+    # without a mesh)
+    batches = prefetch(iter(TokenIterator(stream, args.batch, args.seq, seed=args.seed)),
+                       device=device, mesh=mesh)
 
-    step_s = []
+    step_s, step_metrics = [], []
     t0 = time.time()
     for step in range(args.steps):
         t1 = time.perf_counter()
-        batch = {k: torch.as_tensor(v, device=device) for k, v in next(it).items()}
+        batch = next(batches)
         if cfg.is_encoder_decoder:
             batch["encoder_frames"] = torch.zeros(
-                (args.batch, cfg.encoder_seq, cfg.d_model),
+                (len(batch["tokens"]), cfg.encoder_seq, cfg.d_model),
                 dtype=torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32,
                 device=device,
             )
         params, opt_state, metrics = step_fn(params, opt_state, batch)
         _sync(device)
         step_s.append(time.perf_counter() - t1)
+        m = {k: float(v) for k, v in metrics.items()}
+        step_metrics.append(m)
         if step % args.log_every == 0 or step == args.steps - 1:
-            m = {k: float(v) for k, v in metrics.items()}
-            print(
+            say(
                 f"step {step:5d} loss={m['loss']:.4f} final={m['loss_final']:.4f} "
                 + " ".join(
                     f"{k}={v:.4f}" for k, v in m.items() if k.startswith("loss_exit")
                 )
                 + f" gnorm={m['grad_norm']:.2f} ({time.time()-t0:.1f}s)"
             )
-    if args.ckpt:
+    if args.ckpt and lead:
         checkpoint.save(args.ckpt, {"params": params,
                                     "step": torch.tensor(args.steps, dtype=torch.int32)})
-        print(f"saved checkpoint to {args.ckpt}")
-    return {"params": params, "step_s": step_s}
+        say(f"saved checkpoint to {args.ckpt}")
+    return {"params": params, "step_s": step_s, "metrics": step_metrics}
 
 
 if __name__ == "__main__":
     main()
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()

@@ -16,15 +16,51 @@ dispatch (port of `repro.models.moe`).
   (token, slot)'s output and weights it by the kept gate.
 * With ``moe_shard_capacity`` the experts are padded to a multiple of 16;
   the padded experts get -1e30 router logits (probability 0) and never
-  win. The reference's sharding constraints have no counterpart on one
-  card.
+  win. The reference's sharding constraints have no counterpart: the
+  port runs the experts on every rank's own rows.
+
+Under `data_parallel` (W ranks, each with an equal shard of the tokens,
+in rank order: the train step's data mesh) the block keeps the one-device
+semantics on the global batch, as GSPMD keeps the reference's under a
+data mesh: C is the global token count's; a (token, slot)'s position in
+its expert is its rank in the global token order, the local cumsum
+offset by the lower ranks' per-expert counts, and it drops iff that
+position reaches C; ``frac_tokens``, ``frac_probs`` and the dropped share
+are global. One all-reduce per layer carries the counts and the
+probability sums. A rank's expert buffer holds only its own kept rows:
+(E, c_loc, d), c_loc the most rows any expert keeps on this rank, read
+on the host once per layer (a device sync), so the expert FFN's work a
+rank is about 1/W of one device's rather than one device's capacity C.
+The aux loss's gradient reaches a rank's router through its own tokens,
+scaled by W, so that the train step's mean of the ranks' gradients is
+the one-device gradient.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch.mesh import gather_blocks
 from repro_torch.models.layers import cdtype, einsum, normal
+
+# (process group, this rank's index, ranks) while `data_parallel` is open;
+# module state, not a context variable: a checkpointed layer recomputes
+# its forward on autograd's own thread
+_DP = None
+
+
+@contextlib.contextmanager
+def data_parallel(group, rank: int, world: int):
+    """Run the MoE blocks as one block over the tokens of `world` ranks
+    (this rank's are block `rank`); one rank is the plain block."""
+    global _DP
+    prev, _DP = _DP, ((group, rank, world) if world > 1 else None)
+    try:
+        yield
+    finally:
+        _DP = prev
 
 
 def n_alloc_experts(cfg) -> int:
@@ -66,7 +102,9 @@ def apply_moe(p, cfg, x):
     xt = x.reshape(-1, d)  # (T, d)
     T = xt.shape[0]
     E, k = n_alloc_experts(cfg), cfg.moe_top_k
-    C = moe_capacity(cfg, T)
+    dp = _DP
+    w = 1 if dp is None else dp[2]
+    C = moe_capacity(cfg, T * w)
 
     # ---- router (fp32) ----
     logits = xt.to(torch.float32) @ p["router"]  # (T, E_real)
@@ -85,13 +123,31 @@ def apply_moe(p, cfg, x):
     # outer-dim scan of a (T*k, E) one-hot is a slow CUDA kernel
     flat = (experts[:, None] == eidx).to(torch.int32)  # (E, T*k)
     pos = (torch.cumsum(flat, dim=1) - flat).gather(0, eidx[None, :])[0]
-    keep = pos < C
+    top1 = (expert_idx[:, :1] == experts).to(torch.float32)  # (T, E)
+    if dp is None:
+        keep = pos < C
+    else:
+        group, rank, _ = dp
+        # per rank: slots per expert, top-1 tokens per expert, router
+        # probability sums (float32 sums, exact in float64)
+        stats = torch.cat([flat.sum(1).to(torch.float64), top1.sum(0).to(torch.float64),
+                           probs.detach().sum(0).to(torch.float64)])
+        blocks = gather_blocks(stats, rank, w, group)  # (w, 3E)
+        counts = blocks[:, :E]
+        below = counts[:rank].sum(0)
+        keep = pos + below.to(pos.dtype)[eidx] < C
+        # this rank keeps an expert's first min(count, C - below) slots
+        kept_here = torch.minimum(counts[rank], torch.clamp(C - below, min=0))
+        c_loc = max(1, int(kept_here.max()))
     gates = gate_vals.reshape(T * k) * keep.to(torch.float32)
 
-    # ---- dispatch: scatter tokens into (E, C, d) buffers ----
-    safe_pos = torch.where(keep, pos, C - 1).to(torch.int64)
+    # ---- dispatch: scatter tokens into (E, C_loc, d) buffers (C_loc = C
+    # on one device; a kept slot's local position is below C_loc)
+    if dp is None:
+        c_loc = C
+    safe_pos = torch.where(keep, pos, c_loc - 1).to(torch.int64)
     src = torch.repeat_interleave(xt, k, dim=0) * keep[:, None].to(xt.dtype)
-    buf = xt.new_zeros((E, C, d)).index_put((eidx, safe_pos), src, accumulate=True)
+    buf = xt.new_zeros((E, c_loc, d)).index_put((eidx, safe_pos), src, accumulate=True)
 
     # ---- expert FFN: (E, C, d) x (E, d, f) ----
     up = einsum("ecd,edf->ecf", buf, p["w_up"])
@@ -106,10 +162,21 @@ def apply_moe(p, cfg, x):
     y = torch.sum((gathered * gates[:, None].to(gathered.dtype)).reshape(T, k, -1), dim=1)
 
     # ---- Switch load-balance aux loss ----
-    frac_tokens = torch.mean((expert_idx[:, :1] == experts).to(torch.float32), dim=0)
-    frac_probs = torch.mean(probs, dim=0)
+    if dp is None:
+        frac_tokens = torch.mean(top1, dim=0)
+        frac_probs = torch.mean(probs, dim=0)
+        dropped = 1.0 - torch.mean(keep.to(torch.float32))
+    else:
+        n_all = T * w
+        frac_tokens = blocks[:, E:2 * E].sum(0).to(torch.float32) / n_all
+        p_loc = torch.sum(probs, dim=0)
+        # the global sum's value, this rank's tokens' gradient times w
+        frac_probs = (blocks[:, 2 * E:].sum(0).to(torch.float32)
+                      + w * (p_loc - p_loc.detach())) / n_all
+        kept = torch.clamp(counts.sum(0), max=C).sum()
+        dropped = 1.0 - kept.to(torch.float32) / (n_all * k)
     aux = {
         "moe_aux_loss": E * torch.sum(frac_tokens * frac_probs),
-        "moe_dropped_frac": 1.0 - torch.mean(keep.to(torch.float32)),
+        "moe_dropped_frac": dropped,
     }
     return y.reshape(orig_shape), aux

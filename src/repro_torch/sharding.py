@@ -18,11 +18,18 @@ with the entries of the reference's ``PartitionSpec``: one per dim, each
 None, an axis name or a tuple of axis names (a one-name tuple is the
 name, as ``PartitionSpec`` normalizes it).
 
-No counterpart, by design: ``constrain`` (the reference's activation
-sharding constraint; the port runs each step on one card, so the model
-code has none), ``named_shardings`` (binds specs to JAX devices) and
-``fleet_mesh`` (the compiled fleet's 1-D device mesh; the port's compiled
-fleet takes ``mesh=None`` or ``"auto"`` on one card).
+`fleet_mesh` is the compiled fleet's 1-D ``"cells"`` mesh, bound to the
+ranks of a `torch.distributed` launch (`launch.mesh`).
+
+No counterpart: ``constrain`` (the reference's activation sharding
+constraint). Its ``"dp"`` constraints shard the batch through the model;
+the port shards the batch once, at the step's input
+(`training.loop.make_train_step(mesh=...)`), and each rank runs the model
+on its rows, which is what those constraints compute. Its ``"tp"``
+constraints (a model axis above 1) are out of the port's scope. Nor
+``named_shardings`` (binds specs to JAX devices; nothing in the
+reference calls it) and ``set_mesh``: the port passes a mesh as an
+argument instead of module state.
 """
 from __future__ import annotations
 
@@ -186,3 +193,30 @@ def shard_bytes(leaf, spec, mesh: Optional[MeshSpec]) -> int:
     """Bytes of `leaf` that one device of `mesh` holds under `spec`."""
     n = math.prod(leaf.shape) * leaf.element_size()
     return n // math.prod(axis_size(ax, mesh) for ax in spec) if spec else n
+
+
+# ------------------------------------------------------------ fleet mesh
+def fleet_mesh(n_devices: Optional[int] = None) -> MeshSpec:
+    """1-D mesh with axis ``"cells"`` for the compiled fleet pipeline
+    (`repro_torch.fleet.compiled`): each rank runs the per-cell stages on
+    its block of cells, and the tables replicate. It spans the first
+    `n_devices` ranks of the process group (every rank by default), and
+    every rank must call it; a rank outside it runs the fleet alone.
+    Without a process group it is a one-device mesh, bound to nothing.
+    ValueError when asked for more ranks than there are."""
+    import torch
+    import torch.distributed as dist
+
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    n = world if n_devices is None else int(n_devices)
+    if n > world:
+        raise ValueError(f"asked for {n} mesh devices, have {world}")
+    if n < 1:
+        raise ValueError(f"a mesh needs at least one device, not {n}")
+    if world == 1:
+        return MeshSpec(("cells",), (n,))
+    from torch.distributed.device_mesh import DeviceMesh
+
+    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    dm = DeviceMesh(device_type, torch.arange(n), mesh_dim_names=("cells",))
+    return MeshSpec(("cells",), (n,), device_mesh=dm)

@@ -14,15 +14,32 @@ the AdamW state on the card instead of two; `optim.update`).
 Both steps run on `device` (``cuda`` unless the caller passes ``"cpu"``):
 the batch and the parameters move there, and without a GPU and without a
 named device the step raises instead of running on the CPU.
+
+Data parallelism (``mesh``, a data mesh from `launch.mesh.join_ranks`):
+every rank holds the same parameters and moments and takes its rows of
+the global batch (`data.pipeline.data_rows`; a `Shard` is taken as
+given). Each rank's loss is the mean over its rows, so the mean of the
+ranks' gradients is the gradient of the global batch's mean: one
+all-reduce of a flat bucket per dtype sums them, then the same AdamW
+runs on every rank and the parameters stay equal. The MoE blocks run
+under `moe.data_parallel`, global capacity and aux loss. The returned
+losses are the global batch's (the mean of the ranks'; every shard has
+the same size) and ``grad_norm`` is the reduced gradient's. Where the
+ranks do not divide the batch every rank runs the one-device step on all
+of it, and nothing is reduced.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.utils._pytree as pytree
 
 from repro_torch._device import as_tensor, resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import registry
+from repro_torch.data.pipeline import Shard, shard_batch
+from repro_torch.launch.mesh import all_sum
+from repro_torch.models import moe, registry
 from repro_torch.training import optim
 from repro_torch.training.losses import multi_exit_loss, softmax_xent
 
@@ -53,19 +70,49 @@ def _on(device, params, batch):
     return params, batch
 
 
+def _mean_over(tensors, group, world: int):
+    """Replace each tensor by its mean over the ranks: one all-reduce of a
+    flat bucket per dtype (the sum, then a division by `world`)."""
+    by_dtype = {}
+    for i, t in enumerate(tensors):
+        by_dtype.setdefault(t.dtype, []).append(i)
+    out = list(tensors)
+    for idx in by_dtype.values():
+        flat = all_sum(torch.cat([tensors[i].reshape(-1) for i in idx]), group)
+        flat.div_(world)
+        for i, part in zip(idx, flat.split([tensors[i].numel() for i in idx])):
+            out[i] = part.view(tensors[i].shape)
+    return out
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: optim.AdamWConfig, remat: bool = True,
-                    device=None, inplace: bool = False):
+                    device=None, inplace: bool = False, mesh=None):
+    world = 1 if mesh is None else mesh.axis_size("data")
+    if device is None and mesh is not None:
+        device = mesh.device
+
     def train_step(params, opt_state, batch):
         dev = resolve_device(device)
+        if world > 1 and not isinstance(batch, Shard):
+            batch = shard_batch(batch, mesh)
+        dp = world > 1 and batch.sharded
+        group = mesh.group("data") if dp else None
         params, batch = _on(dev, params, batch)
         leaves, spec = pytree.tree_flatten(params)
         leaves = [p.detach().requires_grad_(True) for p in leaves]
-        with torch.enable_grad():
+        scope = (moe.data_parallel(group, mesh.coordinate("data"), world) if dp
+                 else contextlib.nullcontext())
+        with torch.enable_grad(), scope:
             loss, metrics = loss_fn(pytree.tree_unflatten(leaves, spec), cfg, batch, remat)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                         materialize_grads=True)
         metrics = {k: v.detach() for k, v in metrics.items()}
         del loss
+        if dp:
+            grads = _mean_over(list(grads), group, world)
+            names = list(metrics)
+            metrics = dict(zip(names, _mean_over([metrics[k].to(torch.float32) for k in names],
+                                                 group, world)))
         params, opt_state, opt_metrics = optim.update(
             opt_cfg, pytree.tree_unflatten([p.detach() for p in leaves], spec),
             pytree.tree_unflatten(list(grads), spec), opt_state, inplace=inplace)

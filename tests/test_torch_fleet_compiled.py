@@ -327,8 +327,14 @@ def test_compiled_rejects_rollout(drift_data):
 
 
 def test_compiled_rejects_a_mesh(drift_data):
-    """One device: the mesh keyword takes None or "auto" (the backend's
-    device) and rejects a mesh object."""
+    """The mesh keyword takes None, "auto" (one device without a process
+    group) or a "cells" MeshSpec; it rejects any other object, a mesh
+    that does not divide the cells ("shard evenly", the reference's
+    message) and a described mesh of several devices, which has no
+    ranks. tests/test_torch_ranks_fleet.py runs real meshes."""
+    from repro_torch.launch.mesh import MeshSpec, make_debug_mesh
+    from repro_torch.sharding import fleet_mesh
+
     _, _, plans, _ = drift_data
     scn, _ = fleets(drift_data, n_cells=2, requests_per_cell=40)
     table = fleet_gate_table(plans[1], scn, backend=COMPILED_CPU)
@@ -336,8 +342,20 @@ def test_compiled_rejects_a_mesh(drift_data):
     class FakeMesh:
         size = 4
 
-    with pytest.raises(ValueError, match="one device"):
-        CompiledFleetSimulator(table, scn.topology, L.paper_2020(), mesh=FakeMesh())
+    for bad in (FakeMesh(), make_debug_mesh(2, 1)):
+        with pytest.raises(ValueError, match="takes mesh=None, 'auto' or a 'cells' mesh"):
+            CompiledFleetSimulator(table, scn.topology, L.paper_2020(), mesh=bad)
+    with pytest.raises(ValueError, match="shard evenly"):
+        CompiledFleetSimulator(table, scn.topology, L.paper_2020(),
+                               mesh=MeshSpec(("cells",), (4,)))
+    with pytest.raises(ValueError, match="has no ranks"):
+        CompiledFleetSimulator(table, scn.topology, L.paper_2020(),
+                               mesh=MeshSpec(("cells",), (2,)))
+    with pytest.raises(ValueError, match="asked for 2 mesh devices, have 1"):
+        fleet_mesh(2)
+    c = CompiledFleetSimulator(table, scn.topology, L.paper_2020(), mesh=fleet_mesh())
+    assert c.mesh == MeshSpec(("cells",), (1,))
+    same_fleet(c.run(), run_fleet(plans[1], scn, backend=TORCH_CPU))
     a = CompiledFleetSimulator(table, scn.topology, L.paper_2020(), mesh=None).run()
     b = CompiledFleetSimulator(table, scn.topology, L.paper_2020(), mesh="auto").run()
     same_fleet(a, b)

@@ -135,7 +135,32 @@ def test_port_imports_neither_jax_nor_repro():
     assert out.stdout.strip() == "isolated"
 
 
-def test_running_the_fleet_and_orchestration_loads_neither_jax_nor_repro():
+RANK_RUN = """\
+import sys
+from repro_torch.launch import train
+run = train.main(['--arch', 'granite-moe-3b-a800m', '--smoke', '--steps', '2', '--batch', '2',
+                  '--seq', '16', '--device', 'cpu'])
+import torch.distributed as dist
+assert dist.get_world_size() == 2 and len(run['step_s']) == 2
+from repro_torch.fleet import CompiledFleetSimulator, CompiledGateBackend
+from repro_torch.fleet.scenarios import fleet_gate_table, reference_fleet
+from repro_torch.offload import latency
+from repro_torch.serving.scenarios import fit_drift_plans, synthetic_distorted_cascade
+val, test = synthetic_distorted_cascade(n=128, n_val=128)
+_, glob, _ = fit_drift_plans(val, device='cpu')
+scn = reference_fleet(n_cells=2, requests_per_cell=60, val=val, test=test)
+sim = CompiledFleetSimulator(fleet_gate_table(glob.with_compression(2), scn,
+                                              backend=CompiledGateBackend(device='cpu')),
+                             scn.topology, latency.paper_2020())
+assert sim._shard() is not None and sim.run().fleet_summary()['requests'] == 120
+assert 'jax' not in sys.modules, 'jax was imported'
+bad = [m for m in sys.modules if m == 'repro' or m.startswith('repro.')]
+assert not bad, bad
+print('rank isolated')
+"""
+
+
+def test_running_the_fleet_and_orchestration_loads_neither_jax_nor_repro(tmp_path):
     """Importing is not enough: the reference reaches other modules through
     imports inside functions, so the port is run -- a 2-cell fleet at
     codec level 2 with every observability sink on, on the host and the
@@ -144,9 +169,13 @@ def test_running_the_fleet_and_orchestration_loads_neither_jax_nor_repro():
     solvers, the LM serving path (a prefill step, a decode step and
     lm_engine at codec level 2 on a smoke config), the training driver
     (`launch.train --smoke`, with a checkpoint), a forward pass of the
-    moe, mamba and whisper models, and one dry-run pair on a described
-    16x16 mesh with ZeRO-1, all on the CPU -- and only then are the loaded
-    modules checked."""
+    moe, mamba and whisper models, one dry-run pair on a described
+    16x16 mesh with ZeRO-1, and two gloo ranks (`torch.distributed.run`)
+    that each train the moe smoke data-parallel through `launch.train`
+    and run a 2-cell compiled fleet sharded over cells, all on the CPU --
+    and only then are the loaded modules checked, in every process."""
+    rank_script = tmp_path / "rank_run.py"
+    rank_script.write_text(RANK_RUN)
     code = (
         "import sys\n"
         "import numpy as np\n"
@@ -209,6 +238,12 @@ def test_running_the_fleet_and_orchestration_loads_neither_jax_nor_repro():
         "r = dryrun.run_one('mamba2-130m', 'long_500k', None, mesh='16x16', zero1=True,\n"
         "                   device='cpu')\n"
         "assert r['flops'] > 0 and r['fits_one_card'] and r['chips'] == 256, r\n"
+        "import subprocess\n"
+        "ranks = subprocess.run([sys.executable, '-m', 'torch.distributed.run', '--standalone',\n"
+        f"                        '--nproc-per-node', '2', {str(rank_script)!r}],\n"
+        "                       capture_output=True, text=True, timeout=240)\n"
+        "assert ranks.returncode == 0, ranks.stderr[-3000:]\n"
+        "assert ranks.stdout.count('rank isolated') == 2, ranks.stdout\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "bad = [m for m in sys.modules if m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
