@@ -188,15 +188,40 @@ Phases, each printing its own lines:
             them at rel 1e-9 on every rank. Every rank's params equal;
             each rank's peak GB; each rank's K1/K3/K4 launches worked out
             from the code and asserted, and summed under "ranks".
-15. result  one JSON line with every kernel's numbers, the nvidia-smi
+15. tp      tensor parallelism: LM serving with the parameters split over
+            a model axis (`python -m torch.distributed.run --standalone
+            --nproc-per-node W` on this script with ``--tp DIR``, a (data
+            1, model W) mesh; W as in phase 14: the card count where it is
+            2 or more, NCCL, else 2 ranks sharing the one card over gloo),
+            each rank's params from the sharded init (bit for bit its
+            slices of the one-device stream). The same runs first on one
+            rank in this process. (a) Qwen2-72B's widths reduced to 4
+            layers (exits moved inside the cut), bf16: prefill 8 x 512
+            (three times, then once with every all-reduce timed between
+            two syncs: their share of the step), 8 decode steps from the
+            prefill's caches, the last against a prefill over the same
+            tokens, lm_engine at codec levels 0 and 2; logits held to one
+            rank within the derived bf16 bound (2L + 2) 2u of max|z|,
+            predictions and gate decisions equal wherever one rank's
+            margins clear it, payload_bytes equal; (b) a float32 twin at 2
+            layers (4 x 128, 4 decode steps) at rtol / atol 2e-4 with
+            predictions and decisions equal; (c) granite-moe's widths
+            reduced to 4 layers, float32, capacity factor 1.0 (tokens
+            drop), its 40 experts split over the ranks: prefill 4 x 512 at
+            2e-4 with the dropped counts per layer equal. ms a step and a
+            token, peak GB per rank, the all-reduces' share; each rank's
+            K1/K3/K4 launches worked out from the code and asserted.
+            `tools/tp_phase.py` runs this phase alone, and on four cards
+            also Qwen2-72B uncut (80 layers, over NCCL).
+16. result  one JSON line with every kernel's numbers, the nvidia-smi
             line, and last {"ok": true, "device": {...}}.
 
-Phases 4-14 are the main path: each sets the launch counts to 0 just
+Phases 4-15 are the main path: each sets the launch counts to 0 just
 before it and reads them just after, and fails if a kernel of its path
 did not run (train: K1; serving: K1-K4; paper: K1, K2; bank: K1, K3,
 K4; runtime: K1, K3, K4; fleet and compiled: K1, K3, K4; lm and
-train_lm: K1-K4; dryrun: K1; ranks: K1, K3, K4, counted in each rank
-from 0 over its runs, while this process launches none).
+train_lm: K1-K4; dryrun: K1; ranks and tp: K1, K3, K4, counted in each
+rank from 0 over its runs, while this process launches none).
 Every line that prints a time names the card and its power limit.
 
 Any failure raises, so the process exits non-zero and prints no result;
@@ -205,6 +230,7 @@ the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -247,7 +273,8 @@ PHASE_KERNELS = {"train": ("exit_gate",),
                  "lm": ("exit_gate", "calib_nll", "encode", "decode"),
                  "train_lm": ("exit_gate", "calib_nll", "encode", "decode"),
                  "dryrun": ("exit_gate",),
-                 "ranks": ("exit_gate", "encode", "decode")}
+                 "ranks": ("exit_gate", "encode", "decode"),
+                 "tp": ("exit_gate", "encode", "decode")}
 # the log grid K2's LM temperature fit starts its Newton steps from
 K2_GRID = (0.25, 0.5, 1.0, 2.0, 4.0)
 # K1's boundary: the kernel's conf = 1/S and the plain max(exp(logp)) are
@@ -1892,14 +1919,15 @@ def lm_phase(dev, cfg, val=(128, 256), serve=(8, 512), n_serve=3, decode=32, eq=
     return out
 
 
-def grow_caches(cfg, caches, batch, length, dev):
+def grow_caches(cfg, caches, batch, length, dev, mesh=None):
     """Decode caches of `length` slots holding a prefill's caches: the
-    attention K/V in the first slots, the mamba state as it is."""
+    attention K/V in the first slots, the mamba state as it is (over
+    `mesh`, this rank's part of them)."""
     import torch.utils._pytree as pytree
 
     from repro_torch.models import registry
 
-    new = registry.init_cache(cfg, batch, length, device=dev)
+    new = registry.init_cache(cfg, batch, length, device=dev, mesh=mesh)
     for path, dst in pytree.tree_flatten_with_path(new)[0]:
         src = caches
         for key in path:
@@ -3061,6 +3089,494 @@ def ranks_phase(dev, spec, data, fleet, out_dir, timeout=600, say=print):
     return counts
 
 
+def tp_spec(full=True, uncut=False):
+    """Phase 15's runs, each a config and its sizes (prefill (b, s), decode
+    steps, lm_engine's codec levels): Qwen2-72B's published widths
+    (`full`), or a CPU rehearsal of the same runs on smoke widths. With
+    `uncut`, also Qwen2-72B at its published 80 layers, which only a mesh
+    of four cards holds (`tools/tp_phase.py`)."""
+    from repro_torch.configs import get_config, get_smoke
+
+    if full:
+        q, g = get_config("qwen2-72b"), get_config("granite-moe-3b-a800m")
+        runs = {
+            # reduced: 80 -> 4 layers, the exits (19, 39) moved inside the cut
+            "bf16": dict(cfg=q.replace(num_layers=4, exit_layers=(1, 2)), serve=(8, 512),
+                         decode=8, levels=(0, 2)),
+            # reduced: 80 -> 2 layers, one exit after layer 0, float32
+            "f32": dict(cfg=q.replace(num_layers=2, exit_layers=(0,), exit_loss_weights=(1.0,),
+                                      dtype="float32"), serve=(4, 128), decode=4, levels=()),
+            # reduced: 32 -> 4 layers, float32; capacity factor 1.25 -> 1.0,
+            # so that tokens drop
+            "moe": dict(cfg=g.replace(num_layers=4, exit_layers=(1,), exit_loss_weights=(1.0,),
+                                      dtype="float32", moe_capacity_factor=1.0),
+                        serve=(4, 512), decode=0, levels=()),
+        }
+        if uncut:
+            runs["uncut"] = dict(cfg=q, serve=(8, 512), decode=32, levels=(0, 1, 2))
+        return dict(device=None, runs=runs)
+    q = get_smoke("qwen2-72b")
+    runs = {
+        "bf16": dict(cfg=q.replace(num_layers=4, exit_layers=(1, 2),
+                                   exit_loss_weights=(1.0, 1.0)),
+                     serve=(4, 32), decode=4, levels=(0, 2)),
+        "f32": dict(cfg=q.replace(num_layers=2, dtype="float32"), serve=(2, 16), decode=2,
+                    levels=()),
+        "moe": dict(cfg=get_smoke("granite-moe-3b-a800m").replace(
+            num_layers=4, dtype="float32", moe_capacity_factor=0.5), serve=(4, 16), decode=0,
+            levels=()),
+    }
+    if uncut:
+        runs["uncut"] = dict(cfg=q.replace(num_layers=6, exit_layers=(1, 3),
+                                           exit_loss_weights=(1.0, 1.0)),
+                             serve=(4, 32), decode=4, levels=(0, 1, 2))
+    return dict(device="cpu", runs=runs)
+
+
+def bf16_tp_bound(n_layers):
+    """Relative bound, against max|z|, on the gap between a bf16 model's
+    logits over a model axis and one rank's on the same params.
+
+    Each row-parallel product is summed in float32 in another order than
+    one rank sums it and rounded once to bf16, as one rank rounds its own
+    float32 sum; every other product runs on slices of one rank's
+    operands (other GEMM shapes, so another float32 order). Each bf16
+    result is then one rank's or its neighbour: at most 2u apart relative
+    (u = 2^-8). On the way to the logits the stack adds 2L + 2 such
+    results (the embedding is exact): the attention and MLP outputs of
+    each of its L layers, the final norm and the head. First order, each
+    layer's output no larger than the residual it joins: (2L + 2) 2u of
+    max|z|. A first-order bound, not a proof: the float32 twin is held to
+    rtol / atol 2e-4, the LM tests' tolerance."""
+    return (2 * n_layers + 2) * 2 * BF16_U
+
+
+def prefill_flops(cfg, b, s):
+    """The dry run's FLOPs of one (b, s) prefill step on one card
+    (`launch.hlo_cost.analyze` on fake CPU tensors)."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun, hlo_cost
+
+    with FakeTensorMode(allow_fallback_kernels=False):
+        step, args, _ = dryrun.build_step(cfg, ShapeConfig("tp", s, b, "prefill"),
+                                          torch.device("cpu"))
+        return hlo_cost.analyze(step, *args)["flops"]
+
+
+def tp_runs(dev, spec, mesh, p_tars=None, names=("bf16", "f32", "moe")):
+    """Phase 15's serving runs on `dev` over `mesh` (None: one rank), one
+    model at a time, each from `init_params(mesh=)`: a prefill step (timed
+    three times, once for the MoE, then once more with every collective
+    timed between two syncs), decode steps from the prefill's caches (one more timed
+    token), the decode's last logits against a prefill over the same
+    tokens, and `lm_engine` at the spec's levels (p_tar from `p_tars`, or
+    the one-rank prefill's middle exit-0 confidences). Returns numpy
+    outputs, times, peaks, the K1/K3/K4 launches (each step's worked out
+    and asserted) and the p_tars used."""
+    import torch
+    import torch.utils._pytree as pytree
+
+    from repro_torch.core.calibration import TemperatureScaling
+    from repro_torch.core.policy import OffloadPlan
+    from repro_torch.launch.mesh import record_collectives
+    from repro_torch.launch.serve import make_prefill_step, make_serve_step
+    from repro_torch.models import registry, transformer
+    from repro_torch.offload.engine import lm_engine
+
+    card = dev.type == "cuda"
+    log = LaunchLog(dev)
+    p_tars = dict(p_tars or {})
+    res = {"p_tar": p_tars, "runs": {}}
+
+    def fresh():
+        _sync(dev)
+        if card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+
+    def peak():
+        return torch.cuda.max_memory_allocated(dev) / 1e9 if card else None
+
+    def host(x):
+        return x.detach().float().cpu().numpy()
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(dev)
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    def share(fn):
+        """(ms, all-reduce count, operand GB, ms in all-reduces) of one call
+        with every collective timed between two device syncs."""
+        with record_collectives(timed=True) as clog:
+            _, ms = timed(fn)
+        return {"ms": ms, "n": clog.counts.get("all-reduce", 0),
+                "gb": clog.bytes.get("all-reduce", 0) / 1e9,
+                "ar_ms": 1e3 * clog.seconds.get("all-reduce", 0.0)}
+
+    def run_model(name, cfg, serve, decode, levels):
+        """One model's runs; every tensor it made is freed on return."""
+        (b, s), n_ex = serve, len(cfg.exit_layers)
+        fresh()
+        params, init_ms = timed(lambda: registry.init_params(
+            torch.Generator(device=dev).manual_seed(0), cfg, device=dev, mesh=mesh))
+        toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (b, s + decode)).astype(
+            np.int32)
+        plan = OffloadPlan(p_tar=0.5, calibrators=[TemperatureScaling.from_temperature(1.0)]
+                           * n_ex)
+        r = {"scalars": transformer.num_params(params), "init_ms": init_ms, "ms": []}
+        pre = make_prefill_step(cfg, plan=plan, device=dev, mesh=mesh)
+        batch = {"tokens": toks[:, :s]}
+        tap = MoeTap() if cfg.moe_num_experts else contextlib.nullcontext()
+        for i in range(1 if cfg.moe_num_experts else 3):
+            before = log.now()
+            with tap:
+                o, ms = timed(lambda: pre(params, batch))
+            log.expect(f"{name} prefill", before, exit_gate=n_ex)
+            r["ms"].append(ms)
+            if i == 0:
+                first = o
+        o = first
+        if cfg.moe_num_experts:
+            slots = b * s * cfg.moe_top_k
+            r["dropped"] = [round(float(a["moe_dropped_frac"]) * slots) for a in tap.aux]
+        r["prefill"] = {k: host(o[k]) for k in ("logits", "exit_confidence", "exit_prediction")}
+        if mesh is None:  # the exits' logits, whose top-2 gaps decide which rows must agree
+            with torch.no_grad():
+                zs = transformer.forward_prefill(params, cfg, {"tokens": torch.as_tensor(
+                    batch["tokens"], device=dev)})["exit_logits"]
+            r["prefill"]["exit_logits"] = [host(z[:, 0]) for z in zs]
+            del zs
+        assert np.isfinite(r["prefill"]["logits"]).all(), f"{name}: prefill logits not finite"
+        if mesh is not None:
+            before = log.now()
+            r["prefill_share"] = share(lambda: pre(params, batch))
+            log.expect(f"{name} prefill, collectives timed", before, exit_gate=n_ex)
+        if name not in p_tars:
+            c = np.sort(r["prefill"]["exit_confidence"][0])
+            p_tars[name] = float(c[len(c) // 2 - 1] + c[len(c) // 2]) / 2
+        if decode:
+            caches = grow_caches(cfg, o["caches"], b, s + decode + 1, dev, mesh)
+            del o, first  # the prefill's caches
+            step = make_serve_step(cfg, plan=plan, device=dev, mesh=mesh)
+            r["decode"], r["decode_ms"] = [], []
+            for t in range(decode):
+                before = log.now()
+                d, ms = timed(lambda: step(params, toks[:, s + t:s + t + 1], caches, s + t)[0])
+                log.expect(f"{name} decode", before, exit_gate=n_ex)
+                r["decode_ms"].append(ms)
+                r["decode"].append({k: host(v) for k, v in d.items()})
+            if mesh is not None:
+                before = log.now()
+                r["decode_share"] = share(lambda: step(params, toks[:, -1:], caches, s + decode))
+                log.expect(f"{name} decode, collectives timed", before, exit_gate=n_ex)
+            del caches
+            # the decode's last logits against a prefill over the same tokens
+            before = log.now()
+            full = host(pre(params, {"tokens": toks})["logits"][:, 0])
+            log.expect(f"{name} prefill over the decoded tokens", before, exit_gate=n_ex)
+            last = r["decode"][-1]["logits"]
+            lo = 0 if last.shape[-1] == full.shape[-1] else \
+                mesh.coordinate("model") * last.shape[-1]
+            ref_z = full[:, lo:lo + last.shape[-1]]
+            r["resume_gap"] = float(np.abs(last - ref_z).max() / np.abs(full).max())
+            r["resume_argmax"] = float(np.mean(
+                r["decode"][-1]["token"] == full.argmax(-1)))
+        r["engine"] = {}
+        for level in levels:
+            eng = lm_engine(params, cfg, OffloadPlan(
+                p_tar=p_tars[name], calibrators=[TemperatureScaling.from_temperature(1.0)]
+                * n_ex).with_compression(level), device=dev, mesh=mesh)
+            before = log.now()
+            got, ms = timed(lambda: eng.infer(batch))
+            n_off = eng.stats.offloaded
+            codec = 1 if level and n_off else 0
+            log.expect(f"{name} lm_engine level {level}", before, exit_gate=1, encode=codec,
+                       decode=codec)
+            r["engine"][level] = dict({k: np.asarray(v) for k, v in got.items()}, ms=ms,
+                                      edge_ms=1e3 * eng.stats.edge_time_s,
+                                      cloud_ms=1e3 * eng.stats.cloud_time_s,
+                                      payload_bytes=eng.stats.payload_bytes, offloaded=n_off)
+        r["peak"] = peak()
+        return r
+
+    for name in names:
+        if name in spec["runs"]:
+            run = spec["runs"][name]
+            res["runs"][name] = run_model(name, run["cfg"], run["serve"], run["decode"],
+                                          run["levels"])
+    fresh()
+    res["launches"] = log.now()
+    res["steps"] = log.steps
+    return res
+
+
+def tp_rank_main(out_dir) -> int:
+    """One rank of phase 15, under ``torch.distributed.run``: `tp_runs` over
+    the (data 1, model W) mesh, the kernels' launches counted from 0.
+    Writes rank<r>.pkl to `out_dir`."""
+    import pickle
+
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.launch.mesh import join_ranks
+
+    with open(os.path.join(out_dir, "job.pkl"), "rb") as f:
+        job = pickle.load(f)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh, backend = join_ranks(job["spec"]["device"], model=job["model"])
+    dev = mesh.device
+    for k in LaunchLog(dev).counters.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    res = tp_runs(dev, job["spec"], mesh, job["p_tar"], names=("uncut", "bf16", "f32", "moe"))
+    res.update(rank=torch.distributed.get_rank(), coords=(mesh.coordinate("data"),
+                                                           mesh.coordinate("model")),
+               mesh=mesh.shape, backend=backend, device=str(dev),
+               card=torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+               seconds=time.perf_counter() - t0)
+    with open(os.path.join(out_dir, f"rank{res['rank']}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _top2_clear(z, gap):
+    """Rows of (b, V) logits whose top-2 gap exceeds `gap`."""
+    top2 = np.sort(z, axis=-1)[..., -2:]
+    return (top2[..., 1] - top2[..., 0]) > gap
+
+
+def tp_phase(dev, spec, out_dir, timeout=900, say=print):
+    """Phase 15: LM serving with the parameters split over a model axis of
+    W ranks (``python -m torch.distributed.run --standalone``, each rank
+    this script under ``--tp``, `tp_rank_main`): W is the card count
+    where it is 2 or more (NCCL, a card a rank), else 2 ranks sharing the
+    one card (gloo), or 2 gloo ranks on the CPU for a rehearsal; the mesh
+    is (data 1, model W). The same runs first on one rank in this process
+    (`tp_runs`; its launches kept out of the phase's counts), which then
+    frees its cache; each rank's outputs are held to them: the bf16 model
+    within `bf16_tp_bound`, the float32 twin and the MoE at rtol / atol
+    2e-4, predictions and decisions equal where one rank's margins clear
+    that, payload_bytes and dropped counts equal. Returns the K1-K4
+    launches summed over the ranks."""
+    import pickle
+
+    import torch
+
+    world = torch.cuda.device_count() if dev.type == "cuda" else 2
+    world = world if world >= 2 else 2
+    backend = "nccl" if dev.type == "cuda" and torch.cuda.device_count() >= world else "gloo"
+    os.makedirs(out_dir, exist_ok=True)
+
+    t0 = time.perf_counter()
+    # the one-rank reference's launches stay out of the phase's counts: the
+    # ranks' runs are the path, each rank counting its own from 0
+    counters = LaunchLog(dev).counters
+    before = {n: k.launches for n, k in counters.items()}
+    one = tp_runs(dev, spec, None)
+    for n, k in counters.items():
+        k.launches = before[n]
+    say(f"one rank in this process, {time.perf_counter() - t0:.2f} s: " + "; ".join(
+        f"{n} {r['scalars']} scalars, prefill {ms3(r['ms'])} ms, peak {gb(r['peak'])}"
+        for n, r in one["runs"].items()), timed=True)
+    with open(os.path.join(out_dir, "job.pkl"), "wb") as f:
+        pickle.dump({"spec": spec, "p_tar": one["p_tar"], "model": world}, f)
+    for r in range(world):
+        if os.path.exists(os.path.join(out_dir, f"rank{r}.pkl")):
+            os.remove(os.path.join(out_dir, f"rank{r}.pkl"))
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()  # the ranks share the card(s) with this process
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           str(world), os.path.abspath(__file__), "--tp", out_dir]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src")] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    log_path = os.path.join(out_dir, "ranks.log")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as logf:
+        proc = subprocess.Popen(cmd, stdout=logf, stderr=subprocess.STDOUT, env=env, cwd=ROOT)
+        # the dry run's FLOPs of the prefills (a trace on fake CPU tensors)
+        # while the ranks run
+        flops = {n: prefill_flops(r["cfg"], *r["serve"]) for n, r in spec["runs"].items()
+                 if n in ("bf16", "uncut")}
+        try:
+            rc = proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            rc = "timeout"
+        finally:
+            if proc.poll() is None:  # torchrun stops its ranks on SIGTERM
+                proc.terminate()
+                try:
+                    proc.wait(timeout=60)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait()
+    wall = time.perf_counter() - t0
+    with open(log_path) as f:
+        text = f.read()
+    assert rc == 0, f"the ranks failed ({rc}); their output ends:\n{text[-6000:]}"
+    reps = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"rank{r}.pkl"), "rb") as f:
+            reps.append(pickle.load(f))
+    say(f"{world} ranks over {backend}, mesh (data 1, model {world}) (python -m "
+        f"torch.distributed.run --standalone --nproc-per-node {world}), {wall:.2f} s from "
+        f"launch to exit: " + "; ".join(
+            f"rank {p['rank']} on {p['device']} ({p['card']}, {p['backend']}), its runs "
+            f"{p['seconds']:.2f} s" for p in reps), timed=True)
+    assert [p["rank"] for p in reps] == list(range(world))
+    assert all(p["backend"] == backend and p["mesh"] == (1, world) for p in reps)
+    assert [p["coords"] for p in reps] == [(0, m) for m in range(world)]
+
+    def held(name, bound=None):
+        """Every rank's outputs of run `name` against one rank's: the logits
+        within `bound` of max|z| (bf16) or at rtol / atol 2e-4 (float32,
+        no bound); predictions and gate decisions equal wherever one rank's
+        margins clear that gap delta (a top-2 gap above 2 delta; a
+        confidence farther than conf (e^{2 delta} - 1) + 1e-6 from p_tar,
+        hazard d besides); payload_bytes and dropped counts equal. Returns
+        (the worst gap relative to max|z|, the rows held to be equal)."""
+        want, p_tar = one["runs"][name], one["p_tar"][name]
+        tol = dict(rtol=2e-4, atol=2e-4)
+
+        def delta(z):
+            m = float(np.abs(z).max())
+            return bound * m if bound else 2e-4 * (1 + m)
+
+        def same_argmax(got_pred, z):
+            clear = _top2_clear(z, 2 * delta(z))
+            np.testing.assert_array_equal(got_pred[clear], z.argmax(-1)[clear], err_msg=name)
+            return int(clear.sum())
+
+        def same_decisions(got_on, want_conf, z):
+            clear = np.abs(want_conf - p_tar) > want_conf * np.expm1(2 * delta(z)) + BOUNDARY
+            np.testing.assert_array_equal(got_on[clear], (want_conf >= p_tar)[clear],
+                                          err_msg=name)
+            return int(clear.sum())
+
+        worst, decided = 0.0, 0
+        for p in reps:
+            got = p["runs"][name]
+            pairs = [(got["prefill"]["logits"][:, 0], want["prefill"]["logits"][:, 0])]
+            pairs += [(d["logits"], w["logits"]) for d, w in zip(got.get("decode", []),
+                                                                 want.get("decode", []))]
+            for g, w in pairs:  # a decode step's logits are the rank's vocab shard
+                lo = 0 if g.shape[-1] == w.shape[-1] else p["coords"][1] * g.shape[-1]
+                ws = w[:, lo:lo + g.shape[-1]]
+                gap = float(np.abs(g - ws).max() / np.abs(w).max())
+                worst = max(worst, gap)
+                if bound is None:
+                    np.testing.assert_allclose(g, ws, **tol, err_msg=name)
+                else:
+                    assert gap <= bound, (f"{name}: rank {p['rank']} logits rel {gap:.3g} > "
+                                          f"{bound:.3g}")
+            decided += same_argmax(got["prefill"]["logits"][:, 0].argmax(-1),
+                                   want["prefill"]["logits"][:, 0])
+            for d, w in zip(got.get("decode", []), want.get("decode", [])):
+                decided += same_argmax(d["token"], w["logits"])
+            for i, ze in enumerate(want["prefill"]["exit_logits"]):
+                gc, wc = got["prefill"]["exit_confidence"][i], want["prefill"]["exit_confidence"][i]
+                if bound is None:
+                    np.testing.assert_allclose(gc, wc, **tol, err_msg=name)
+                decided += same_argmax(got["prefill"]["exit_prediction"][i], ze)
+                decided += same_decisions(gc >= p_tar, wc, ze)
+            for level, w in want["engine"].items():  # its gate is exit 0's on the same rows
+                g = got["engine"][level]
+                assert g["payload_bytes"] == w["payload_bytes"], (name, level)
+                decided += same_decisions(g["on_device"], want["prefill"]["exit_confidence"][0],
+                                          want["prefill"]["exit_logits"][0])
+            if "dropped" in want:
+                assert got["dropped"] == want["dropped"], (name, got["dropped"], want["dropped"])
+        return worst, decided
+
+    counts = {}
+    for p in reps:
+        for k, v in p["launches"].items():
+            counts[k] = counts.get(k, 0) + v
+
+    def shares(r):
+        out = []
+        for k in ("prefill_share", "decode_share"):
+            if k in r:
+                s = r[k]
+                out.append(f"{k.split('_')[0]}: {s['n']} all-reduces of {s['gb']:.3f} GB, "
+                           f"{s['ar_ms']:.2f} of {s['ms']:.2f} ms ({s['ar_ms'] / s['ms']:.1%})")
+        return "; ".join(out)
+
+    def engine_line(r):
+        return ", ".join(f"level {lv} {e['ms']:.1f} ms (edge {e['edge_ms']:.1f}, cloud "
+                         f"{e['cloud_ms']:.1f}), {e['offloaded']} offloaded, {e['payload_bytes']} "
+                         f"payload bytes" for lv, e in r["engine"].items())
+
+    runs = spec["runs"]
+    bound = bf16_tp_bound(runs["bf16"]["cfg"].num_layers)
+    gap, n = held("bf16", bound)
+    cfg, r0, w0 = runs["bf16"]["cfg"], reps[0]["runs"]["bf16"], one["runs"]["bf16"]
+    agree = [float(np.mean(p["runs"]["bf16"]["prefill"]["exit_prediction"]
+                           == w0["prefill"]["exit_prediction"])) for p in reps]
+    say(f"a. {cfg.name} widths (d {cfg.d_model}, {cfg.num_heads} heads, kv {cfg.num_kv_heads}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}) reduced to {cfg.num_layers} layers, exits "
+        f"{cfg.exit_layers}, bf16, {r0['scalars']} scalars a rank of {w0['scalars']}: prefill "
+        f"{runs['bf16']['serve'][0]} x {runs['bf16']['serve'][1]}, {len(r0['decode'])} decode "
+        f"steps from its caches, lm_engine at levels {tuple(r0['engine'])}: every rank within "
+        f"rel {gap:.3g} "
+        f"of one rank (the derived bound (2L + 2) 2u = {bound:.4g}); {n} predictions and "
+        f"decisions equal where one rank's margins clear the bound, exit predictions equal "
+        f"on {min(agree):.0%} of rows (not held); payload_bytes equal; prefill ms one rank "
+        f"{ms3(w0['ms'])}, rank 0 {ms3(r0['ms'])} ({flops['bf16']:.4g} FLOPs, "
+        f"{flops['bf16'] / (min(r0['ms']) * 1e-3) / 1e12:.1f} TFLOP/s over the {world} ranks); "
+        f"decode ms a token one rank {ms3(w0['decode_ms'])}, rank 0 {ms3(r0['decode_ms'])}; "
+        f"{shares(r0)}; lm_engine one rank {engine_line(w0)}; rank 0 {engine_line(r0)}; peak "
+        f"per rank {[gb(p['runs']['bf16']['peak']) for p in reps]} (one rank {gb(w0['peak'])})",
+        timed=True)
+    gap, n = held("f32")
+    cfg, r0 = runs["f32"]["cfg"], reps[0]["runs"]["f32"]
+    say(f"b. float32 twin ({cfg.num_layers} layers, exits {cfg.exit_layers}, "
+        f"{runs['f32']['serve'][0]} x {runs['f32']['serve'][1]}, {len(r0['decode'])} decode "
+        f"steps): every rank within rel {gap:.3g} (rtol / atol 2e-4), {n} predictions and "
+        f"decisions equal where one rank's margins clear the tolerance; prefill ms "
+        f"{ms3(r0['ms'])} against {ms3(one['runs']['f32']['ms'])}", timed=True)
+    gap, n = held("moe")
+    cfg, r0 = runs["moe"]["cfg"], reps[0]["runs"]["moe"]
+    assert sum(r0["dropped"]) > 0, "no token dropped: the MoE check needs drops"
+    say(f"c. {cfg.name} widths ({cfg.moe_num_experts} experts top-{cfg.moe_top_k}, "
+        f"{cfg.moe_num_experts // world} a rank) reduced to {cfg.num_layers} layers, capacity "
+        f"factor {cfg.moe_capacity_factor}, float32, prefill {runs['moe']['serve'][0]} x "
+        f"{runs['moe']['serve'][1]}: dropped (token, slot) pairs per layer {r0['dropped']} on "
+        f"every rank, as on one; logits within rel {gap:.3g} (rtol / atol 2e-4); ms "
+        f"{ms3(r0['ms'])} against {ms3(one['runs']['moe']['ms'])}; {shares(r0)}", timed=True)
+    if "uncut" in runs:
+        cfg, r0 = runs["uncut"]["cfg"], reps[0]["runs"]["uncut"]
+        b, s = runs["uncut"]["serve"]
+        for p in reps:
+            u = p["runs"]["uncut"]
+            assert u["scalars"] * world >= cfg.param_count(), (u["scalars"], cfg.param_count())
+            assert all(np.isfinite(d["logits"]).all() for d in u["decode"])
+        flops, best = flops["uncut"], min(r0["ms"])
+        say(f"d. {cfg.name} uncut ({cfg.num_layers} layers, param_count {cfg.param_count()}), "
+            f"bf16 through the sharded init in {r0['init_ms'] / 1e3:.1f} s: "
+            f"{[p['runs']['uncut']['scalars'] for p in reps]} scalars a rank, peak "
+            f"{[gb(p['runs']['uncut']['peak']) for p in reps]}; prefill "
+            f"{b} x {s} ms {ms3(r0['ms'])} "
+            f"({flops:.4g} FLOPs: {flops / (best * 1e-3) / 1e12:.1f} TFLOP/s, "
+            f"{flops / (best * 1e-3) / (world * BF16_FLOP_PER_S):.1%} of {world} x 989 TFLOP/s); "
+            f"{len(r0['decode'])} tokens from a {s + len(r0['decode']) + 1}-slot cache filled by "
+            f"the prefill, ms a token {ms3(r0['decode_ms'])}; the last "
+            f"token's logits against a prefill over the same tokens: rel {r0['resume_gap']:.3g}"
+            f" of max|z|, argmax equal on {r0['resume_argmax']:.0%} of rows; {shares(r0)}; "
+            f"lm_engine {engine_line(r0)}", timed=True)
+    say("launches per rank (K1, K3, K4): " + "; ".join(
+        f"rank {p['rank']} {tuple(p['launches'].values())}" for p in reps))
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -3640,6 +4156,10 @@ def main() -> int:
         say=say), in_ranks=True)
 
     # ---------------------------------------------------------------- 15
+    run_phase("tp", lambda say: tp_phase(cuda, tp_spec(), os.path.join(ckpt_dir, "tp"),
+                                         say=say), in_ranks=True)
+
+    # ---------------------------------------------------------------- 16
     launches = {n: sum(c[n] for c in phase_launches.values()) for n in kernels}
     table = []
     for n in kernels:
@@ -3660,4 +4180,6 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--ranks":
         sys.exit(rank_main(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--tp":
+        sys.exit(tp_rank_main(sys.argv[2]))
     sys.exit(main())

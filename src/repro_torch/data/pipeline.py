@@ -82,10 +82,18 @@ class Shard(dict):
 
 def data_rows(rows: int, mesh) -> Tuple[int, int]:
     """[lo, hi): this rank's rows of a global batch of `rows` under `mesh`
-    (its data axis; None or one rank: all of them). All of them too when
-    the ranks do not divide `rows`."""
-    w = 1 if mesh is None else mesh.axis_size("data")
-    r = None if mesh is None else mesh.coordinate("data")
+    (its data axes, pod then data, row-major, as `sharding.data_split`
+    reads them; a mesh that names no axes has a data axis only; None or
+    one rank: all of them). All of them too when the ranks do not divide
+    `rows`."""
+    if mesh is None:
+        return 0, rows
+    w, r = 1, 0
+    for a in ("pod", "data"):
+        if a in getattr(mesh, "axis_names", ("data",)):
+            c = mesh.coordinate(a)
+            r = None if r is None or c is None else r * mesh.axis_size(a) + c
+            w *= mesh.axis_size(a)
     if w == 1 or r is None or rows % w:
         return 0, rows
     n = rows // w

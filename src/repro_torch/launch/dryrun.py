@@ -25,8 +25,19 @@ made from `models.registry`'s meta specs. Each record holds:
     is held to the H100 SXM's 80 GB). A pair that does not fit is a
     result, not a failure.
 
-There is no HLO and no collective on one card: ``collective_bytes`` and
-``collective_counts`` are empty.
+On a mesh of more than one rank (``--mesh DxM`` or ``PxDxM``) the step
+is traced as rank 0 of the described mesh (`MeshSpec.as_rank`): its
+params are rank 0's `sharding.local_shards`, its batch rows and cache
+rank 0's, and every collective it issues is recorded instead of issued,
+so ``collective_bytes`` and ``collective_counts`` hold the step's
+collective schedule and ``flops``, ``bytes_accessed`` and the memory are
+one card's, as the reference's are one device's (``traced_as``:
+``"rank 0"``). A train pair on a model axis above one rank (the
+tensor-parallel train step is not ported) and a family that does not
+run tensor-parallel (mamba, the hybrids, whisper) on one are traced as
+the whole step on one card instead (``traced_as``: ``"one card"``),
+their collectives ``null`` with the reason in ``collectives_note``. On
+one card (``1x1``) the step issues no collective and both are empty.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-8b --shape train_4k
@@ -47,11 +58,11 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch import sharding
 from repro_torch._device import resolve_device
-from repro_torch.configs import INPUT_SHAPES, get_config, list_archs
+from repro_torch.configs import INPUT_SHAPES, get_config, get_smoke, list_archs
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.launch import hlo_cost
 from repro_torch.launch.mesh import MeshSpec, make_debug_mesh
-from repro_torch.launch.serve import make_prefill_step, make_serve_step
+from repro_torch.launch.serve import check_mesh, make_prefill_step, make_serve_step
 from repro_torch.models import registry
 from repro_torch.training import optim
 from repro_torch.training.loop import make_train_step
@@ -123,52 +134,85 @@ def _per_card(tree, specs, mesh) -> int:
     return sum(sharding.shard_bytes(t, s, mesh) for t, s in zip(leaves, spec_leaves))
 
 
-def build_step(cfg: ModelConfig, shape: ShapeConfig, device, remat: bool = True):
+def build_step(cfg: ModelConfig, shape: ShapeConfig, device, remat: bool = True, mesh=None):
     """The step `shape` exercises, its arguments and the state it holds
     ({part: tree}), made on `device` (a train step checkpoints its layers
-    unless `remat` is off). Call it under a FakeTensorMode."""
-    params = _fake(registry.param_specs_shapes(cfg), device)
+    unless `remat` is off). With `mesh` (a rank of a described mesh,
+    `MeshSpec.as_rank`) the params and caches are that rank's and the
+    step runs over the mesh; the batch stays global, as every rank is
+    handed it. Call it under a FakeTensorMode."""
+    whole = registry.param_specs_shapes(cfg)
+    if mesh is not None:
+        whole = sharding.local_shards(whole, sharding.param_specs(whole, mesh), mesh)
+    params = _fake(whole, device)
     batch = _fake(registry.input_specs(cfg, shape), device)
     if shape.kind == "train":
-        step = make_train_step(cfg, optim.AdamWConfig(), remat=remat, device=device, inplace=True)
+        step = make_train_step(cfg, optim.AdamWConfig(), remat=remat, device=device, inplace=True,
+                               mesh=mesh)
         opt_state = optim.init(params)
         return step, (params, opt_state, batch), {"params": params, "opt_state": opt_state,
                                                   "batch": batch}
     if shape.kind == "prefill":
-        return make_prefill_step(cfg, device=device), (params, batch), {"params": params,
-                                                                         "batch": batch}
-    caches = registry.init_cache(cfg, shape.global_batch, shape.seq_len, device=device)
-    return (make_serve_step(cfg, device=device),
+        return (make_prefill_step(cfg, device=device, mesh=mesh), (params, batch),
+                {"params": params, "batch": batch})
+    caches = registry.init_cache(cfg, shape.global_batch, shape.seq_len, device=device,
+                                 mesh=mesh)
+    return (make_serve_step(cfg, device=device, mesh=mesh),
             (params, batch["token"], caches, shape.seq_len - 1),
             {"params": params, "cache": caches, "batch": batch})
 
 
+def untraceable(cfg: ModelConfig, shape: ShapeConfig, mesh: MeshSpec):
+    """Why a pair's step cannot be traced as a rank of `mesh` (None when
+    it can)."""
+    if sharding.model_size(mesh) == 1:
+        return None
+    if shape.kind == "train":
+        return ("the tensor-parallel train step is not ported: a train step over a model "
+                "axis above one rank cannot be traced yet")
+    try:
+        check_mesh(cfg, mesh)
+    except NotImplementedError as e:
+        return str(e)
+    return None
+
+
 def run_one(arch: str, shape_name: str, outdir: str = os.path.join("build", "dryrun"),
-            mesh: str = "1x1", zero1: bool = False, variant: str = "baseline", device=None):
+            mesh: str = "1x1", zero1: bool = False, variant: str = "baseline", device=None,
+            smoke: bool = False):
     """Trace and cost one (arch, shape) pair on `device` (``cuda`` unless
     named; raises without a GPU), write its JSON record under `outdir`
-    (None writes nothing) and return it."""
+    (None writes nothing) and return it. `smoke` takes the arch's smoke
+    config (`configs.get_smoke`) in place of the published one."""
     dev = _device(device)
     mesh_spec = parse_mesh(mesh)
     shape = INPUT_SHAPES[shape_name]
-    cfg = shape_adapted_config(get_config(arch), shape).replace(**VARIANTS[variant])
+    cfg = shape_adapted_config((get_smoke if smoke else get_config)(arch), shape).replace(
+        **VARIANTS[variant])
+    note = untraceable(cfg, shape, mesh_spec)
+    rank = mesh_spec.as_rank() if mesh_spec.size > 1 and note is None else None
     t0 = time.perf_counter()
     with FakeTensorMode(allow_fallback_kernels=False):
-        step, args, parts = build_step(cfg, shape, dev)
+        step, args, parts = build_step(cfg, shape, dev, mesh=rank)
         cost = hlo_cost.analyze(step, *args)
+        # the whole state's shapes, which the described mesh's specs lay out
+        whole = parts if rank is None else build_step(cfg, shape, dev)[2]
     trace_s = time.perf_counter() - t0
+    if note is not None:
+        cost = dict(cost, collective_bytes=None, collective_counts=None)
 
-    # specs over the described mesh, from the traced parts' shapes
-    pspecs = sharding.param_specs(parts["params"], mesh_spec)
-    specs = {"params": pspecs, "batch": sharding.batch_specs_tree(parts["batch"], mesh_spec)}
-    if "opt_state" in parts:
+    # specs over the described mesh, from the whole parts' shapes
+    pspecs = sharding.param_specs(whole["params"], mesh_spec)
+    specs = {"params": pspecs, "batch": sharding.batch_specs_tree(whole["batch"], mesh_spec)}
+    if "opt_state" in whole:
         dp = sharding.dp_axes(mesh_spec)
-        ospecs = optim.state_specs(pspecs, zero1=zero1, dp_axes=dp, param_shapes=parts["params"],
+        ospecs = optim.state_specs(pspecs, zero1=zero1, dp_axes=dp, param_shapes=whole["params"],
                                    dp_size=sharding.axis_size(dp or None, mesh_spec))
         specs["opt_state"] = [ospecs.step, ospecs.mu, ospecs.nu]
+        whole = dict(whole, opt_state=list(whole["opt_state"]))
         parts = dict(parts, opt_state=list(parts["opt_state"]))
-    if "cache" in parts:
-        specs["cache"] = sharding.cache_specs_tree(parts["cache"], mesh_spec,
+    if "cache" in whole:
+        specs["cache"] = sharding.cache_specs_tree(whole["cache"], mesh_spec,
                                                    batch_sharded=shape.global_batch > 1)
     if dev.type == "cuda":
         device_name = torch.cuda.get_device_name(dev)
@@ -186,17 +230,19 @@ def run_one(arch: str, shape_name: str, outdir: str = os.path.join("build", "dry
         "mesh_axes": list(mesh_spec.axis_names),
         "chips": mesh_spec.size,
         "ok": True,
+        "traced_as": "one card" if rank is None else "rank 0",
         "trace_s": round(trace_s, 3),
         "device": device_name,
         "flops": cost["flops"],
         "bytes_accessed": cost["bytes"],
         "collective_bytes": cost["collective_bytes"],
         "collective_counts": cost["collective_counts"],
+        **({} if note is None else {"collectives_note": note}),
         "roofline_s": {"compute": cost["flops"] / H100_BF16_FLOP_PER_S,
                        "memory": cost["bytes"] / H100_HBM_BYTES_PER_S},
         "memory": memory,
         "peak_tracker": "repro_torch.launch.hlo_cost.LiveBytes",
-        "per_card_bytes": {k: _per_card(parts[k], specs[k], mesh_spec) for k in specs},
+        "per_card_bytes": {k: _per_card(whole[k], specs[k], mesh_spec) for k in specs},
         "card_bytes": card_bytes,
         "fits_one_card": cost["peak_bytes"] <= card_bytes,
         "model_params": cfg.param_count(),
@@ -204,11 +250,12 @@ def run_one(arch: str, shape_name: str, outdir: str = os.path.join("build", "dry
         "sliding_window": cfg.sliding_window,
         "zero1": zero1,
         "variant": variant,
+        "smoke": smoke,
     }
     if outdir is not None:
         os.makedirs(outdir, exist_ok=True)
-        sfx = "" if variant == "baseline" and not zero1 else (
-            f"__{variant}" + ("_zero1" if zero1 else ""))
+        sfx = ("" if variant == "baseline" and not zero1 else (
+            f"__{variant}" + ("_zero1" if zero1 else ""))) + ("__smoke" if smoke else "")
         with open(os.path.join(outdir, f"{arch}__{shape_name}__{mesh_spec.name}{sfx}.json"),
                   "w") as f:
             json.dump(result, f, indent=1)

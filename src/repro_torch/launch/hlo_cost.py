@@ -22,8 +22,13 @@ storage, no kernel launched) and costs what ran:
   peak_bytes  the most bytes of tensor storage alive at once during the
          call, inputs included (`LiveBytes`).
 
-Collectives: none, since one card runs the step, so `collective_bytes`
-and `collective_counts` are empty.
+  collective_bytes, collective_counts  per kind (the reference's
+         `COLLECTIVES` names), the operand bytes and the count of every
+         collective the step issues (`launch.mesh.record_collectives`):
+         what it launches, so `launch.mesh.gather_blocks` is an
+         ``all-reduce`` of its W-block buffer. Empty for a step on one card.
+         Traced as one rank of a described mesh (`MeshSpec.as_rank`) the
+         step issues nothing and each collective is only recorded.
 """
 from __future__ import annotations
 
@@ -34,6 +39,14 @@ import torch.utils._pytree as pytree
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode
 from torch.utils.weak import WeakIdKeyDictionary
+
+from repro_torch.launch.mesh import record_collectives
+
+# the reference's collective kinds (repro.launch.hlo_cost.COLLECTIVES)
+COLLECTIVES = (
+    "all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+    "collective-permute",
+)
 
 
 # ops that return a view of their input in all but the schema's name
@@ -104,11 +117,15 @@ def analyze(step, *args, **kwargs):
     The tensors in `args` should be fake (made under a `FakeTensorMode`
     that is active around this call), so that nothing is allocated and no
     kernel runs. Returns the reference's keys (``flops``, ``bytes``,
-    ``collective_bytes``, ``collective_counts``) and ``peak_bytes``.
+    ``collective_bytes``, ``collective_counts``) and ``peak_bytes``, all
+    of one rank when the step runs over a mesh.
     """
     live = LiveBytes()
     live.track((args, kwargs))
-    with FlopCounterMode(display=False) as flops, OpBytes() as moved, live:
+    with record_collectives() as log, FlopCounterMode(display=False) as flops, \
+            OpBytes() as moved, live:
         step(*args, **kwargs)
+    assert set(log.counts) <= set(COLLECTIVES), dict(log.counts)
     return {"flops": int(flops.get_total_flops()), "bytes": int(moved.bytes),
-            "collective_bytes": {}, "collective_counts": {}, "peak_bytes": int(live.peak)}
+            "collective_bytes": dict(log.bytes), "collective_counts": dict(log.counts),
+            "peak_bytes": int(live.peak)}

@@ -12,19 +12,32 @@ one card of such a mesh would hold. The production meshes stay
 described: 256 or 512 ranks are not on one machine.
 
 `join_ranks` makes a mesh real: one process per rank, as
-``python -m torch.distributed.run --nproc-per-node W`` starts them, each
-holding a full replica. It returns a (data=W, model=1) `MeshSpec` bound
-to the process group (a `torch.distributed.device_mesh.DeviceMesh`) and
-to the rank's device; `sharding.fleet_mesh` binds a 1-D ``"cells"`` mesh
-the same way. The collectives below are the only ones the port issues.
-They are all-reduces, the one collective that both NCCL and gloo take on
-CUDA tensors, so the same code runs on either backend.
+``python -m torch.distributed.run --nproc-per-node W`` starts them. It
+returns a (data=W/M, model=M) `MeshSpec` bound to the process group (a
+`torch.distributed.device_mesh.DeviceMesh`) and to the rank's device:
+ranks r and r' share a model group when r // M == r' // M, and the
+model group holds the ranks that split one replica's parameters
+(`sharding.local_shards`); with M = 1 every rank is a full replica.
+`sharding.fleet_mesh` binds a 1-D ``"cells"`` mesh the same way.
+
+The collectives below are the only ones the port issues. They are
+all-reduces, the one collective that both NCCL and gloo take on CUDA
+tensors, so the same code runs on either backend. While
+`record_collectives` is open each one is also logged (its kind, the
+bytes of its operand, a count, and with ``timed`` its seconds on the
+host clock between two device syncs). A described mesh traced as one of
+its ranks (`MeshSpec.as_rank`, the dry run's) has no process group: its
+collectives are logged and not issued, so a step of a 256-rank mesh can
+be traced in one process.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import os
-from dataclasses import dataclass, field
+import time
+from collections import defaultdict
+from dataclasses import dataclass, field, replace
 from typing import Any, Optional, Tuple
 
 import torch
@@ -36,12 +49,14 @@ from repro_torch._device import rank_device
 class MeshSpec:
     """A mesh's axis names and sizes, in order; with `device_mesh` (and
     `device`, this rank's) it is bound to a process group, else it is
-    only described."""
+    only described. A described mesh with `rank_coords` stands for that
+    rank of it, without a process group (`as_rank`)."""
 
     axis_names: Tuple[str, ...]
     shape: Tuple[int, ...]
     device_mesh: Any = field(default=None, compare=False, repr=False)
     device: Optional[torch.device] = field(default=None, compare=False)
+    rank_coords: Optional[Tuple[int, ...]] = field(default=None, compare=False)
 
     def __post_init__(self):
         if len(self.axis_names) != len(self.shape) or min(self.shape, default=1) < 1:
@@ -67,11 +82,24 @@ class MeshSpec:
 
     def coordinate(self, axis: str) -> Optional[int]:
         """This rank's index along `axis`: None when the mesh is only
-        described or does not hold this rank."""
+        described (and stands for no rank) or does not hold this rank."""
         if self.device_mesh is None:
-            return None
+            return None if self.rank_coords is None else self.rank_coords[
+                self.axis_names.index(axis)]
         coord = self.device_mesh.get_coordinate()
         return None if coord is None else coord[self.axis_names.index(axis)]
+
+    def as_rank(self, coords=None) -> "MeshSpec":
+        """This described mesh standing for the rank at `coords` (all 0 by
+        default): its coordinates are known, it has no process group, and
+        its collectives only run under `record_collectives`."""
+        if self.device_mesh is not None:
+            raise ValueError("as_rank describes a rank of a described mesh, not of a bound one")
+        coords = tuple(coords) if coords is not None else (0,) * len(self.shape)
+        if len(coords) != len(self.shape) or not all(0 <= c < n for c, n in
+                                                     zip(coords, self.shape)):
+            raise ValueError(f"coordinates {coords} are not a rank of {self.shape}")
+        return replace(self, rank_coords=coords)
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> MeshSpec:
@@ -87,9 +115,10 @@ def make_debug_mesh(data: int = 1, model: int = 1) -> MeshSpec:
     return MeshSpec(("data", "model"), (data, model))
 
 
-def join_ranks(device=None) -> Tuple[MeshSpec, str]:
+def join_ranks(device=None, model: int = 1) -> Tuple[MeshSpec, str]:
     """Join the process group of a `torch.distributed.run` launch and
-    return (the (data=W, model=1) mesh bound to it, the backend).
+    return (the (data=W/model, model) mesh bound to it, the backend).
+    ValueError when `model` does not divide the W ranks.
 
     The rank's device and backend follow `_device.rank_device`: a card
     per rank with NCCL, or every rank on ``cuda:0`` with gloo when the
@@ -104,6 +133,9 @@ def join_ranks(device=None) -> Tuple[MeshSpec, str]:
         raise RuntimeError(f"join_ranks runs under `python -m torch.distributed.run`; "
                            f"the environment lacks {missing}")
     world = int(os.environ["WORLD_SIZE"])
+    model = int(model)
+    if model < 1 or world % model:
+        raise ValueError(f"a model axis of {model} does not divide {world} ranks")
     dev, backend = rank_device(device, int(os.environ["LOCAL_RANK"]),
                                int(os.environ["LOCAL_WORLD_SIZE"]))
     if dev.type == "cuda":
@@ -117,16 +149,70 @@ def join_ranks(device=None) -> Tuple[MeshSpec, str]:
                                f"needs {backend}")
     else:
         dist.init_process_group(backend)
-    dm = DeviceMesh(dev.type, torch.arange(world).reshape(world, 1),
+    shape = (world // model, model)
+    dm = DeviceMesh(dev.type, torch.arange(world).reshape(shape),
                     mesh_dim_names=("data", "model"))
-    return MeshSpec(("data", "model"), (world, 1), device_mesh=dm, device=dev), backend
+    return MeshSpec(("data", "model"), shape, device_mesh=dm, device=dev), backend
 
 
 # ---------------------------------------------------------------- collectives
+class CollectiveLog:
+    """Per collective kind (the reference's names): the operand bytes and
+    the count of the collectives issued while it is open, and with
+    `timed` the host seconds each took between two device syncs."""
+
+    def __init__(self, timed: bool = False):
+        self.timed = timed
+        self.bytes = defaultdict(int)
+        self.counts = defaultdict(int)
+        self.seconds = defaultdict(float)
+
+    def add(self, kind: str, x: torch.Tensor):
+        self.bytes[kind] += x.numel() * x.element_size()
+        self.counts[kind] += 1
+
+
+_LOG: Optional[CollectiveLog] = None
+
+
+@contextlib.contextmanager
+def record_collectives(timed: bool = False):
+    """Log every collective issued inside the block (`CollectiveLog`)."""
+    global _LOG
+    prev, _LOG = _LOG, CollectiveLog(timed)
+    try:
+        yield _LOG
+    finally:
+        _LOG = prev
+
+
+def _sync(x: torch.Tensor):
+    if x.is_cuda:
+        torch.cuda.synchronize(x.device)
+
+
 def all_sum(x: torch.Tensor, group) -> torch.Tensor:
-    """Sum `x` over the ranks of `group`, in place; returns `x`."""
+    """Sum `x` over the ranks of `group`, in place; returns `x`. A None
+    group is a described mesh's (`MeshSpec.as_rank`): the call is logged
+    and leaves `x` as it is, and outside `record_collectives` it raises,
+    since no rank would add its part."""
     import torch.distributed as dist
 
+    log = _LOG
+    if log is not None:
+        log.add("all-reduce", x)
+    if group is None:
+        if log is None:
+            raise ValueError("a collective over a described mesh (no process group) runs "
+                             "only under record_collectives")
+        return x
+    if log is not None and log.timed:
+        _sync(x)
+        t0 = time.perf_counter()
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+        _sync(x)
+        log.seconds["all-reduce"] += time.perf_counter() - t0
+        return x
     dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
     return x
 
@@ -139,3 +225,10 @@ def gather_blocks(block: torch.Tensor, index: int, n: int, group) -> torch.Tenso
     out = block.new_zeros((n,) + tuple(block.shape))
     out[index] = block
     return all_sum(out, group)
+
+
+def gather_cat(block: torch.Tensor, index: int, n: int, group, dim: int = 0) -> torch.Tensor:
+    """Every rank's `block` concatenated along `dim` in rank order (one
+    `gather_blocks`)."""
+    d = dim % block.dim()
+    return gather_blocks(block.contiguous(), index, n, group).movedim(0, d).flatten(d, d + 1)

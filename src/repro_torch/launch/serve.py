@@ -13,20 +13,40 @@ or, as a legacy shim, from a raw `temperatures` list: the plan path
 gates the calibrated float32 logits at T = 1, the shim gates the raw
 logits at T inside the kernel.
 
-The steps run on `device` (``cuda`` unless the caller passes ``"cpu"``):
-token batches (and an encoder-decoder's ``encoder_frames``) land there,
-and params that live elsewhere raise ValueError. A decode step updates
-its caches in place.
+The steps run on `device` (``cuda`` unless the caller passes ``"cpu"``,
+or the bound mesh's device): token batches (and an encoder-decoder's
+``encoder_frames``) land there, and params that live elsewhere raise
+ValueError. A decode step updates its caches in place.
+
+Over a (data, model) mesh of ranks (``mesh=``, `launch.mesh.join_ranks`;
+params from `init_params(mesh=)` or `params_from_jax(mesh=)`, caches from
+`registry.init_cache(mesh=)`): every rank of a step is called with the
+same global batch and keeps its rows (`data.pipeline.shard_batch`, where the
+data axis divides them, as `sharding.batch_specs_tree` lays them out;
+the MoE blocks then run under `moe.data_parallel`, one device's
+capacity on the global batch). The model runs under `sharding.use_mesh`
+(its heads, ``d_ff``, experts and vocab split over the model axis), each
+exit's gate (one K1) runs on the rank's rows of whole-vocab exit logits,
+and the outputs are gathered over the data axis at the step's end, so
+every rank returns what one device returns, but for the decode step's
+``logits``, which stay this rank's vocab shard (the next token is the
+global argmax, `transformer.vocab_argmax`). Only the attention families
+run over a model axis above one rank.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
+from repro_torch import sharding
 from repro_torch._device import as_tensor, require_device, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.exits import gate_statistics
 from repro_torch.core.policy import OffloadPlan
-from repro_torch.models import registry
+from repro_torch.data.pipeline import shard_batch
+from repro_torch.launch.mesh import gather_cat
+from repro_torch.models import moe, registry, transformer
 
 
 def _make_exit_gater(cfg: ModelConfig, plan, temperatures):
@@ -68,21 +88,69 @@ def _stack_gates(gates, b, device):
     return torch.stack([g[0] for g in gates]), torch.stack([g[1] for g in gates])
 
 
+def check_mesh(cfg: ModelConfig, mesh) -> None:
+    """Raise NotImplementedError when `cfg` cannot run over `mesh`'s model
+    axis: only the attention families (attention in every layer, no
+    encoder) run tensor-parallel."""
+    if sharding.model_size(mesh) == 1:
+        return
+    if cfg.is_encoder_decoder or {m for m, _ in cfg.layer_plan()} != {"attn"}:
+        raise NotImplementedError(
+            f"{cfg.name} over a model axis of {mesh.axis_size('model')} ranks: only the "
+            "attention families run tensor-parallel (mamba, the hybrids and whisper wait "
+            "for their own slice)")
+
+
+def mesh_device(mesh, device):
+    """The steps' device: `device` if named, else a bound mesh's, else
+    `resolve_device`'s."""
+    if device is None and mesh is not None and mesh.device is not None:
+        device = mesh.device
+    return resolve_device(device)
+
+
+@contextlib.contextmanager
+def mesh_scope(mesh, sharded: bool):
+    """Run the models under `mesh` (`sharding.use_mesh`), and the MoE
+    blocks over the data axis when the rows are `sharded` over it."""
+    with sharding.use_mesh(mesh), contextlib.ExitStack() as stack:
+        if sharded:
+            group, index, n = sharding.data_split(mesh)
+            stack.enter_context(moe.data_parallel(group, index, n))
+        yield
+
+
+def rows_of(batch: dict, mesh):
+    """(this rank's rows of a global batch as a dict, whether the ranks
+    of the data axis hold different rows, a function that gathers a
+    tensor's rows (along `dim`) over the data axis when they do)."""
+    sh = None if mesh is None else shard_batch(batch, mesh)
+    if sh is None or not sh.sharded:
+        return batch, False, lambda x, dim=0: x
+    group, index, n = sharding.data_split(mesh)
+    return dict(sh), True, lambda x, dim=0: gather_cat(x, index, n, group, dim)
+
+
 def make_prefill_step(cfg: ModelConfig, plan: OffloadPlan = None,
-                      temperatures=None, device=None):
+                      temperatures=None, device=None, mesh=None):
+    """Prefill + fused exit gates. (params, batch) -> {logits (b, 1, V),
+    exit_confidence, exit_prediction (n_exits, b), caches}; over `mesh`
+    the caches are this rank's (its rows and kv heads)."""
     gater = _make_exit_gater(cfg, plan, temperatures)
-    device = resolve_device(device)
+    device = mesh_device(mesh, device)
+    check_mesh(cfg, mesh)
 
     def prefill_step(params, batch):
         require_device(params["embed"]["w"].device, device, "the params")
         batch = {k: as_tensor(v, device).to(device) for k, v in batch.items()}
-        tokens = batch["tokens"]
-        with torch.no_grad():
-            out = registry.forward_prefill(params, cfg, batch)
+        local, sharded, gather = rows_of(batch, mesh)
+        with torch.no_grad(), mesh_scope(mesh, sharded):
+            out = registry.forward_prefill(params, cfg, local)
             conf, pred = _stack_gates(gater([l[:, 0, :] for l in out["exit_logits"]]),
-                                      tokens.shape[0], device)
+                                      local["tokens"].shape[0], device)
+            logits, conf, pred = gather(out["logits"]), gather(conf, 1), gather(pred, 1)
         return {
-            "logits": out["logits"],
+            "logits": logits,
             "exit_confidence": conf,
             "exit_prediction": pred,
             "caches": out["caches"],
@@ -92,21 +160,27 @@ def make_prefill_step(cfg: ModelConfig, plan: OffloadPlan = None,
 
 
 def make_serve_step(cfg: ModelConfig, plan: OffloadPlan = None,
-                    temperatures=None, device=None):
+                    temperatures=None, device=None, mesh=None):
     """One decode token + fused exit gates. (params, token, caches, pos) ->
-    ({token, logits, exit_confidence, exit_prediction}, caches)."""
+    ({token, logits, exit_confidence, exit_prediction}, caches); over
+    `mesh` the caches are this rank's and ``logits`` (b, V / model) is
+    this rank's vocab shard."""
     gater = _make_exit_gater(cfg, plan, temperatures)
-    device = resolve_device(device)
+    device = mesh_device(mesh, device)
+    check_mesh(cfg, mesh)
 
     def serve_step(params, token, caches, pos):
         require_device(params["embed"]["w"].device, device, "the params")
         token = as_tensor(token, device).to(device)
-        with torch.no_grad():
-            out, caches = registry.decode_step(params, cfg, token, caches, pos)
+        local, sharded, gather = rows_of({"token": token}, mesh)
+        with torch.no_grad(), mesh_scope(mesh, sharded):
+            out, caches = registry.decode_step(params, cfg, local["token"], caches, pos)
             logits = out["logits"][:, 0, :]
             conf, pred = _stack_gates(gater([l[:, 0, :] for l in out["exit_logits"]]),
-                                      token.shape[0], device)
-            next_token = torch.argmax(logits.to(torch.float32), dim=-1).to(torch.int32)
+                                      local["token"].shape[0], device)
+            next_token = transformer.vocab_argmax(logits, cfg).to(torch.int32)
+            next_token, logits = gather(next_token), gather(logits)
+            conf, pred = gather(conf, 1), gather(pred, 1)
         return (
             {
                 "token": next_token,

@@ -18,6 +18,15 @@ used again as the state before that step. With a sliding window the
 cache is a ring buffer of min(seq_len, window) slots; without one,
 decoding past the cache's length raises `ValueError` (the reference's
 `dynamic_update_slice` would clamp the slot and overwrite the last one).
+
+Under a model axis (`sharding.use_mesh`) each rank holds its block of
+the q heads and, where the axis divides them, of the kv heads (their
+biases cut the same way, its cache holding only those): it projects and
+attends over its own heads, and ``wo`` is row-parallel
+(`layers.row_parallel`'s reduction). Global q head h reads kv head
+h // (qh / kvh); where the kv heads are whole (8 kv heads over 16
+ranks) the rank projects and caches all of them and attends with the
+ones its q heads read (`_rank_kv`).
 """
 from __future__ import annotations
 
@@ -28,9 +37,12 @@ from repro_torch.models.layers import (
     cdtype,
     einsum,
     normal,
+    partial_product,
     promote,
+    reduce_partial,
     rms_norm_headwise,
     rope_freqs,
+    split_width,
 )
 
 NEG_INF = -1e30
@@ -81,6 +93,37 @@ def _project_qkv(p, cfg, x, positions, rope=True):
     return q, k, v
 
 
+def _rank_kv(cfg, q, k, v):
+    """The kv heads this rank's q heads read, grouped as `_gqa_scores`
+    groups them: k/v as they are unless the q heads are split over the
+    model axis and the kv heads are whole. Then local q head j (global
+    h = index * qh_loc + j) reads kv head h // g: a contiguous run of kv
+    heads when each serves the same count of local q heads, else one kv
+    head per q head."""
+    qh_loc, kvh = q.shape[2], cfg.num_kv_heads
+    split = split_width(qh_loc, cfg.num_heads)
+    if split is None or k.shape[2] != kvh:
+        return k, v
+    g = cfg.num_heads // kvh
+    heads = [(split[1] * qh_loc + j) // g for j in range(qh_loc)]
+    lo, n = heads[0], heads[-1] - heads[0] + 1
+    if qh_loc % n == 0 and heads == [lo + j // (qh_loc // n) for j in range(qh_loc)]:
+        return k.narrow(2, lo, n), v.narrow(2, lo, n)
+    idx = torch.tensor(heads, device=k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _out_proj(p, cfg, o):
+    """o (b, s, qh, hd) through ``wo`` -> (b, s, d); row-parallel over the
+    model axis when ``wo``'s heads are split."""
+    wo = p["wo"]
+    split = split_width(wo.shape[0], cfg.num_heads)
+    if split is None:
+        return einsum("bshk,hkd->bsd", o, wo)
+    y = partial_product(o.reshape(o.shape[:2] + (-1,)), wo.reshape(-1, wo.shape[-1]))
+    return reduce_partial(y, split, torch.promote_types(o.dtype, wo.dtype))
+
+
 def _gqa_scores(q, k):
     """q: (b,sq,qh,hd) k: (b,sk,kvh,hd) -> (b,kvh,g,sq,sk) fp32."""
     b, sq, qh, hd = q.shape
@@ -117,22 +160,22 @@ def attention_prefill(p, cfg, x, positions, q_chunk=1024, memory=None):
         k = einsum("bsd,dhk->bshk", memory, p["wk"])
         v = einsum("bsd,dhk->bshk", memory, p["wv"])
         o = _softmax_out(_gqa_scores(q, k), v)
-        return einsum("bshk,hkd->bsd", o, p["wo"]), {"k": k, "v": v}
+        return _out_proj(p, cfg, o), {"k": k, "v": v}
 
     q, k, v = _project_qkv(p, cfg, x, positions)
+    ka, va = _rank_kv(cfg, q, k, v)
 
     q_chunk = min(q_chunk, s)
     n_chunks = s // q_chunk if s % q_chunk == 0 else 0
     if n_chunks <= 1:
-        out = _attend_block(cfg, q, k, v, positions, positions)
+        out = _attend_block(cfg, q, ka, va, positions, positions)
     else:
         out = torch.cat([
-            _attend_block(cfg, q[:, c:c + q_chunk], k, v, positions[:, c:c + q_chunk],
+            _attend_block(cfg, q[:, c:c + q_chunk], ka, va, positions[:, c:c + q_chunk],
                           positions)
             for c in range(0, s, q_chunk)
         ], dim=1)
-    proj = einsum("bshk,hkd->bsd", out, p["wo"])
-    return proj, {"k": k, "v": v}
+    return _out_proj(p, cfg, out), {"k": k, "v": v}
 
 
 def _attend_block(cfg, q, k, v, q_pos, k_pos):
@@ -147,7 +190,9 @@ def _attend_block(cfg, q, k, v, q_pos, k_pos):
 
 # --------------------------------------------------------------------- decode
 def init_kv_cache(cfg, batch, seq_len, device):
-    """Decode cache. Sliding window => ring buffer of window size."""
+    """Decode cache (one device's; `registry.init_cache(mesh=)` cuts it
+    to a rank's batch rows and kv heads). Sliding window => ring buffer
+    of window size."""
     L = min(seq_len, cfg.sliding_window) if cfg.sliding_window else seq_len
     shape = (batch, L, cfg.num_kv_heads, cfg.head_dim)
     dt = cdtype(cfg)
@@ -178,11 +223,12 @@ def _valid(cfg, pos: int, slot: int, L: int, device):
 
 def _decode_attend(p, cfg, q, ck, cv, pos, slot):
     L = ck.shape[1]
+    ck, cv = _rank_kv(cfg, q, ck, cv)
     scores = _gqa_scores(q, ck)  # (b,kvh,g,1,L)
     valid = _valid(cfg, pos, slot, L, scores.device)
     scores = scores.masked_fill(~valid[None, None, None, None, :], NEG_INF)
     o = _softmax_out(scores, cv)
-    return einsum("bshk,hkd->bsd", o, p["wo"])
+    return _out_proj(p, cfg, o)
 
 
 def attention_decode(p, cfg, x, cache, pos, memory_cache=None):
@@ -197,7 +243,7 @@ def attention_decode(p, cfg, x, cache, pos, memory_cache=None):
         if cfg.qkv_bias:
             q = _add(q, p["bq"])
         o = _softmax_out(_gqa_scores(q, memory_cache["k"]), memory_cache["v"])
-        return einsum("bshk,hkd->bsd", o, p["wo"]), cache
+        return _out_proj(p, cfg, o), cache
 
     pos = int(pos)
     positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32, device=x.device)

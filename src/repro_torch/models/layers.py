@@ -11,11 +11,26 @@ Mixed dtypes follow JAX's promotion: a product of a bf16 weight and a
 float32 activation (the cloud partition after the codec, which decodes
 to float32) runs in float32, the weight cast up for that one product
 (`matmul`, `einsum`). An activation is never cast down.
+
+Under a model axis (`sharding.use_mesh`, params from
+`sharding.local_shards`), Megatron-style: a leaf the specs split holds
+this rank's block of its split dim, and the global width in the config
+tells a split leaf from a whole one. The embedding is vocab-parallel
+(`apply_embed`: this rank's rows, zeros for the other ids, one exact
+all-reduce); the products into a split width (``w_gate``/``w_up``, the
+q/k/v heads, the unembedding's vocab) are column-parallel and need no
+collective; the products out of one (``w_down``, ``wo``) are
+row-parallel: `reduce_partial` sums each rank's float32 partial over the
+model axis and rounds once to the activation dtype, so a bf16 result
+differs from one device's only by the order of float32 sums.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.launch.mesh import all_sum
+from repro_torch.sharding import model_split
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
 
@@ -42,6 +57,48 @@ def matmul(x, w):
 def einsum(spec, *operands):
     """`torch.einsum` in the promoted dtype."""
     return torch.einsum(spec, *promote(*operands))
+
+
+# ----------------------------------------------------- tensor parallelism
+def split_width(local: int, width: int):
+    """The model split of a leaf dim whose global size is `width` and
+    this rank's is `local`: (process group, index, ranks) when the specs
+    cut it, else None (no model axis, or the dim is whole)."""
+    tp = model_split()
+    if tp is None or local == width:
+        return None
+    if local * tp[2] != width:
+        raise ValueError(f"a local width of {local} is no block of {width} over {tp[2]} ranks")
+    return tp
+
+
+def partial_product(x, w):
+    """``x @ w`` for a 2-D `w`, its sum accumulated and returned in
+    float32 (a row-parallel partial, reduced by `reduce_partial`). On the
+    card bf16 operands go through one GEMM with a float32 output;
+    elsewhere they are cast up, which is the same sum (a product of two
+    bf16 values is exact in float32)."""
+    x, w = promote(x, w)
+    if x.dtype != torch.float32 and x.is_cuda:
+        y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        return y.reshape(x.shape[:-1] + (w.shape[1],))
+    return x.to(torch.float32) @ w.to(torch.float32)
+
+
+def reduce_partial(y, split, dtype):
+    """Sum a float32 partial over the model ranks of `split` and round it
+    once to `dtype`."""
+    return all_sum(y.contiguous(), split[0]).to(dtype)
+
+
+def row_parallel(x, w, width: int):
+    """``x @ w`` where the first dim of `w` (of global size `width`) may be
+    split over the model axis: the one-device product when it is whole,
+    else the reduced float32 partials."""
+    split = split_width(w.shape[0], width)
+    if split is None:
+        return matmul(x, w)
+    return reduce_partial(partial_product(x, w), split, torch.promote_types(x.dtype, w.dtype))
 
 
 def normal(generator, shape, scale, dtype):
@@ -103,7 +160,7 @@ def apply_mlp(p, cfg, x):
         up = F.silu(matmul(x, p["w_gate"])) * up
     else:
         up = F.gelu(up, approximate="tanh")  # jax.nn.gelu's default
-    return matmul(up, p["w_down"])
+    return row_parallel(up, p["w_down"], cfg.d_ff)
 
 
 # ----------------------------------------------------------------- embeddings
@@ -111,8 +168,19 @@ def init_embed(generator, cfg):
     return {"w": normal(generator, (cfg.vocab_size, cfg.d_model), 0.02, cdtype(cfg))}
 
 
-def apply_embed(p, tokens):
-    return p["w"][tokens]
+def apply_embed(p, tokens, vocab=None):
+    """Rows of the embedding for `tokens`. With its vocab split over the
+    model axis (global size `vocab`), each rank looks up the ids in its
+    block and zeros the others, and one all-reduce adds the blocks: exact,
+    since each row is one rank's row plus zeros."""
+    split = None if vocab is None else split_width(p["w"].shape[0], vocab)
+    if split is None:
+        return p["w"][tokens]
+    n = p["w"].shape[0]
+    local = tokens - split[1] * n
+    mine = (local >= 0) & (local < n)
+    x = p["w"][torch.where(mine, local, 0)] * mine[..., None].to(p["w"].dtype)
+    return all_sum(x, split[0])
 
 
 def init_unembed(generator, cfg):

@@ -16,8 +16,19 @@ dispatch (port of `repro.models.moe`).
   (token, slot)'s output and weights it by the kept gate.
 * With ``moe_shard_capacity`` the experts are padded to a multiple of 16;
   the padded experts get -1e30 router logits (probability 0) and never
-  win. The reference's sharding constraints have no counterpart: the
-  port runs the experts on every rank's own rows.
+  win.
+
+Under a model axis (`sharding.use_mesh`, ``w_*`` cut to this rank's
+block of E/M experts by the rule ``moe/w_*`` -> ("tp", None, None)) the
+router stays replicated, so every model rank routes every token as one
+device does: the capacity, positions, drops and aux loss are one
+device's. Each rank's buffer holds only its experts, (E/M, C, d); a
+(token, slot) of another rank's expert adds zero, and the ranks' float32
+sums of their slots' contributions are added by one all-reduce over the
+model axis and rounded once (as `layers.reduce_partial`). Padded experts
+live on the last ranks only and never receive a row. Experts that the
+axis does not divide stay whole on every rank, which runs them all as
+one device.
 
 Under `data_parallel` (W ranks, each with an equal shard of the tokens,
 in rank order: the train step's data mesh) the block keeps the one-device
@@ -41,9 +52,10 @@ import contextlib
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.launch.mesh import gather_blocks
-from repro_torch.models.layers import cdtype, einsum, normal
+from repro_torch.models.layers import cdtype, einsum, normal, reduce_partial, split_width
 
 # (process group, this rank's index, ranks) while `data_parallel` is open;
 # module state, not a context variable: a checkpointed layer recomputes
@@ -102,6 +114,9 @@ def apply_moe(p, cfg, x):
     xt = x.reshape(-1, d)  # (T, d)
     T = xt.shape[0]
     E, k = n_alloc_experts(cfg), cfg.moe_top_k
+    E_loc = p["w_up"].shape[0]
+    tp = split_width(E_loc, E)
+    e0 = 0 if tp is None else tp[1] * E_loc  # this rank's first expert
     dp = _DP
     w = 1 if dp is None else dp[2]
     C = moe_capacity(cfg, T * w)
@@ -138,16 +153,21 @@ def apply_moe(p, cfg, x):
         keep = pos + below.to(pos.dtype)[eidx] < C
         # this rank keeps an expert's first min(count, C - below) slots
         kept_here = torch.minimum(counts[rank], torch.clamp(C - below, min=0))
-        c_loc = max(1, int(kept_here.max()))
+        # a fake tensor (the dry run's trace) has no values: size at the bound C
+        c_loc = (C if isinstance(kept_here, FakeTensor)
+                 else max(1, int(kept_here[e0:e0 + E_loc].max())))
     gates = gate_vals.reshape(T * k) * keep.to(torch.float32)
 
-    # ---- dispatch: scatter tokens into (E, C_loc, d) buffers (C_loc = C
-    # on one device; a kept slot's local position is below C_loc)
+    # ---- dispatch: scatter tokens into (E_loc, C_loc, d) buffers (C_loc =
+    # C on one device; a kept slot's local position is below C_loc; E_loc
+    # = E unless the experts are split over the model axis)
     if dp is None:
         c_loc = C
-    safe_pos = torch.where(keep, pos, c_loc - 1).to(torch.int64)
-    src = torch.repeat_interleave(xt, k, dim=0) * keep[:, None].to(xt.dtype)
-    buf = xt.new_zeros((E, c_loc, d)).index_put((eidx, safe_pos), src, accumulate=True)
+    mine = keep if tp is None else keep & (eidx >= e0) & (eidx < e0 + E_loc)
+    safe_pos = torch.where(mine, pos, c_loc - 1).to(torch.int64)
+    safe_e = eidx if tp is None else torch.where(mine, eidx - e0, 0)
+    src = torch.repeat_interleave(xt, k, dim=0) * mine[:, None].to(xt.dtype)
+    buf = xt.new_zeros((E_loc, c_loc, d)).index_put((safe_e, safe_pos), src, accumulate=True)
 
     # ---- expert FFN: (E, C, d) x (E, d, f) ----
     up = einsum("ecd,edf->ecf", buf, p["w_up"])
@@ -158,8 +178,13 @@ def apply_moe(p, cfg, x):
     out_buf = einsum("ecf,efd->ecd", up, p["w_down"])  # (E, C, d)
 
     # ---- combine: gather each (token, slot)'s expert output ----
-    gathered = out_buf[eidx, safe_pos]  # (T*k, d)
-    y = torch.sum((gathered * gates[:, None].to(gathered.dtype)).reshape(T, k, -1), dim=1)
+    gathered = out_buf[safe_e, safe_pos]  # (T*k, d)
+    if tp is None:
+        y = torch.sum((gathered * gates[:, None].to(gathered.dtype)).reshape(T, k, -1), dim=1)
+    else:  # this rank's slots, float32 sums reduced over the model axis
+        part = gathered * (gates * mine.to(torch.float32))[:, None].to(gathered.dtype)
+        y = reduce_partial(torch.sum(part.reshape(T, k, -1).to(torch.float32), dim=1), tp,
+                           gathered.dtype)
 
     # ---- Switch load-balance aux loss ----
     if dp is None:

@@ -17,6 +17,8 @@ import torch
 import torch.utils._pytree as pytree
 from torch._subclasses.fake_tensor import FakeTensorMode
 
+from repro_torch import sharding
+from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import convnet, transformer, whisper
 from repro_torch.models.layers import DTYPES
@@ -28,9 +30,15 @@ def _mod(cfg: ModelConfig):
     return transformer
 
 
-def init_params(generator, cfg: ModelConfig, device=None):
+def init_params(generator, cfg: ModelConfig, device=None, mesh=None):
     """Seeded params on `device` (``cuda`` by default) from `generator`
-    (on that device; None seeds a fresh one with 0)."""
+    (on that device; None seeds a fresh one with 0). With `mesh`, this
+    rank's slices (`transformer.init_params`); only the transformer stack
+    splits over a model axis above one rank."""
+    if _mod(cfg) is transformer and cfg.family != "convnet":
+        return transformer.init_params(generator, cfg, device=device, mesh=mesh)
+    if sharding.model_size(mesh) > 1:
+        raise NotImplementedError(f"{cfg.name}: no tensor-parallel init")
     if cfg.family == "convnet":
         return convnet.init_params(generator, device=device, cfg=cfg)
     return _mod(cfg).init_params(generator, cfg, device=device)
@@ -46,8 +54,16 @@ def forward_prefill(params, cfg: ModelConfig, batch):
     return _mod(cfg).forward_prefill(params, cfg, batch)
 
 
-def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device=None):
-    return _mod(cfg).init_cache(cfg, batch, seq_len, device=device)
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device=None, mesh=None):
+    """Zeroed decode caches; with `mesh`, only this rank's part of them,
+    as `sharding.cache_specs_tree` lays them out (batch rows over the data
+    axes where they divide the batch, kv heads over the model axis where
+    it divides them)."""
+    if mesh is None:
+        return _mod(cfg).init_cache(cfg, batch, seq_len, device=device)
+    whole = _mod(cfg).init_cache(cfg, batch, seq_len, device="meta")
+    return sharding.local_zeros(whole, sharding.cache_specs_tree(whole, mesh), mesh,
+                                resolve_device(device))
 
 
 def decode_step(params, cfg: ModelConfig, token, caches, pos):

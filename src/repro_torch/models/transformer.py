@@ -25,6 +25,20 @@ the layers. A stacked segment's leaves are unbound once per pass
 (`_layers`): the backward of `torch.unbind` is one stack, where a select
 per layer would materialise a zero tensor of the whole stack per layer.
 Decode updates the caches in place (see `attention` and `mamba`).
+
+Tensor parallelism: `init_params(mesh=)` and `params_from_jax(mesh=)`
+give a rank its slices (`sharding.local_shards` under `param_specs`),
+drawn layer by layer from the one-device stream, so no rank holds more
+than one layer whole; `registry.init_cache(mesh=)` allocates its batch
+rows and kv heads. Run under `sharding.use_mesh`, the attention families'
+forward passes split heads, ``d_ff``, experts and the vocabulary over
+the model axis (`layers`, `attention`, `moe`); the logits come out of
+the heads as vocab shards, as the reference constrains them ("dp",
+None, "tp"), and are gathered (`gather_vocab`) where one device's whole
+rows are needed: the exit logits before their gates, the prefill's and
+the cloud partition's final logits. Decode keeps its final logits as
+this rank's shard; `vocab_argmax` takes the global argmax from the
+shards.
 """
 from __future__ import annotations
 
@@ -35,8 +49,10 @@ import torch
 import torch.utils._pytree as pytree
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import sharding
 from repro_torch._device import as_tensor, require_device, resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.mesh import gather_blocks, gather_cat
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mb
 from repro_torch.models.layers import (
@@ -51,6 +67,7 @@ from repro_torch.models.layers import (
     init_unembed,
     matmul,
     normal,
+    split_width,
 )
 from repro_torch.models.moe import apply_moe, init_moe
 
@@ -157,50 +174,70 @@ def init_block_cache(cfg, kind, batch, seq_len, device):
 
 
 # ------------------------------------------------------------------- the model
-def _init_segment(generator, cfg, kind, n):
+def _init_segment(generator, cfg, kind, n, cut=lambda tree: tree):
     """One block's params, or n blocks' stacked (n, ...) params, filled
-    layer by layer so no more than one layer is held twice."""
-    first = init_block(generator, cfg, kind)
+    layer by layer so no more than one layer is held twice; `cut` keeps a
+    rank's slices of each layer as it is drawn."""
+    first = cut(init_block(generator, cfg, kind))
     if n == 1:
         return first
     stacked = pytree.tree_map(lambda a: a.new_empty((n,) + a.shape), first)
     for i in range(n):
-        layer = first if i == 0 else init_block(generator, cfg, kind)
+        layer = first if i == 0 else cut(init_block(generator, cfg, kind))
         pytree.tree_map(lambda dst, src: dst.copy_(src), _layer(stacked, i), layer)
     return stacked
 
 
-def init_params(generator: torch.Generator, cfg: ModelConfig, device=None):
+def _cutter(mesh):
+    """-> cut(tree): this rank's `sharding.local_shards` of a params
+    subtree under `param_specs` (its paths end as the full tree's do, so
+    the same rules match); no mesh keeps the tree whole."""
+    if mesh is None:
+        return lambda tree: tree
+    return lambda tree: sharding.local_shards(tree, sharding.param_specs(tree, mesh), mesh)
+
+
+def init_params(generator: torch.Generator, cfg: ModelConfig, device=None, mesh=None):
     """Random params with the reference's distributions, drawn from
     `generator` (on `device`, ``cuda`` by default; None seeds a fresh one
     with 0). A generator on another device raises ValueError: the params
-    are drawn where the generator lives."""
+    are drawn where the generator lives.
+
+    With `mesh` (this rank's coordinates known) each rank draws the
+    one-device stream leaf by leaf and keeps its slices under
+    `sharding.param_specs`: bit for bit its block of the one-device
+    params, never holding more than one layer whole."""
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     require_device(generator.device, device, "the generator's draws")
-    params: Dict[str, Any] = {"embed": init_embed(generator, cfg)}
+    cut = _cutter(mesh)
+    params: Dict[str, Any] = cut({"embed": init_embed(generator, cfg)})
     if cfg.max_position_embeddings:
         params["pos_embed"] = normal(generator, (cfg.max_position_embeddings, cfg.d_model),
                                      0.02, cdtype(cfg))
-    params["segments"] = [_init_segment(generator, cfg, kind, n)
+    params["segments"] = [_init_segment(generator, cfg, kind, n, cut)
                           for kind, n, _ in segment_plan(cfg)]
     params["final_norm"] = init_norm(generator, cfg)
     if not cfg.tie_embeddings:
-        params["lm_head"] = init_unembed(generator, cfg)
+        params["lm_head"] = cut({"lm_head": init_unembed(generator, cfg)})["lm_head"]
     params["exits"] = [
-        {"norm": init_norm(generator, cfg), "head": init_unembed(generator, cfg)}
+        cut({"norm": init_norm(generator, cfg), "head": init_unembed(generator, cfg)})
         for _ in cfg.exit_layers
     ]
     return params
 
 
-def params_from_jax(tree, device=None):
+def params_from_jax(tree, device=None, mesh=None):
     """Carry a reference parameter tree (nested dicts and lists of arrays)
     across as it is: bfloat16 leaves (ml_dtypes arrays in numpy) go
     through float32 to torch bfloat16, which is exact; float32 leaves stay
-    float32. Lands on `device` (``cuda`` by default)."""
+    float32. Lands on `device` (``cuda`` by default). With `mesh` only
+    this rank's slices (`sharding.local_shards`) are carried."""
     device = resolve_device(device)
+    if mesh is not None:
+        tree = pytree.tree_map(np.asarray, tree)
+        tree = sharding.local_shards(tree, sharding.param_specs(tree, mesh), mesh)
 
     def convert(node):
         if isinstance(node, dict):
@@ -221,6 +258,8 @@ def num_params(params) -> int:
 
 
 def _lm_logits(params, cfg, x):
+    """The final head's logits: this rank's vocab shard under a model axis
+    (column-parallel; the tied embedding's rows are its vocab)."""
     h = apply_norm(params["final_norm"], cfg, x)
     if cfg.tie_embeddings:
         return matmul(h, params["embed"]["w"].T)
@@ -228,8 +267,37 @@ def _lm_logits(params, cfg, x):
 
 
 def exit_logits_fn(params, cfg, i, x):
+    """Exit `i`'s logits: this rank's vocab shard under a model axis."""
     ep = params["exits"][i]
     return apply_unembed(ep["head"], apply_norm(ep["norm"], cfg, x))
+
+
+def gather_vocab(logits, cfg):
+    """Whole (..., V) rows from this rank's vocab shards (one all-reduce
+    of the ranks' blocks, exact); logits that are whole pass through."""
+    split = split_width(logits.shape[-1], cfg.vocab_size)
+    if split is None:
+        return logits
+    group, index, n = split
+    return gather_cat(logits, index, n, group, dim=-1)
+
+
+def vocab_argmax(logits, cfg):
+    """argmax over the whole vocabulary of (..., V) logits or of this
+    rank's vocab shard of them, in float32, ties to the lowest index as
+    `torch.argmax` breaks them: each shard's (max, argmax) is gathered and
+    the lowest index among the shards holding the global max wins."""
+    z = logits.to(torch.float32)
+    split = split_width(z.shape[-1], cfg.vocab_size)
+    if split is None:
+        return torch.argmax(z, dim=-1)
+    group, index, n = split
+    a = torch.argmax(z, dim=-1, keepdim=True)
+    stats = torch.cat([z.gather(-1, a).double(), (a + index * z.shape[-1]).double()], dim=-1)
+    every = gather_blocks(stats, index, n, group)  # (n, ..., 2), exact in float64
+    m, i = every[..., 0], every[..., 1]
+    best = torch.where(m == m.amax(dim=0), i, torch.inf).amin(dim=0)
+    return best.to(torch.int64)
 
 
 def _embed(params, cfg, tokens):
@@ -238,7 +306,7 @@ def _embed(params, cfg, tokens):
     dev = params["embed"]["w"].device
     tokens = as_tensor(tokens, dev).to(device=dev, dtype=torch.int64)
     b, s = tokens.shape
-    x = apply_embed(params["embed"], tokens)
+    x = apply_embed(params["embed"], tokens, cfg.vocab_size)
     positions = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s)
     if cfg.max_position_embeddings:
         x = x + params["pos_embed"][:s][None]
@@ -300,8 +368,8 @@ def forward_prefill(params, cfg: ModelConfig, batch):
     x, positions = _embed(params, cfg, batch["tokens"])
     x, exit_hiddens, _, caches = _run_segments_seq(params, cfg, x, positions, keep_cache=True)
     return {
-        "logits": _lm_logits(params, cfg, x[:, -1:, :]),
-        "exit_logits": [exit_logits_fn(params, cfg, i, h[:, -1:, :])
+        "logits": gather_vocab(_lm_logits(params, cfg, x[:, -1:, :]), cfg),
+        "exit_logits": [gather_vocab(exit_logits_fn(params, cfg, i, h[:, -1:, :]), cfg)
                         for i, h in enumerate(exit_hiddens)],
         "caches": caches,
     }
@@ -309,7 +377,8 @@ def forward_prefill(params, cfg: ModelConfig, batch):
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device=None):
     """Zeroed decode caches, one per segment (stacked (n, ...) when n > 1),
-    on `device` (``cuda`` by default)."""
+    on `device` (``cuda`` by default); `registry.init_cache(mesh=)` gives a
+    rank its part of them."""
     device = resolve_device(device)
     caches = []
     for kind, n, _ in segment_plan(cfg):
@@ -324,12 +393,13 @@ def decode_step(params, cfg: ModelConfig, token, caches, pos):
     """token: (b, 1) int; pos: int. Returns (out, caches), the caches
     updated in place.
 
-    out: {"logits": (b,1,V), "exit_logits": [(b,1,V)...]}
+    out: {"logits": (b,1,V), "exit_logits": [(b,1,V)...]}; under a model
+    axis "logits" is this rank's vocab shard (`vocab_argmax`).
     """
     dev = params["embed"]["w"].device
     token = as_tensor(token, dev).to(device=dev, dtype=torch.int64)
     pos = int(pos)
-    x = apply_embed(params["embed"], token)
+    x = apply_embed(params["embed"], token, cfg.vocab_size)
     if cfg.max_position_embeddings:
         x = x + params["pos_embed"][pos][None, None, :]
     exit_hiddens = []
@@ -345,7 +415,8 @@ def decode_step(params, cfg: ModelConfig, token, caches, pos):
         if exit_after:
             exit_hiddens.append(x)
     logits = _lm_logits(params, cfg, x)
-    ex_logits = [exit_logits_fn(params, cfg, i, h) for i, h in enumerate(exit_hiddens)]
+    ex_logits = [gather_vocab(exit_logits_fn(params, cfg, i, h), cfg)
+                 for i, h in enumerate(exit_hiddens)]
     return {"logits": logits, "exit_logits": ex_logits}, caches
 
 
@@ -365,7 +436,8 @@ def edge_forward(params, cfg: ModelConfig, batch, exit_index: int = 0):
         caches.append(cache)
         if exit_after:
             if n_exits_seen == exit_index:
-                logits = exit_logits_fn(params, cfg, n_exits_seen, x[:, -1:, :])
+                logits = gather_vocab(exit_logits_fn(params, cfg, n_exits_seen, x[:, -1:, :]),
+                                      cfg)
                 return {"exit_logits": logits, "hidden": x, "caches": caches}
             n_exits_seen += 1
     raise ValueError(f"exit_index {exit_index} not found in {cfg.name}")
@@ -387,4 +459,4 @@ def cloud_forward(params, cfg: ModelConfig, hidden, exit_index: int = 0):
             if n_exits_seen == exit_index:
                 started = True
             n_exits_seen += 1
-    return {"logits": _lm_logits(params, cfg, x[:, -1:, :])}
+    return {"logits": gather_vocab(_lm_logits(params, cfg, x[:, -1:, :]), cfg)}

@@ -30,6 +30,7 @@ import torch.utils._pytree as pytree
 from repro_torch._device import as_tensor, require_device, resolve_device, to_numpy
 from repro_torch.core.policy import OffloadPlan
 from repro_torch.kernels import compress
+from repro_torch.launch.serve import check_mesh, mesh_device, mesh_scope, rows_of
 from repro_torch.models import convnet, transformer
 
 
@@ -194,7 +195,7 @@ def convnet_engine(params, plan: OffloadPlan, branch: int = 1,
 
 
 def lm_engine(params, cfg, plan: OffloadPlan, exit_index: int = 0,
-              device=None) -> OffloadEngine:
+              device=None, mesh=None) -> OffloadEngine:
     """LM variant: classify-at-prefill; edge = blocks up to the exit.
 
     Runs on `device` (``cuda`` unless the caller passes ``"cpu"``): the
@@ -202,20 +203,30 @@ def lm_engine(params, cfg, plan: OffloadPlan, exit_index: int = 0,
     ``"tokens"`` (b, s) is moved there. At a non-zero codec level the
     cloud partition receives the payload decoded to float32 and runs in
     float32 (the reference's promotion).
+
+    Over a (data, model) `mesh` of ranks (params from `init_params(mesh=)`),
+    every rank calls `infer` on the same batch: each partition runs on the
+    rank's rows (where the data axis divides them) under the mesh, as the
+    serve steps do, and its outputs are gathered over the data axis, so
+    the gate, the payload, the codec (K1, K3, K4) and the statistics are
+    one device's on every rank: `payload_bytes` counts the payload once.
     """
-    device = resolve_device(device)
+    device = mesh_device(mesh, device)
+    check_mesh(cfg, mesh)
     require_device(params["embed"]["w"].device, device, "the params")
 
     def edge(batch):
         tokens = as_tensor(batch["tokens"], device).to(device)
-        with torch.no_grad():
-            out = transformer.edge_forward(params, cfg, {"tokens": tokens},
-                                           exit_index=exit_index)
-        return {"exit_logits": out["exit_logits"][:, 0, :], "payload": out["hidden"]}
+        local, sharded, gather = rows_of({"tokens": tokens}, mesh)
+        with torch.no_grad(), mesh_scope(mesh, sharded):
+            out = transformer.edge_forward(params, cfg, local, exit_index=exit_index)
+            return {"exit_logits": gather(out["exit_logits"][:, 0, :]),
+                    "payload": gather(out["hidden"])}
 
     def cloud(hidden):
-        with torch.no_grad():
-            out = transformer.cloud_forward(params, cfg, hidden, exit_index=exit_index)
-        return {"logits": out["logits"][:, 0, :]}
+        local, sharded, gather = rows_of({"hidden": hidden}, mesh)
+        with torch.no_grad(), mesh_scope(mesh, sharded):
+            out = transformer.cloud_forward(params, cfg, local["hidden"], exit_index=exit_index)
+            return {"logits": gather(out["logits"][:, 0, :])}
 
     return OffloadEngine(edge, cloud, plan, branch=exit_index)

@@ -21,25 +21,82 @@ name, as ``PartitionSpec`` normalizes it).
 `fleet_mesh` is the compiled fleet's 1-D ``"cells"`` mesh, bound to the
 ranks of a `torch.distributed` launch (`launch.mesh`).
 
+Tensor parallelism (a model axis above 1): `local_shards` cuts a full
+tree into this rank's slices under `param_specs`, and `use_mesh` installs
+the mesh the models run under (the reference's ``set_mesh``; module
+state, as the reference keeps it). The specs are the only layout: the
+models read each leaf's local width and `model_split`, and a leaf that
+`fit_spec` leaves whole (8 kv heads over 16 ranks, an odd vocabulary)
+is used whole. What the reference's ``"tp"`` constraints ask of the
+activations the port does with collectives in the layers
+(`models.layers`, `models.attention`, `models.moe`): a vocab-parallel
+embedding, column-parallel products into the split widths, row-parallel
+products reduced over the model axis, and logits gathered from their
+vocab shards.
+
 No counterpart: ``constrain`` (the reference's activation sharding
-constraint). Its ``"dp"`` constraints shard the batch through the model;
-the port shards the batch once, at the step's input
-(`training.loop.make_train_step(mesh=...)`), and each rank runs the model
-on its rows, which is what those constraints compute. Its ``"tp"``
-constraints (a model axis above 1) are out of the port's scope. Nor
-``named_shardings`` (binds specs to JAX devices; nothing in the
-reference calls it) and ``set_mesh``: the port passes a mesh as an
-argument instead of module state.
+constraint): the port shards the batch once, at the step's input
+(`training.loop.make_train_step(mesh=...)`, the serve steps), and each
+rank runs the model on its rows, which is what the ``"dp"`` constraints
+compute. Nor ``named_shardings``, which binds specs to JAX devices:
+`local_shards` hands each rank its slices instead.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import re
 from typing import Optional
 
+import torch
 import torch.utils._pytree as pytree
 
 from repro_torch.launch.mesh import MeshSpec
+
+
+# the mesh the models run under while `use_mesh` is open
+_MESH: Optional[MeshSpec] = None
+
+
+@contextlib.contextmanager
+def use_mesh(mesh: Optional[MeshSpec]):
+    """Run the models inside the block over `mesh` (None: one device):
+    the counterpart of the reference's ``set_mesh``. The params must be
+    this rank's `local_shards` of it."""
+    global _MESH
+    prev, _MESH = _MESH, mesh
+    try:
+        yield mesh
+    finally:
+        _MESH = prev
+
+
+def model_size(mesh: Optional[MeshSpec]) -> int:
+    """Ranks along `mesh`'s model axis (1 without one)."""
+    return axis_size(tp_axis(mesh), mesh)
+
+
+def model_split():
+    """(process group, this rank's index, ranks) along the model axis of
+    the mesh in use, or None when there is no such axis above one rank.
+    The group is None on a described mesh traced as one of its ranks."""
+    mesh = _MESH
+    if model_size(mesh) == 1:
+        return None
+    return mesh.group("model"), mesh.coordinate("model"), mesh.axis_size("model")
+
+
+def data_split(mesh: Optional[MeshSpec]):
+    """(process group, this rank's index, ranks) along the data axes of
+    `mesh` (pod and data, row-major), or None when they hold one rank.
+    The group is None on a described mesh traced as one of its ranks, and
+    on a mesh with several data axes (only a described one has them)."""
+    axes = dp_axes(mesh)
+    n = axis_size(axes or None, mesh)
+    if n == 1:
+        return None
+    group = mesh.group(axes[0]) if len(axes) == 1 else None
+    return group, local_index(axes, mesh), n
 
 
 def _spec(*entries) -> tuple:
@@ -147,6 +204,73 @@ def param_specs(params, mesh: Optional[MeshSpec]):
     return _map_with_path(lambda p, leaf: spec_for(p, leaf.shape, mesh), params)
 
 
+# ------------------------------------------------------------ local shards
+def local_index(ax, mesh: MeshSpec) -> Optional[int]:
+    """This rank's block along a spec entry: its coordinate on the axis,
+    or on a tuple of axes their row-major combination (None when the mesh
+    does not know this rank's coordinates)."""
+    i = 0
+    for a in ax if isinstance(ax, (tuple, list)) else (ax,):
+        c = mesh.coordinate(a)
+        if c is None:
+            return None
+        i = i * mesh.axis_size(a) + c
+    return i
+
+
+def _is_spec(x) -> bool:
+    return isinstance(x, tuple)
+
+
+def local_shape(shape, spec, mesh: Optional[MeshSpec]) -> tuple:
+    """The shape of one rank's slice of a leaf of `shape` under `spec`."""
+    out = list(shape)
+    for dim, ax in enumerate(spec):
+        out[dim] //= axis_size(ax, mesh)
+    return tuple(out)
+
+
+def local_shards(tree, specs, mesh: Optional[MeshSpec]):
+    """This rank's slices of a full tree of tensors or numpy arrays under
+    `specs` (`param_specs`, `cache_specs_tree`, ...): along each split dim
+    the rank keeps its block (`local_index`). A cut leaf is a contiguous
+    copy, so the full one can be freed; a whole one is returned as it
+    is. The mesh must know this rank's coordinates (bound, or
+    `MeshSpec.as_rank`)."""
+    leaves, treedef = pytree.tree_flatten(tree)
+    spec_leaves = pytree.tree_leaves(specs, is_leaf=_is_spec)
+    if len(spec_leaves) != len(leaves):
+        raise ValueError(f"{len(leaves)} leaves against {len(spec_leaves)} specs")
+    out = []
+    for leaf, spec in zip(leaves, spec_leaves):
+        cut = leaf
+        for dim, ax in enumerate(spec):
+            n = axis_size(ax, mesh)
+            if n == 1:
+                continue
+            i, size = local_index(ax, mesh), leaf.shape[dim] // n
+            if i is None:
+                raise ValueError("local_shards needs this rank's coordinates: a bound mesh "
+                                 "or MeshSpec.as_rank")
+            index = [slice(None)] * len(leaf.shape)
+            index[dim] = slice(i * size, (i + 1) * size)
+            cut = cut[tuple(index)]
+        if cut is not leaf:
+            cut = cut.clone() if hasattr(cut, "clone") else cut.copy()
+        out.append(cut)
+    return pytree.tree_unflatten(out, treedef)
+
+
+def local_zeros(whole, specs, mesh: Optional[MeshSpec], device):
+    """Zeros of this rank's part of a tree of whole (meta) tensors under
+    `specs`, on `device`: a cache allocated only where the rank holds it."""
+    leaves, treedef = pytree.tree_flatten(whole)
+    spec_leaves = pytree.tree_leaves(specs, is_leaf=_is_spec)
+    return pytree.tree_unflatten(
+        [torch.zeros(local_shape(a.shape, sp, mesh), dtype=a.dtype, device=device)
+         for a, sp in zip(leaves, spec_leaves)], treedef)
+
+
 # ------------------------------------------------------------ decode caches
 def cache_specs_tree(cache_shapes, mesh: Optional[MeshSpec], batch_sharded: bool = True):
     """Specs for a decode cache tree (from registry.cache_specs).
@@ -204,7 +328,6 @@ def fleet_mesh(n_devices: Optional[int] = None) -> MeshSpec:
     every rank must call it; a rank outside it runs the fleet alone.
     Without a process group it is a one-device mesh, bound to nothing.
     ValueError when asked for more ranks than there are."""
-    import torch
     import torch.distributed as dist
 
     world = dist.get_world_size() if dist.is_initialized() else 1

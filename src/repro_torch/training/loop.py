@@ -40,6 +40,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.data.pipeline import Shard, shard_batch
 from repro_torch.launch.mesh import all_sum
 from repro_torch.models import moe, registry
+from repro_torch.sharding import data_split
 from repro_torch.training import optim
 from repro_torch.training.losses import multi_exit_loss, softmax_xent
 
@@ -87,7 +88,8 @@ def _mean_over(tensors, group, world: int):
 
 def make_train_step(cfg: ModelConfig, opt_cfg: optim.AdamWConfig, remat: bool = True,
                     device=None, inplace: bool = False, mesh=None):
-    world = 1 if mesh is None else mesh.axis_size("data")
+    split = None if mesh is None else data_split(mesh)
+    world = 1 if split is None else split[2]
     if device is None and mesh is not None:
         device = mesh.device
 
@@ -96,11 +98,11 @@ def make_train_step(cfg: ModelConfig, opt_cfg: optim.AdamWConfig, remat: bool = 
         if world > 1 and not isinstance(batch, Shard):
             batch = shard_batch(batch, mesh)
         dp = world > 1 and batch.sharded
-        group = mesh.group("data") if dp else None
+        group = split[0] if dp else None
         params, batch = _on(dev, params, batch)
         leaves, spec = pytree.tree_flatten(params)
         leaves = [p.detach().requires_grad_(True) for p in leaves]
-        scope = (moe.data_parallel(group, mesh.coordinate("data"), world) if dp
+        scope = (moe.data_parallel(group, split[1], world) if dp
                  else contextlib.nullcontext())
         with torch.enable_grad(), scope:
             loss, metrics = loss_fn(pytree.tree_unflatten(leaves, spec), cfg, batch, remat)

@@ -244,13 +244,14 @@ def test_run_one_on_the_cpu_records_the_step_and_the_mesh(tmp_path):
     cfg = get_config("olmo-1b")
     assert r["flops"] > 0 and r["bytes_accessed"] > 0 and r["device"] == "cpu"
     assert r["model_params"] == cfg.param_count() and r["chips"] == 256
-    mem = r["memory"]
+    mem = r["memory"]  # rank 0's step: its params, cache and peak
     caches = registry.cache_specs(cfg, INPUT_SHAPES["decode_32k"])
-    assert mem["cache_bytes"] == sum(x.numel() * x.element_size()
-                                     for x in tpytree.tree_leaves(caches))
+    whole = sum(x.numel() * x.element_size() for x in tpytree.tree_leaves(caches))
+    assert r["traced_as"] == "rank 0"
     assert mem["peak_bytes"] >= mem["params_bytes"] + mem["cache_bytes"]
     # batch 128 over 16 data shards, 16 kv heads over 16 model shards
-    assert r["per_card_bytes"]["cache"] == mem["cache_bytes"] // 256
+    assert r["per_card_bytes"]["cache"] == mem["cache_bytes"] == whole // 256
+    assert r["per_card_bytes"]["params"] == mem["params_bytes"]
     assert r["fits_one_card"] == (mem["peak_bytes"] <= r["card_bytes"])
 
 

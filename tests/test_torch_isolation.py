@@ -153,6 +153,17 @@ sim = CompiledFleetSimulator(fleet_gate_table(glob.with_compression(2), scn,
                                               backend=CompiledGateBackend(device='cpu')),
                              scn.topology, latency.paper_2020())
 assert sim._shard() is not None and sim.run().fleet_summary()['requests'] == 120
+import numpy as np, torch
+from repro_torch.configs import get_smoke
+from repro_torch.launch.mesh import join_ranks
+from repro_torch.launch.serve import make_prefill_step
+from repro_torch.models import registry
+tp, _ = join_ranks('cpu', model=2)
+cfg = get_smoke('qwen2-72b')
+lm = registry.init_params(torch.Generator().manual_seed(0), cfg, device='cpu', mesh=tp)
+assert lm['embed']['w'].shape[0] == cfg.vocab_size // 2
+out = make_prefill_step(cfg, mesh=tp)(lm, {'tokens': np.ones((2, 8), np.int32)})
+assert tuple(out['logits'].shape) == (2, 1, cfg.vocab_size)
 assert 'jax' not in sys.modules, 'jax was imported'
 bad = [m for m in sys.modules if m == 'repro' or m.startswith('repro.')]
 assert not bad, bad
@@ -171,8 +182,9 @@ def test_running_the_fleet_and_orchestration_loads_neither_jax_nor_repro(tmp_pat
     (`launch.train --smoke`, with a checkpoint), a forward pass of the
     moe, mamba and whisper models, one dry-run pair on a described
     16x16 mesh with ZeRO-1, and two gloo ranks (`torch.distributed.run`)
-    that each train the moe smoke data-parallel through `launch.train`
-    and run a 2-cell compiled fleet sharded over cells, all on the CPU --
+    that each train the moe smoke data-parallel through `launch.train`,
+    run a 2-cell compiled fleet sharded over cells and a tensor-parallel
+    prefill of the qwen2 smoke over a model axis of two, all on the CPU --
     and only then are the loaded modules checked, in every process."""
     rank_script = tmp_path / "rank_run.py"
     rank_script.write_text(RANK_RUN)
