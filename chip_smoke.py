@@ -100,8 +100,9 @@ Phases, each printing its own lines:
             no summary); churn shed, a whole-fleet outage, the QoS monitor
             and full observability at 6 cells x 200 requests through
             run_fleet against the host run; a controller and a rollout
-            rejected; the scale arm, 256 cells x 4096 = 1 048 576
-            requests, against the host simulator with the "numpy" backend.
+            rejected; the scale arm, 256 cells x 1024 = 262 144 requests
+            (cut from 256 x 4096 since phase 16, for the script's time),
+            against the host simulator with the "numpy" backend.
             Host s of the pre-pass, program and recovery, device ms per
             stage (CUDA events), the device's idle share over one profiled
             run, and the launches of every run asserted.
@@ -183,7 +184,7 @@ Phases, each printing its own lines:
             drop), float32, one step at 4 x 512: 2e-4 and the dropped
             (token, slot) counts per layer equal; (d) the compiled fleet
             sharded over cells: phase 10's 64-cell global-plan arm at codec
-            level 2 and its 256 x 4096 arm, from the plans (PlanBank JSON)
+            level 2 and its 256 x 1024 arm, from the plans (PlanBank JSON)
             and results phase 10 wrote to build/chip_smoke/ranks/, equal to
             them at rel 1e-9 on every rank. Every rank's params equal;
             each rank's peak GB; each rank's K1/K3/K4 launches worked out
@@ -213,15 +214,49 @@ Phases, each printing its own lines:
             K1/K3/K4 launches worked out from the code and asserted.
             `tools/tp_phase.py` runs this phase alone, and on four cards
             also Qwen2-72B uncut (80 layers, over NCCL).
-16. result  one JSON line with every kernel's numbers, the nvidia-smi
+16. tp_train tensor-parallel training on the same kind of mesh (``--tp-train
+            DIR``), then the trained model calibrated and served on it. The
+            same training first on one rank in this process. (a) Qwen3-8B's
+            widths reduced to 4 layers (exits moved inside the cut), bf16:
+            3 remat steps at 8 x 512 with launch.train's AdamW, losses and
+            grad_norm per step held to one rank within the derived bound
+            (2L + 2) 2u, then the step's forward and backward once more with
+            every all-reduce timed (their share, by pass); its reduces alone
+            at its shapes: model_grad's backward the float32 sum of the
+            ranks' gradients rounded once, _WideMM's forward within its
+            float32 bound and its gradients one device's bf16 product bit
+            for bit; (b) a float32 twin at 2 layers (4 x 128, 3 steps):
+            metrics and every gradient leaf at every step at rtol / atol
+            2e-4, the params after the steps at rtol / atol 2e-4 on every
+            element whose gradient stayed within rel 0.1 of one rank's (the
+            rest, where rounding sets Adam's update, at most 1e-3 of the
+            model, counted by leaf), the params read from the ranks'
+            checkpoint, one device's file, reloaded bit for bit on every
+            rank; every replicated leaf bit-equal over the ranks; (c)
+            granite-moe reduced to 4 layers, float32, capacity factor 1.0,
+            its experts split over the ranks: one step held as (b), dropped
+            counts per layer equal; (d) the trained model (a): the eval
+            step's whole-vocab exit logits of a validation batch, each
+            exit's K2 fit held to the plain fit, on labels planted at T* =
+            1.5 too, OffloadPlans of the K2 temperatures (the token
+            labels' and, for exit 0, the planted labels'), lm_engine over
+            the mesh at levels 0 and 2 under each, its gate confidences
+            held to rank 0 serving the same weights gathered whole on one
+            rank within the bf16 bound, its decisions away from p_tar +-
+            1e-6. ms a step and peak GB per rank; each rank's K1-K4
+            launches worked out and asserted. `tools/tp_phase.py` runs it
+            after phase 15, and on four cards also trains Qwen3-8B uncut
+            (36 layers, over NCCL).
+17. result  one JSON line with every kernel's numbers, the nvidia-smi
             line, and last {"ok": true, "device": {...}}.
 
-Phases 4-15 are the main path: each sets the launch counts to 0 just
+Phases 4-16 are the main path: each sets the launch counts to 0 just
 before it and reads them just after, and fails if a kernel of its path
 did not run (train: K1; serving: K1-K4; paper: K1, K2; bank: K1, K3,
 K4; runtime: K1, K3, K4; fleet and compiled: K1, K3, K4; lm and
-train_lm: K1-K4; dryrun: K1; ranks and tp: K1, K3, K4, counted in each
-rank from 0 over its runs, while this process launches none).
+train_lm: K1-K4; dryrun: K1; ranks and tp: K1, K3, K4, tp_train: K1-K4,
+counted in each rank from 0 over its runs, while this process launches
+none).
 Every line that prints a time names the card and its power limit.
 
 Any failure raises, so the process exits non-zero and prints no result;
@@ -274,7 +309,8 @@ PHASE_KERNELS = {"train": ("exit_gate",),
                  "train_lm": ("exit_gate", "calib_nll", "encode", "decode"),
                  "dryrun": ("exit_gate",),
                  "ranks": ("exit_gate", "encode", "decode"),
-                 "tp": ("exit_gate", "encode", "decode")}
+                 "tp": ("exit_gate", "encode", "decode"),
+                 "tp_train": ("exit_gate", "calib_nll", "encode", "decode")}
 # the log grid K2's LM temperature fit starts its Newton steps from
 K2_GRID = (0.25, 0.5, 1.0, 2.0, 4.0)
 # K1's boundary: the kernel's conf = 1/S and the plain max(exp(logp)) are
@@ -1272,7 +1308,7 @@ def same_trace(recs, other, what):
 
 
 def compiled_phase(dev, val, test, plans, fleet_summaries, n_cells=64, small=(6, 200),
-                   scale=(256, 4096), say=print):
+                   scale=(256, 1024), say=print):
     """The compiled fleet pipeline (`repro_torch.fleet.compiled`) on `dev`:
     BENCH_fleet.json's 64-cell fleet in three arms, each held to the host
     FleetSimulator on the same table on `dev` and to the bench (to phase
@@ -2723,7 +2759,7 @@ def ranks_spec(full=True):
             # experts about evenly, under a 1.25 capacity)
             moe=granite.replace(num_layers=4, exit_layers=(1,), exit_loss_weights=(1.0,),
                                 dtype="float32", moe_capacity_factor=1.0),
-            moe_batch=(4, 512), fleet_cells=64, scale=(256, 4096))
+            moe_batch=(4, 512), fleet_cells=64, scale=(256, 1024))
     return dict(
         device="cpu",
         olmo=["--arch", "olmo-1b", "--smoke", "--steps", "3", "--batch", "4", "--seq", "32",
@@ -3577,6 +3613,871 @@ def tp_phase(dev, spec, out_dir, timeout=900, say=print):
     return counts
 
 
+# ------------------------------------------------------------ tp_train (16)
+def tp_train_spec(full=True, uncut=False):
+    """Phase 16's runs, each a config with its (batch, seq) and step count,
+    and the calibration and serving sizes of run (d): Qwen3-8B's published
+    widths (`full`), or a CPU rehearsal of the same runs on smoke widths.
+    With `uncut`, also Qwen3-8B at its published 36 layers, which only a
+    mesh of four cards trains (`tools/tp_phase.py`)."""
+    from repro_torch.configs import get_config, get_smoke
+
+    if full:
+        q, g = get_config("qwen3-8b"), get_config("granite-moe-3b-a800m")
+        runs = {
+            # reduced: 36 -> 4 layers, the exits (8, 17) moved inside the cut
+            "bf16": dict(cfg=q.replace(num_layers=4, exit_layers=(1, 2)), batch=(8, 512),
+                         steps=3, levels=(0, 2)),
+            # reduced: 36 -> 2 layers, one exit after layer 0, float32
+            "f32": dict(cfg=q.replace(num_layers=2, exit_layers=(0,), exit_loss_weights=(1.0,),
+                                      dtype="float32"), batch=(4, 128), steps=3),
+            # reduced: 32 -> 4 layers, float32; capacity factor 1.25 -> 1.0,
+            # so that tokens drop
+            "moe": dict(cfg=g.replace(num_layers=4, exit_layers=(1,), exit_loss_weights=(1.0,),
+                                      dtype="float32", moe_capacity_factor=1.0),
+                        batch=(4, 512), steps=1),
+        }
+        if uncut:
+            runs["uncut"] = dict(cfg=q, batch=(8, 512), steps=3, levels=(0, 1, 2))
+        return dict(device=None, runs=runs, val=(8, 128), serve=(8, 512))
+    q = get_smoke("qwen3-8b")
+    runs = {
+        "bf16": dict(cfg=q.replace(num_layers=4, exit_layers=(1, 2),
+                                   exit_loss_weights=(1.0, 1.0)), batch=(4, 32), steps=3,
+                     levels=(0, 2)),
+        "f32": dict(cfg=q.replace(dtype="float32"), batch=(4, 16), steps=3),
+        "moe": dict(cfg=get_smoke("granite-moe-3b-a800m").replace(
+            num_layers=4, dtype="float32", moe_capacity_factor=0.5), batch=(4, 16), steps=1),
+    }
+    if uncut:
+        runs["uncut"] = dict(cfg=q.replace(num_layers=6, exit_layers=(1, 3),
+                                           exit_loss_weights=(1.0, 1.0)), batch=(4, 32),
+                             steps=3, levels=(0, 1, 2))
+    return dict(device="cpu", runs=runs, val=(4, 32), serve=(4, 32))
+
+
+def bf16_tp_train_bound(n_layers, zmax, loss):
+    """Relative bound on the gap between a bf16 tensor-parallel train
+    step's losses or grad_norm and one rank's on the same params and
+    batch, for heads whose logits reach `zmax` in absolute value and
+    losses of at least `loss`.
+
+    Forward: the logits differ from one rank's by at most b = (2L + 2) 2u
+    of max|z| (`bf16_tp_bound`, u = 2^-8), and a row's cross-entropy moves
+    by at most twice the largest logit change (its gradient in z sums to 2
+    in absolute value): 2 b max|z| absolute, 2 b max|z| / loss relative.
+    Backward: each gradient element passes the same layers in reverse,
+    each input gradient's sum over the ranks taken in float32 and rounded
+    once, as the forward's partials are: b relative again, which the
+    global norm, 1-Lipschitz, keeps. So b max(1, 2 max|z| / loss). AdamW's
+    first update is lr * g / |g| elementwise, blind to a relative change
+    of g, and the later steps move with it at first order; their losses
+    are held to the same bound, max|z| read before and after the steps. A
+    first-order bound, not a proof: the float32 twin (run b) and the MoE
+    (run c) are held to rtol / atol 2e-4."""
+    return (2 * n_layers + 2) * 2 * BF16_U * max(1.0, 2 * zmax / loss)
+
+
+def wide_mm_check(dev, cfg, rows, world, seed=3):
+    """Run (a)'s two row-parallel products as one of `world` model ranks
+    computes them, ``wo`` ((rows, heads x head_dim / W) @ (that, d_model))
+    and ``w_down`` ((rows, d_ff / W) @ (that, d_model)), bf16, through
+    `layers._WideMM` (the card's float32-output GEMM and its bf16
+    backward) on seeded draws, the output gradient exact in bf16 as the
+    reduce's rounding hands it over: the forward within K 2^-24 (|x| @ |w|)
+    of the float64 sum (float32 accumulation of exact products), the input
+    and weight gradients bit for bit one device's bf16 product under
+    autograd. Returns per product its shape, the forward's worst gap over
+    that bound, and the two gradients' largest gap to float64 relative to
+    the gradient's max."""
+    import torch
+
+    from repro_torch.models.layers import _WideMM
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    for leaf, width in (("wo", cfg.num_heads * cfg.head_dim), ("w_down", cfg.d_ff)):
+        k = width // world
+        x = torch.randn(rows, k, generator=gen, device=dev).to(torch.bfloat16)
+        w = (0.02 * torch.randn(k, cfg.d_model, generator=gen, device=dev)).to(torch.bfloat16)
+        g = (1e-3 * torch.randn(rows, cfg.d_model, generator=gen, device=dev)).to(torch.bfloat16)
+        xa, wa = x.clone().requires_grad_(), w.clone().requires_grad_()
+        y = _WideMM.apply(xa, wa)
+        y.backward(g.float())
+        xb, wb = x.clone().requires_grad_(), w.clone().requires_grad_()
+        (xb @ wb).backward(g)
+        assert y.dtype == torch.float32 and xa.grad.dtype == wa.grad.dtype == torch.bfloat16
+        assert torch.equal(xa.grad, xb.grad) and torch.equal(wa.grad, wb.grad), leaf
+        x64, w64, g64 = x.double(), w.double(), g.double()
+        bound = k * 2.0 ** -24 * (x64.abs() @ w64.abs())
+        fwd = float(((y.detach().double() - x64 @ w64).abs() / bound).max())
+        assert fwd <= 1.0, (leaf, fwd)
+        dx, dw = g64 @ w64.T, x64.T @ g64
+        out[leaf] = {"shape": (rows, k, cfg.d_model), "fwd": fwd,
+                     "dx": float((xa.grad.double() - dx).abs().max() / dx.abs().max()),
+                     "dw": float((wa.grad.double() - dw).abs().max() / dw.abs().max())}
+        del x, w, g, xa, wa, xb, wb, y, x64, w64, g64, bound, dx, dw
+    return out
+
+
+def model_grad_check(mesh, shape, seed=4):
+    """On each model rank of `mesh`: `launch.mesh.model_grad`'s backward on a
+    bf16 activation of `shape`, each rank's output gradient its own seeded
+    bf16 draw, against the ranks' gradients gathered exactly: one float32
+    all-reduce logged under the backward; the float32 sum rounded once to
+    bf16, bit for bit with 2 ranks (two float32 addends sum alike in either
+    order), and with any number within 2^-8 |s| + (1 + 2^-8) (W - 1) 2^-24
+    sum_r |g_r| of the exact sum s. Returns the worst gap over that bound."""
+    import torch
+
+    from repro_torch.launch.mesh import gather_blocks, model_grad, record_collectives
+
+    dev, group = mesh.device, mesh.group("model")
+    m, w = mesh.coordinate("model"), mesh.axis_size("model")
+    g = torch.randn(shape, generator=torch.Generator(device=dev).manual_seed(seed + m),
+                    device=dev).to(torch.bfloat16)
+    x = torch.zeros(shape, dtype=torch.bfloat16, device=dev, requires_grad=True)
+    with record_collectives() as clog:
+        model_grad(x, group).backward(g)
+    assert clog.by_pass() == {"backward": {"counts": {"all-reduce": 1},
+                                           "bytes": {"all-reduce": 4 * x.numel()}}}, \
+        clog.by_pass()
+    every = gather_blocks(g.float(), m, w, group)
+    got = x.grad
+    assert got.dtype == torch.bfloat16
+    if w == 2:
+        assert torch.equal(got, (every[0] + every[1]).to(torch.bfloat16))
+    s = every.double().sum(0)
+    bound = (2.0 ** -8 * s.abs()
+             + (1 + 2.0 ** -8) * (w - 1) * 2.0 ** -24 * every.double().abs().sum(0))
+    gap = float(((got.double() - s).abs() / bound.clamp_min(1e-300)).max())
+    assert gap <= 1.0, gap
+    return gap
+
+
+def tp_train_batches(cfg, shape, n, seed):
+    """`n` (batch, seq) windows of the seeded synthetic stream, as
+    `launch.train` reads it."""
+    from repro_torch.data.pipeline import TokenIterator
+    from repro_torch.data.synthetic import lm_sequences
+
+    b, s = shape
+    it = iter(TokenIterator(lm_sequences(max(50_000, 4 * b * (s + 1)), cfg.vocab_size,
+                                         seed=seed), b, s, seed=seed))
+    return [next(it) for _ in range(n)]
+
+
+def local_path_tree(tree):
+    """{tree path: tensor on the host} of a params or gradient tree."""
+    import torch.utils._pytree as pytree
+
+    from repro_torch import sharding
+
+    return {sharding.path_str(p): a.detach().cpu() for p, a in
+            pytree.tree_flatten_with_path(tree)[0]}
+
+
+# Adam's update in 3 steps (b1 0.9, b2 0.95) is at most 1.001 in size.
+# Where each step's gradient of an element lies within ADAM_RHO |g| of one
+# rank's, its update lies within 2.002 ADAM_RHO / (1 - ADAM_RHO) of one
+# rank's, so its param within that times sum(lr): 1.10e-4 at ADAM_RHO 0.1
+# and sum(lr) 4.95e-4, under the 2e-4 the params are held to. The other
+# elements are open (their gradient is at its rounding's level, which then
+# sets Adam's update) and may be at most OPEN_SHARE_MAX of a model's.
+ADAM_RHO = 0.1
+OPEN_SHARE_MAX = 1e-3
+
+
+def rank_parts(whole, blocks, by_path):
+    """(path, index into the whole leaf, a rank's block) for each leaf of
+    `whole` ({path: tensor}) and each of `blocks` (a list in model order
+    of a (data 1, model W) mesh's ranks' {path: tensor}): a split leaf's
+    block is its slice along the split dim, a replicated leaf's the whole."""
+    for path in whole:
+        spec = by_path[path]
+        for m, b in enumerate(blocks):
+            g = b[path]
+            if "model" in spec:
+                d, n = spec.index("model"), g.shape[spec.index("model")]
+                yield path, (slice(None),) * d + (slice(m * n, (m + 1) * n),), g
+            else:
+                yield path, (), g
+
+
+def tp_train_runs(dev, spec, mesh, out_dir, names=("bf16", "f32", "moe")):
+    """Phase 16's runs on `dev` over `mesh` (None: one rank), one model at a
+    time from `init_params(mesh=)`, with `launch.train`'s AdamW (in place,
+    remat): (a) 3 bf16 steps, then with `levels` the trained model's
+    calibration and serving (`calibrate_and_serve`); (b) 3 steps of the
+    float32 twin; (c) one MoE step.
+    (b) and (c) take each step's gradients first (`make_grad_fn`). Over a
+    mesh a split step is run once more with every collective timed (no
+    update), (b)'s and (c)'s gradients and (c)'s params go to rank files in
+    `out_dir` and (b)'s params to a checkpoint written from the ranks'
+    slices, reloaded and checked; one rank keeps them on the host. Returns
+    the numbers, the K1-K4 launches and the steps' worked-out counts."""
+    import torch
+    import torch.utils._pytree as pytree
+
+    from repro_torch import sharding
+    from repro_torch.kernels import calib_nll
+    from repro_torch.launch.mesh import gather_blocks, record_collectives
+    from repro_torch.models import registry, transformer
+    from repro_torch.training import checkpoint, optim
+    from repro_torch.training.loop import make_eval_step, make_grad_fn, make_train_step, whole_specs
+
+    card = dev.type == "cuda"
+    log = LaunchLog(dev)
+    m_idx = 0 if mesh is None else mesh.coordinate("model")
+    res = {"runs": {}}
+
+    def fresh():
+        _sync(dev)
+        if card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+
+    def peak():
+        return torch.cuda.max_memory_allocated(dev) / 1e9 if card else None
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(dev)
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    for name in names:
+        if name not in spec["runs"]:
+            continue
+        run = spec["runs"][name]
+        cfg, steps = run["cfg"], run["steps"]
+        fresh()
+        t_run = time.perf_counter()
+        params, init_ms = timed(lambda: registry.init_params(
+            torch.Generator(device=dev).manual_seed(0), cfg, device=dev, mesh=mesh))
+        by_path = whole_specs(cfg, mesh)
+        opt_cfg = optim.AdamWConfig(lr=3e-4, total_steps=steps,
+                                    warmup_steps=min(20, steps // 5 + 1))
+        batches = tp_train_batches(cfg, run["batch"], steps, seed=1)
+        r = {"scalars": transformer.num_params(params), "init_ms": init_ms, "metrics": [],
+             "ms": []}
+        step = make_train_step(cfg, opt_cfg, remat=True, device=dev, inplace=True, mesh=mesh)
+        state = optim.init(params)
+        zmax = grad_fn = None
+        if mesh is None and name == "bf16":
+            # max|z| of every head, before and after the steps, for
+            # `bf16_tp_train_bound`
+            ev = make_eval_step(cfg, device=dev)
+
+            def zmax():
+                o = ev(params, {"tokens": batches[0]["tokens"]})
+                return max(float(z.abs().max()) for z in [o["logits"]] + o["exit_logits"])
+
+            r["zmax"] = [zmax()]
+        if name in ("f32", "moe"):
+            # each step's gradients first, at the params the step sees: one
+            # rank keeps them on the host, a rank writes its blocks to a file
+            grad_fn, r["grads"] = make_grad_fn(cfg, device=dev, mesh=mesh), []
+        tap = MoeTap() if cfg.moe_num_experts else contextlib.nullcontext()
+        dropped = []
+        for i, b in enumerate(batches):
+            if grad_fn is not None:
+                _, grads, _ = grad_fn(params, b)
+                if mesh is None:
+                    r["grads"].append(local_path_tree(grads))
+                else:
+                    torch.save(local_path_tree(grads),
+                               os.path.join(out_dir, f"{name}_grads{m_idx}_{i}.pt"))
+                del grads
+            before = log.now()
+            with tap:
+                (_, _, m), ms = timed(lambda: step(params, state, b))
+            log.expect(f"{name} train step", before)
+            r["ms"].append(ms)
+            r["metrics"].append({k: float(v) for k, v in m.items()})
+            if cfg.moe_num_experts:
+                slots = run["batch"][0] * run["batch"][1] * cfg.moe_top_k
+                dropped += [round(float(a["moe_dropped_frac"]) * slots) for a in tap.aux]
+        del m
+        if zmax is not None:
+            r["zmax"].append(zmax())
+        if cfg.moe_num_experts:
+            r["dropped"] = dropped
+        r["lr_sum"] = sum(float(optim.schedule(opt_cfg, t)) for t in range(1, steps + 1))
+        r["peak"] = peak()
+        if mesh is not None and name in ("bf16", "uncut"):
+            # the step's forward and backward once more, every collective
+            # timed between two syncs (no update)
+            grad_fn = make_grad_fn(cfg, device=dev, mesh=mesh)
+            with record_collectives(timed=True) as clog:
+                _, ms = timed(lambda: grad_fn(params, batches[0]))
+            r["share"] = {"ms": ms, "passes": {p: {
+                "n": d["counts"].get("all-reduce", 0),
+                "gb": d["bytes"].get("all-reduce", 0) / 1e9,
+                "ms": 1e3 * d["seconds"].get("all-reduce", 0.0)} for p, d in clog.passes.items()}}
+        del state
+        if mesh is not None:
+            # every replicated leaf, bit for bit the same on every model rank
+            group, w = mesh.group("model"), mesh.axis_size("model")
+            n_rep = 0
+            for p, a in pytree.tree_flatten_with_path(params)[0]:
+                if "model" not in by_path[sharding.path_str(p)]:
+                    bits = a.detach().reshape(-1).view(torch.int16 if a.element_size() == 2
+                                                       else torch.int32).to(torch.float64)
+                    every = gather_blocks(bits, m_idx, w, group)
+                    assert bool((every == every[0]).all()), (name, sharding.path_str(p))
+                    n_rep += 1
+            r["replicated_equal"] = n_rep
+        if name == "f32":
+            if mesh is None:
+                r["params"] = pytree.tree_map(lambda a: a.detach().cpu(), params)
+            else:  # (e) the checkpoint of the ranks' slices, one device's file
+                path = os.path.join(out_dir, "f32.msgpack")
+                specs = sharding.lay_over(params, by_path)
+                t0 = time.perf_counter()
+                checkpoint.save(path, params, mesh, specs)
+                torch.distributed.barrier()
+                r["ckpt_save_s"] = time.perf_counter() - t0
+                back = checkpoint.load(path, params, mesh, specs)
+                r["ckpt_back"] = all(torch.equal(a, b) for a, b in zip(
+                    pytree.tree_leaves(back), pytree.tree_leaves(params)))
+                assert r["ckpt_back"], "the reloaded checkpoint differs from the rank's slices"
+                del back
+        if name == "moe":
+            if mesh is None:
+                r["params"] = local_path_tree(params)
+            else:
+                torch.save(local_path_tree(params), os.path.join(out_dir, f"moe_params{m_idx}.pt"))
+        r["train_s"] = time.perf_counter() - t_run
+        if "levels" in run:
+            r["serve"] = calibrate_and_serve(dev, spec, name, cfg, params, run["levels"], mesh,
+                                             log)
+        r["seconds"] = time.perf_counter() - t_run
+        res["runs"][name] = r
+        del params
+    fresh()
+    res["launches"] = {**log.now(), "calib_nll": calib_nll.KERNEL.launches}
+    res["steps"] = log.steps
+    return res
+
+
+def calibrate_and_serve(dev, spec, name, cfg, params, levels, mesh, log):
+    """Run (d) on a trained model over `mesh` (None: one rank): the eval
+    step's whole-vocab exit logits of a validation batch; each exit's K2
+    fit held to the plain fit (by T or NLL, as phase 12) and, on labels
+    planted at T* = 1.5, by T (as phase 11); two `OffloadPlan`s, of the
+    K2 temperatures and of the same with exit 0's planted-label fit, each
+    with p_tar at the widest ratio between two neighbouring exit-0
+    confidences of the serving batch; `lm_engine` at `levels` under each.
+    Over a mesh, rank 0 then serves the same weights gathered whole on one
+    rank (its launches kept out of the counts): the mesh's gate
+    confidences held to its within the bf16 bound, its decisions away from
+    p_tar +- 1e-6, payload_bytes per refused row equal. Returns the
+    numbers."""
+    import torch
+    import torch.utils._pytree as pytree
+
+    from repro_torch import sharding
+    from repro_torch.core.calibration import TemperatureScaling, fit_temperature, nll
+    from repro_torch.core.policy import OffloadPlan
+    from repro_torch.kernels import calib_nll, ops
+    from repro_torch.launch.mesh import gather_whole
+    from repro_torch.launch.serve import make_prefill_step
+    from repro_torch.models import transformer
+    from repro_torch.offload.engine import lm_engine
+    from repro_torch.training.loop import make_eval_step, whole_specs
+
+    V, n_ex = cfg.vocab_size, len(cfg.exit_layers)
+    k2 = calib_nll.KERNEL
+    out = {}
+    vb = tp_train_batches(cfg, spec["val"], 1, seed=5)[0]
+    t0 = time.perf_counter()
+    ev = make_eval_step(cfg, device=dev, mesh=mesh)(params, {"tokens": vb["tokens"]})
+    _sync(dev)
+    out["eval_ms"] = 1e3 * (time.perf_counter() - t0)
+    zs = [z.reshape(-1, V) for z in ev["exit_logits"]]
+    del ev
+    y = torch.as_tensor(vb["labels"], device=dev).reshape(-1).to(torch.int64)
+    assert all(z.shape == (y.numel(), V) and bool(torch.isfinite(z).all()) for z in zs)
+    before = k2.launches
+    fits = []
+    for z in zs:
+        tp, _ = fit_temperature(z.float(), y)
+        start = min(K2_GRID, key=lambda t: float(ops.calib_stats(z, y, t)[0]))
+        tk, _ = ops.fit_temperature_kernel(z, y, t0=start)
+        tp, tk = float(tp), float(tk)
+        n_p, n_k = float(nll(z.float(), y, tp)), float(nll(z.float(), y, tk))
+        assert abs(tk - tp) <= 1e-3 * tp or abs(n_k - n_p) <= 1e-6 * abs(n_p), (name, tk, tp)
+        fits.append((tk, tp, n_k, n_p))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    zp = zs[0].repeat(4, 1)
+    yp = torch.multinomial(torch.softmax(zp.float() / 1.5, dim=-1), 1, generator=gen)[:, 0]
+    tk_p = float(ops.fit_temperature_kernel(zp, yp)[0])
+    tr_p = float(fit_temperature(zp.float(), yp)[0])
+    assert abs(tk_p - tr_p) <= 1e-3 * tr_p and 1.2 < tr_p < 1.9, (name, tk_p, tr_p)
+    del zp, yp, zs
+    want_k2 = n_ex * (len(K2_GRID) + 25) + 25 if log.card else 0
+    assert k2.launches - before == want_k2, (name, k2.launches - before, want_k2)
+    log.steps.append(f"{name} K2 fits ({want_k2} K2)")
+    out["fits"], out["planted"] = fits, (tk_p, tr_p)
+    # two plans: the K2 temperatures on the token labels (the pipeline's),
+    # and the same with exit 0 at its planted-label fit, whose confidences
+    # spread over (0, 1) where the first's sit near 1 / V
+    temps = [f[0] for f in fits]
+    plans = {"fit": temps, "planted": [tk_p] + temps[1:]}
+    batch = {"tokens": tp_train_batches(cfg, spec["serve"], 1, seed=6)[0]["tokens"]}
+    out["plans"] = {}
+
+    def engines(p, m, plan):
+        got = {}
+        for level in levels:
+            eng = lm_engine(p, cfg, plan.with_compression(level), device=dev, mesh=m)
+            before = log.now()
+            t0 = time.perf_counter()
+            r = eng.infer(batch)
+            _sync(dev)
+            ms = 1e3 * (time.perf_counter() - t0)
+            n_off = eng.stats.offloaded
+            codec = 1 if level and n_off else 0
+            log.expect(f"{name} lm_engine level {level}", before, exit_gate=1, encode=codec,
+                       decode=codec)
+            got[level] = dict({k: np.asarray(v) for k, v in r.items()}, ms=ms,
+                              payload_bytes=eng.stats.payload_bytes, offloaded=n_off)
+        return got
+
+    for key, ts in plans.items():
+        plan = OffloadPlan(p_tar=0.5, calibrators=[TemperatureScaling.from_temperature(t)
+                                                   for t in ts])
+        before = log.now()
+        pre = make_prefill_step(cfg, plan=plan, device=dev, mesh=mesh)(params, batch)
+        log.expect(f"{name} prefill", before, exit_gate=n_ex)
+        # p_tar in the middle (geometric) of the widest ratio between two
+        # neighbouring exit-0 confidences: both outcomes occur, and a row's
+        # confidence is as far from it, relative, as the batch allows
+        c_mesh = pre["exit_confidence"][0].double().cpu()
+        c = torch.sort(c_mesh)[0]
+        i = int(torch.argmax(c[1:].log() - c[:-1].log()))
+        plan = plan.with_p_tar(float((c[i] * c[i + 1]).sqrt()))
+        del pre
+        out["plans"][key] = {"plan": plan, "c_mesh": c_mesh,
+                             "engine": engines(params, mesh, plan)}
+    if mesh is not None:
+        # one rank's serving of the same trained weights: rank 0, after
+        # every rank took part in gathering them whole
+        by_path = whole_specs(cfg, mesh)
+        whole = gather_whole(params, sharding.lay_over(params, by_path), mesh)
+        if mesh.coordinate("model") == 0:
+            kept = {n: k.launches for n, k in LaunchLog(dev).counters.items()}
+            kept_k2, steps = k2.launches, len(log.steps)
+            one = pytree.tree_map(lambda a: a.to(dev), whole)
+            del whole
+            with torch.no_grad():
+                z0 = transformer.forward_prefill(one, cfg, {"tokens": torch.as_tensor(
+                    batch["tokens"], device=dev)})["exit_logits"][0][:, 0]
+            for key, d in out["plans"].items():
+                plan = d["plan"]
+                zc = plan.calibrated_logits(z0, 0)
+                # the gate's confidences, one rank's against the mesh's,
+                # within the bf16 bound on the calibrated logits
+                c_one = torch.softmax(zc.float(), dim=-1).amax(-1).double().cpu()
+                delta = bf16_tp_bound(cfg.num_layers) * float(zc.float().abs().max())
+                gap = float(((d["c_mesh"] - c_one).abs() / c_one).max())
+                assert gap <= np.expm1(2 * delta), (name, key, gap, delta)
+                ref = engines(one, None, plan)
+                # decisions held to one rank's away from p_tar +- 1e-6
+                # (hazard d)
+                clear = ((c_one - plan.p_tar).abs() > BOUNDARY).numpy()
+                for level, w in ref.items():
+                    g = d["engine"][level]
+                    np.testing.assert_array_equal(g["on_device"][clear], w["on_device"][clear],
+                                                  err_msg=f"{name} {key} level {level}")
+                    # the payload counted once per refused row, as one rank does
+                    assert (g["payload_bytes"] * w["offloaded"]
+                            == w["payload_bytes"] * g["offloaded"]), (name, key, level)
+                d["one_rank"] = {
+                    "ms": {lv: w["ms"] for lv, w in ref.items()}, "clear": int(clear.sum()),
+                    "rows": int(clear.size), "conf_gap": gap,
+                    "conf_bound": float(np.expm1(2 * delta)),
+                    "equal": all(np.array_equal(d["engine"][lv]["on_device"], w["on_device"])
+                                 for lv, w in ref.items())}
+            del one, z0
+            for n, k in LaunchLog(dev).counters.items():
+                k.launches = kept[n]
+            k2.launches = kept_k2
+            del log.steps[steps:]
+        else:
+            del whole
+    for d in out["plans"].values():
+        d["p_tar"], d["temperatures"] = d["plan"].p_tar, d["plan"].temperatures
+        del d["plan"], d["c_mesh"]
+    return out
+
+
+def tp_train_rank_main(out_dir) -> int:
+    """One rank of phase 16, under ``torch.distributed.run``: `tp_train_runs`
+    over the (data 1, model W) mesh, the kernels' launches counted from 0.
+    Writes rank<r>.pkl to `out_dir`."""
+    import pickle
+
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.kernels import calib_nll
+    from repro_torch.launch.mesh import join_ranks
+
+    with open(os.path.join(out_dir, "job.pkl"), "rb") as f:
+        job = pickle.load(f)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh, backend = join_ranks(job["spec"]["device"], model=job["model"])
+    dev = mesh.device
+    for k in list(LaunchLog(dev).counters.values()) + [calib_nll.KERNEL]:
+        k.launches = 0
+    t0 = time.perf_counter()
+    a = job["spec"]["runs"]["bf16"]
+    grad_gap = model_grad_check(mesh, (a["batch"][0] * a["batch"][1], a["cfg"].d_model))
+    res = tp_train_runs(dev, job["spec"], mesh, out_dir, names=("uncut", "bf16", "f32", "moe"))
+    res.update(model_grad=grad_gap, rank=torch.distributed.get_rank(), coords=(mesh.coordinate("data"),
+                                                           mesh.coordinate("model")),
+               mesh=mesh.shape, backend=backend, device=str(dev),
+               card=torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+               seconds=time.perf_counter() - t0)
+    with open(os.path.join(out_dir, f"rank{res['rank']}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def tp_train_phase(dev, spec, out_dir, timeout=900, say=print, world=None):
+    """Phase 16: LM training with the parameters split over a model axis of
+    W ranks (``python -m torch.distributed.run --standalone``, each rank
+    this script under ``--tp-train``, `tp_train_rank_main`), then the
+    trained model calibrated and served on the same mesh: W is the card
+    count where it is 2 or more (NCCL, a card a rank), else 2 ranks
+    sharing the one card (gloo), or 2 gloo ranks on the CPU for a
+    rehearsal; the mesh is (data 1, model W). The same training runs
+    first on one rank in this process (`tp_train_runs`; its launches kept
+    out of the phase's counts; its memory freed before the ranks start),
+    and each rank is held to it: (a) the bf16 losses and grad_norm per
+    step within `bf16_tp_train_bound`, and its reduces on their own
+    (`wide_mm_check` here, `model_grad_check` in the ranks); (b) the
+    float32 twin's losses and grad_norm, every gradient leaf at every step
+    (atol 2e-4 * max|g|) and its parameters after 3 steps (read from the
+    ranks' checkpoint, one device's file) at rtol / atol 2e-4 but on the
+    open elements (`ADAM_RHO`); (c) the MoE step's metrics, gradients and
+    parameters the same way, its dropped counts per layer equal. Run (d)
+    is held within the ranks (`calibrate_and_serve`). `world` sets W for a
+    rehearsal on the CPU. Returns the K1-K4 launches summed over the
+    ranks."""
+    import pickle
+
+    import torch
+
+    from repro_torch.kernels import calib_nll
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.training import checkpoint
+    from repro_torch.training.loop import whole_specs
+
+    if world is None:
+        world = max(2, torch.cuda.device_count() if dev.type == "cuda" else 2)
+    backend = "nccl" if dev.type == "cuda" and torch.cuda.device_count() >= world else "gloo"
+    os.makedirs(out_dir, exist_ok=True)
+
+    t0 = time.perf_counter()
+    counters = list(LaunchLog(dev).counters.values()) + [calib_nll.KERNEL]
+    before = [k.launches for k in counters]
+    one = tp_train_runs(dev, spec, None, out_dir)
+    for k, n in zip(counters, before):
+        k.launches = n
+    say(f"one rank in this process, {time.perf_counter() - t0:.2f} s: " + "; ".join(
+        f"{n} {r['scalars']} scalars, steps {ms3(r['ms'])} ms, peak {gb(r['peak'])}, "
+        f"{r['seconds']:.2f} s" for n, r in one["runs"].items()), timed=True)
+    a = spec["runs"]["bf16"]
+    wide = (wide_mm_check(dev, a["cfg"], a["batch"][0] * a["batch"][1], world)
+            if dev.type == "cuda" else None)
+    with open(os.path.join(out_dir, "job.pkl"), "wb") as f:
+        pickle.dump({"spec": spec, "model": world}, f)
+    for r in range(world):
+        if os.path.exists(os.path.join(out_dir, f"rank{r}.pkl")):
+            os.remove(os.path.join(out_dir, f"rank{r}.pkl"))
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()  # the ranks share the card(s) with this process
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           str(world), os.path.abspath(__file__), "--tp-train", out_dir]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src")] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    log_path = os.path.join(out_dir, "ranks.log")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as logf:
+        proc = subprocess.Popen(cmd, stdout=logf, stderr=subprocess.STDOUT, env=env, cwd=ROOT)
+        try:
+            rc = proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            rc = "timeout"
+        finally:
+            if proc.poll() is None:  # torchrun stops its ranks on SIGTERM
+                proc.terminate()
+                try:
+                    proc.wait(timeout=60)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait()
+    wall = time.perf_counter() - t0
+    with open(log_path) as f:
+        text = f.read()
+    assert rc == 0, f"the ranks failed ({rc}); their output ends:\n{text[-6000:]}"
+    reps = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"rank{r}.pkl"), "rb") as f:
+            reps.append(pickle.load(f))
+    say(f"{world} ranks over {backend}, mesh (data 1, model {world}) (python -m "
+        f"torch.distributed.run --standalone --nproc-per-node {world}), {wall:.2f} s from "
+        f"launch to exit: " + "; ".join(
+            f"rank {p['rank']} on {p['device']} ({p['card']}, {p['backend']}), its runs "
+            f"{p['seconds']:.2f} s (" + ", ".join(
+                f"{n} {r['train_s']:.1f} s training, {r['seconds']:.1f} s in all"
+                for n, r in p["runs"].items()) + ")" for p in reps), timed=True)
+    assert [p["rank"] for p in reps] == list(range(world))
+    assert all(p["backend"] == backend and p["mesh"] == (1, world) for p in reps)
+    assert [p["coords"] for p in reps] == [(0, m) for m in range(world)]
+    runs = spec["runs"]
+    tol = dict(rtol=2e-4, atol=2e-4)
+    hold = "cuda" if dev.type == "cuda" else "cpu"
+
+    def same_metrics(name, rel=None):
+        """Every rank's per-step metrics against one rank's: within `rel`
+        relative (bf16), else rtol / atol 2e-4; returns the worst gap."""
+        worst = 0.0
+        for p in reps:
+            for t, (g, w) in enumerate(zip(p["runs"][name]["metrics"],
+                                           one["runs"][name]["metrics"])):
+                assert sorted(g) == sorted(w), (name, sorted(g), sorted(w))
+                for k in w:
+                    gap = abs(g[k] - w[k]) / max(abs(w[k]), 1e-30)
+                    if k != "moe_aux" or w[k]:
+                        worst = max(worst, gap)
+                    if rel is not None:
+                        assert gap <= rel, f"{name} step {t} {k}: rel {gap:.3g} > {rel:.3g}"
+                    else:
+                        np.testing.assert_allclose(g[k], w[k], err_msg=f"{name} {t} {k}", **tol)
+        return worst
+
+    def held_grads(name):
+        """Each step's gradients of every rank (its files) against one
+        rank's (freed as they are read), within 2e-4 |w| + 2e-4 max|w| of the
+        whole leaf. Returns the worst gap (relative to the leaf's max|w|)
+        and the open elements, {path: mask of the whole leaf}: where at some
+        step a rank's gradient lies further than ADAM_RHO |w| from one
+        rank's."""
+        by_path = whole_specs(runs[name]["cfg"], make_debug_mesh(1, world))
+        worst, open_, steps = 0.0, {}, one["runs"][name].pop("grads")
+        for t in range(len(steps)):
+            want, steps[t] = steps[t], None
+            files = [os.path.join(out_dir, f"{name}_grads{m}_{t}.pt") for m in range(world)]
+            blocks = [torch.load(f, mmap=True) for f in files]
+            assert all(sorted(b) == sorted(want) for b in blocks), name
+            w_path = None
+            for path, idx, g in rank_parts(want, blocks, by_path):
+                if path != w_path:  # one whole leaf on the card at a time
+                    w_path, whole = path, want[path].to(hold)
+                    top = float(whole.abs().max())
+                w = whole[idx]
+                diff = (g.to(hold) - w).abs()
+                bad = ~(diff <= tol["atol"] * top + tol["rtol"] * w.abs())
+                assert not bool(bad.any()), (
+                    f"{name} step {t} gradient {path}: {int(bad.sum())} elements apart by up "
+                    f"to {float(diff[bad].max()):.3g} (max|g| {top:.3g})")
+                worst = max(worst, float(diff.max()) / max(top, 1e-30))
+                mask = open_.setdefault(path, torch.zeros(whole.shape, dtype=torch.bool,
+                                                          device=hold))
+                mask[idx] |= diff > ADAM_RHO * w.abs()
+            del blocks, whole, want
+            for f in files:
+                os.remove(f)
+        return worst, open_
+
+    def held_params(name, want, parts, open_):
+        """A rank's params after the steps (`parts`, from `rank_parts`)
+        against one rank's `want`, within 2e-4 |w| + 2e-4 on every element
+        but the open ones, which may lie 2.002 sum(lr) further (Adam's
+        largest swing in 3 steps), and make at most OPEN_SHARE_MAX of the
+        model. Returns (the worst gap of the others, the open count, the
+        model's size, how many open ones lie past 2e-4 and by how much at
+        most, the open count per leaf)."""
+        extra = 2.002 * one["runs"][name]["lr_sum"]
+        n_all = sum(w.numel() for w in want.values())
+        where = {p: int(m.sum()) for p, m in open_.items() if bool(m.any())}
+        n_open = sum(where.values())
+        assert n_open <= OPEN_SHARE_MAX * n_all, (
+            f"{name}: {n_open} of {n_all} elements open, more than {OPEN_SHARE_MAX:g} of them "
+            f"({sorted(where.items(), key=lambda kv: -kv[1])[:6]})")
+        worst, n_out, worst_out = 0.0, 0, 0.0
+        for path, idx, g in parts:
+            w, mark = want[path][idx].to(hold), open_[path][idx]
+            diff, lim = (g.to(hold) - w).abs(), tol["atol"] + tol["rtol"] * w.abs()
+            out = mark & ~(diff <= lim)
+            n_out += int(out.sum())
+            if bool(out.any()):
+                worst_out = max(worst_out, float(diff[out].max()))
+            bad = ~(diff <= lim + extra * mark)
+            assert not bool(bad.any()), (f"{name} params {path}: {int(bad.sum())} elements "
+                                         f"apart by up to {float(diff[bad].max()):.3g}")
+            worst = max(worst, float(torch.where(mark, 0.0, diff).max()))
+        return worst, n_open, n_all, n_out, worst_out, where
+
+    def open_line(name, p_gap, n_open, n_all, n_out, w_out, where):
+        top = sorted(where.items(), key=lambda kv: -kv[1])[:4]
+        n = runs[name]["steps"]
+        return (f"the params after {'the step' if n == 1 else f'the {n} steps'} within {p_gap:.3g} abs (rtol / atol 2e-4) on every "
+                f"element whose gradient stayed within rel {ADAM_RHO:g} of one rank's at each "
+                f"step (Adam's update then within {2.002 * ADAM_RHO / (1 - ADAM_RHO):.4g} "
+                f"sum(lr)); open {n_open} of {n_all} ({n_open / n_all:.3g}, at most "
+                f"{OPEN_SHARE_MAX:g}): " + (", ".join(f"{p} {n}" for p, n in top) or "none")
+                + f"; {n_out} of them past 2e-4, by up to {w_out:.3g} (allowed "
+                f"{2.002 * one['runs'][name]['lr_sum']:.3g} more)")
+
+    def line(name):
+        r0, w0 = reps[0]["runs"][name], one["runs"][name]
+        return (f"steps ms one rank {ms3(w0['ms'])}, per rank "
+                f"{[ms3(p['runs'][name]['ms']) for p in reps]}; peak per rank "
+                f"{[gb(p['runs'][name]['peak']) for p in reps]} (one rank {gb(w0['peak'])}); "
+                f"{r0['scalars']} scalars a rank of {w0['scalars']}")
+
+    def shares(r):
+        s = r["share"]
+        return (f"a synced step's forward and backward {s['ms']:.1f} ms: " + ", ".join(
+            f"{p} {d['n']} all-reduces of {d['gb']:.3f} GB in {d['ms']:.1f} ms "
+            f"({d['ms'] / s['ms']:.1%})" for p, d in s["passes"].items() if d["n"]))
+
+    # (a) bf16
+    cfg = runs["bf16"]["cfg"]
+    rows = runs["bf16"]["batch"][0] * runs["bf16"]["batch"][1]
+    m0 = one["runs"]["bf16"]["metrics"]
+    ce = min(v for m in m0 for k, v in m.items() if k.startswith("loss_"))
+    zmax = one["runs"]["bf16"]["zmax"]
+    bound = bf16_tp_train_bound(cfg.num_layers, max(zmax), ce)
+    gap = same_metrics("bf16", bound)
+    say(f"a. {cfg.name} widths (d {cfg.d_model}, {cfg.num_heads} heads, kv "
+        f"{cfg.num_kv_heads}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}) reduced to "
+        f"{cfg.num_layers} layers, exits {cfg.exit_layers}, bf16, {runs['bf16']['steps']} remat "
+        f"steps at {runs['bf16']['batch'][0]} x {runs['bf16']['batch'][1]}: losses and "
+        f"grad_norm per step within rel {gap:.3g} of one rank (the derived bound (2L + 2) 2u "
+        f"max(1, 2 max|z| / loss) = {bound:.4g}, with max|z| of one rank's heads "
+        f"{[round(z, 4) for z in zmax]} before and after the steps and its least head loss "
+        f"{ce:.4f}); one rank's loss "
+        f"{[round(m['loss'], 4) for m in m0]}, grad_norm "
+        f"{[round(m['grad_norm'], 4) for m in m0]}; " + line("bf16") + "; "
+        + shares(reps[0]["runs"]["bf16"]), timed=True)
+    say(f"a. the bf16 reduces on {hold}: model_grad's backward at ({rows}, {cfg.d_model}) the "
+        f"float32 sum of the ranks' gradients rounded once"
+        + (" (bit for bit)" if world == 2 else "") + ", worst gap over its bound "
+        f"{max(p['model_grad'] for p in reps):.3g}; " + ("; ".join(
+            f"_WideMM {leaf} {v['shape']}: forward {v['fwd']:.3g} of K 2^-24 (|x| @ |w|), "
+            f"input and weight gradients bit for bit one device's bf16 product (to float64 "
+            f"{v['dx']:.3g}, {v['dw']:.3g} of max)" for leaf, v in wide.items())
+            if wide is not None else "_WideMM not run (the card's float32-output GEMM only)"),
+        timed=True)
+
+    # (b) the float32 twin, its gradients from the rank files and its
+    # parameters from the ranks' checkpoint
+    cfg = runs["f32"]["cfg"]
+    gap = same_metrics("f32")
+    g_gap, open_ = held_grads("f32")
+    want = one["runs"]["f32"]["params"]
+    tree = local_path_tree(checkpoint.load(os.path.join(out_dir, "f32.msgpack"), want))
+    want = local_path_tree(want)
+    p_b = held_params("f32", want, rank_parts(want, [tree], {p: () for p in want}), open_)
+    n_leaves = len(open_)
+    del tree, want, open_
+    r0 = reps[0]["runs"]["f32"]
+    assert all(p["runs"]["f32"]["ckpt_back"] for p in reps)
+    say(f"b. float32 twin ({cfg.num_layers} layers, exits {cfg.exit_layers}, "
+        f"{runs['f32']['batch'][0]} x {runs['f32']['batch'][1]}, {runs['f32']['steps']} steps): "
+        f"losses and grad_norm within rel {gap:.3g}; each step's gradients, "
+        f"{n_leaves} leaves, {r0['scalars']} scalars a rank, within "
+        f"{g_gap:.3g} of max|g| (rtol 2e-4, atol 2e-4 max|g|); " + open_line("f32", *p_b)
+        + f"; the params read with checkpoint.load from the ranks' file of one device's layout "
+        f"(written in {r0['ckpt_save_s']:.2f} s, reloaded bit for bit on every rank); "
+        f"{r0['replicated_equal']} replicated leaves bit-equal over the ranks; "
+        + line("f32"), timed=True)
+
+    # (c) the MoE step
+    cfg = runs["moe"]["cfg"]
+    by_path = whole_specs(cfg, make_debug_mesh(1, world))
+    gap = same_metrics("moe")
+    g_gap, open_ = held_grads("moe")
+    files = [os.path.join(out_dir, f"moe_params{m}.pt") for m in range(world)]
+    blocks = [torch.load(f, mmap=True) for f in files]
+    w0 = one["runs"]["moe"]
+    p_c = held_params("moe", w0["params"], rank_parts(w0["params"], blocks, by_path), open_)
+    del blocks, open_
+    r0 = reps[0]["runs"]["moe"]
+    assert sum(w0["dropped"]) > 0, "no token dropped: the MoE check needs drops"
+    for p in reps:
+        assert p["runs"]["moe"]["dropped"] == w0["dropped"], (p["runs"]["moe"]["dropped"],
+                                                              w0["dropped"])
+    say(f"c. {cfg.name} widths ({cfg.moe_num_experts} experts top-{cfg.moe_top_k}, "
+        f"{cfg.moe_num_experts // world} a rank) reduced to {cfg.num_layers} layers, capacity "
+        f"factor {cfg.moe_capacity_factor}, float32, one step at {runs['moe']['batch'][0]} x "
+        f"{runs['moe']['batch'][1]}: dropped (token, slot) pairs per layer {r0['dropped']} on "
+        f"every rank, as on one; metrics within rel {gap:.3g}; the step's gradients within "
+        f"{g_gap:.3g} of max|g|; " + open_line("moe", *p_c) + "; " + line("moe"), timed=True)
+    for f in os.listdir(out_dir):  # the large files
+        if f.endswith((".pt", ".msgpack")):
+            os.remove(os.path.join(out_dir, f))
+
+    # (d) the trained model, calibrated and served over the mesh
+    for name in ("bf16", "uncut"):
+        if "levels" not in runs.get(name, {}):
+            continue
+        cfg = runs[name]["cfg"]
+        r0 = reps[0]["runs"][name]
+        d0 = r0["serve"]
+        for p in reps[1:]:  # every rank returns one device's decisions
+            for key, d in p["runs"][name]["serve"]["plans"].items():
+                for level, e in d["engine"].items():
+                    np.testing.assert_array_equal(
+                        e["on_device"], d0["plans"][key]["engine"][level]["on_device"])
+        if name == "uncut":
+            b, s = runs[name]["batch"]
+            for p in reps:
+                u = p["runs"][name]
+                assert u["scalars"] * world >= cfg.param_count(), (u["scalars"], cfg.param_count())
+                assert all(np.isfinite(m["loss"]) for m in u["metrics"])
+            say(f"{cfg.name} uncut ({cfg.num_layers} layers, param_count {cfg.param_count()}), "
+                f"bf16, {runs[name]['steps']} remat steps at {b} x {s}: "
+                f"{[p['runs'][name]['scalars'] for p in reps]} scalars a rank; losses "
+                f"{[round(m['loss'], 4) for m in r0['metrics']]}, grad_norm "
+                f"{[round(m['grad_norm'], 4) for m in r0['metrics']]}; steps ms per rank "
+                f"{[ms3(p['runs'][name]['ms']) for p in reps]}; peak per rank "
+                f"{[gb(p['runs'][name]['peak']) for p in reps]}; " + shares(r0), timed=True)
+        say(f"d. {name}: the eval step's whole-vocab exit logits of {spec['val'][0]} x "
+            f"{spec['val'][1]} validation tokens in {d0['eval_ms']:.1f} ms; K2 fit (T, plain T, "
+            f"NLLs) {[tuple(round(v, 6) for v in f) for f in d0['fits']]}; planted T* = 1.5: "
+            f"K2 {d0['planted'][0]:.6f}, plain {d0['planted'][1]:.6f}", timed=True)
+        for key, d in d0["plans"].items():
+            one_r = d["one_rank"]
+            say(f"d. {name}, plan of the {key} temperatures "
+                f"{[round(t, 6) for t in d['temperatures']]}, p_tar {d['p_tar']:.9g}: lm_engine "
+                f"over the mesh " + ", ".join(
+                    f"level {lv} {e['ms']:.1f} ms, {e['offloaded']} offloaded, "
+                    f"{e['payload_bytes']} payload bytes" for lv, e in d["engine"].items())
+                + f"; rank 0 serving the same weights gathered whole on one rank: exit-0 "
+                f"confidences within rel {one_r['conf_gap']:.3g} of the mesh's (bound "
+                f"{one_r['conf_bound']:.3g}), decisions equal on the {one_r['clear']} of "
+                f"{one_r['rows']} rows away from p_tar +- 1e-6 (on every row: "
+                f"{one_r['equal']}), ms {[round(v, 1) for v in one_r['ms'].values()]}",
+                timed=True)
+    counts = {}
+    for p in reps:
+        for k, v in p["launches"].items():
+            counts[k] = counts.get(k, 0) + v
+    say("launches per rank (K1, K3, K4, K2): " + "; ".join(
+        f"rank {p['rank']} {tuple(p['launches'].values())}" for p in reps))
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -4160,6 +5061,10 @@ def main() -> int:
                                          say=say), in_ranks=True)
 
     # ---------------------------------------------------------------- 16
+    run_phase("tp_train", lambda say: tp_train_phase(
+        cuda, tp_train_spec(), os.path.join(ckpt_dir, "tp_train"), say=say), in_ranks=True)
+
+    # ---------------------------------------------------------------- 17
     launches = {n: sum(c[n] for c in phase_launches.values()) for n in kernels}
     table = []
     for n in kernels:
@@ -4182,4 +5087,6 @@ if __name__ == "__main__":
         sys.exit(rank_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--tp":
         sys.exit(tp_rank_main(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--tp-train":
+        sys.exit(tp_train_rank_main(sys.argv[2]))
     sys.exit(main())

@@ -32,16 +32,21 @@ rank 0's, and every collective it issues is recorded instead of issued,
 so ``collective_bytes`` and ``collective_counts`` hold the step's
 collective schedule and ``flops``, ``bytes_accessed`` and the memory are
 one card's, as the reference's are one device's (``traced_as``:
-``"rank 0"``). A train pair on a model axis above one rank (the
-tensor-parallel train step is not ported) and a family that does not
-run tensor-parallel (mamba, the hybrids, whisper) on one are traced as
-the whole step on one card instead (``traced_as``: ``"one card"``),
-their collectives ``null`` with the reason in ``collectives_note``. On
-one card (``1x1``) the step issues no collective and both are empty.
+``"rank 0"``). A train step's schedule holds its backward's all-reduces
+and, with remat, the ones its checkpointed layers issue again while they
+recompute; ``collective_passes`` splits the counts and bytes by pass
+(forward, backward, recompute). A family that does not run
+tensor-parallel (mamba, the hybrids, whisper) on a model axis above one
+rank is traced as the whole step on one card instead (``traced_as``:
+``"one card"``), its collectives ``null`` with the reason in
+``collectives_note``. On one card (``1x1``) the step issues no
+collective and both are empty.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-8b --shape train_4k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --device cpu [--mesh 16x16 --zero1]
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-72b --shape train_4k \
+      --mesh 1x2 --smoke --device cpu
 Results land in build/dryrun/<arch>__<shape>__<mesh>[__<variant>[_zero1]].json.
 """
 from __future__ import annotations
@@ -62,8 +67,9 @@ from repro_torch.configs import INPUT_SHAPES, get_config, get_smoke, list_archs
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.launch import hlo_cost
 from repro_torch.launch.mesh import MeshSpec, make_debug_mesh
-from repro_torch.launch.serve import check_mesh, make_prefill_step, make_serve_step
+from repro_torch.launch.serve import make_prefill_step, make_serve_step
 from repro_torch.models import registry
+from repro_torch.sharding import check_mesh
 from repro_torch.training import optim
 from repro_torch.training.loop import make_train_step
 
@@ -167,9 +173,6 @@ def untraceable(cfg: ModelConfig, shape: ShapeConfig, mesh: MeshSpec):
     it can)."""
     if sharding.model_size(mesh) == 1:
         return None
-    if shape.kind == "train":
-        return ("the tensor-parallel train step is not ported: a train step over a model "
-                "axis above one rank cannot be traced yet")
     try:
         check_mesh(cfg, mesh)
     except NotImplementedError as e:
@@ -199,7 +202,7 @@ def run_one(arch: str, shape_name: str, outdir: str = os.path.join("build", "dry
         whole = parts if rank is None else build_step(cfg, shape, dev)[2]
     trace_s = time.perf_counter() - t0
     if note is not None:
-        cost = dict(cost, collective_bytes=None, collective_counts=None)
+        cost = dict(cost, collective_bytes=None, collective_counts=None, collective_passes=None)
 
     # specs over the described mesh, from the whole parts' shapes
     pspecs = sharding.param_specs(whole["params"], mesh_spec)
@@ -237,6 +240,7 @@ def run_one(arch: str, shape_name: str, outdir: str = os.path.join("build", "dry
         "bytes_accessed": cost["bytes"],
         "collective_bytes": cost["collective_bytes"],
         "collective_counts": cost["collective_counts"],
+        "collective_passes": cost["collective_passes"],
         **({} if note is None else {"collectives_note": note}),
         "roofline_s": {"compute": cost["flops"] / H100_BF16_FLOP_PER_S,
                        "memory": cost["bytes"] / H100_HBM_BYTES_PER_S},
@@ -271,6 +275,7 @@ def main(argv=None):
     ap.add_argument("--zero1", action="store_true", help="ZeRO-1 optimizer sharding")
     ap.add_argument("--variant", default="baseline", choices=sorted(VARIANTS))
     ap.add_argument("--device", default=None, help="cuda (the default) or cpu")
+    ap.add_argument("--smoke", action="store_true", help="each arch's smoke config")
     ap.add_argument("--outdir", default=os.path.join("build", "dryrun"))
     args = ap.parse_args(argv)
 
@@ -281,7 +286,7 @@ def main(argv=None):
     for arch, shape in pairs:
         try:
             r = run_one(arch, shape, args.outdir, mesh=args.mesh, zero1=args.zero1,
-                        variant=args.variant, device=args.device)
+                        variant=args.variant, device=args.device, smoke=args.smoke)
             print(f"OK   {arch:24s} {shape:12s} {r['mesh']:8s} flops={r['flops']:.3e} "
                   f"bytes={r['bytes_accessed']:.3e} peak={r['memory']['peak_bytes']:.3e} "
                   f"fits={r['fits_one_card']} ({r['trace_s']}s)")

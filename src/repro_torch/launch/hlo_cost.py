@@ -29,6 +29,8 @@ storage, no kernel launched) and costs what ran:
          ``all-reduce`` of its W-block buffer. Empty for a step on one card.
          Traced as one rank of a described mesh (`MeshSpec.as_rank`) the
          step issues nothing and each collective is only recorded.
+  collective_passes  the same split by the pass that issued them
+         (forward, backward, a checkpointed layer's recompute).
 """
 from __future__ import annotations
 
@@ -128,4 +130,5 @@ def analyze(step, *args, **kwargs):
     assert set(log.counts) <= set(COLLECTIVES), dict(log.counts)
     return {"flops": int(flops.get_total_flops()), "bytes": int(moved.bytes),
             "collective_bytes": dict(log.bytes), "collective_counts": dict(log.counts),
+            "collective_passes": log.by_pass(),
             "peak_bytes": int(live.peak)}

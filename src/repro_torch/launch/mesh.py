@@ -25,10 +25,33 @@ all-reduces, the one collective that both NCCL and gloo take on CUDA
 tensors, so the same code runs on either backend. While
 `record_collectives` is open each one is also logged (its kind, the
 bytes of its operand, a count, and with ``timed`` its seconds on the
-host clock between two device syncs). A described mesh traced as one of
-its ranks (`MeshSpec.as_rank`, the dry run's) has no process group: its
-collectives are logged and not issued, so a step of a 256-rank mesh can
-be traced in one process.
+host clock between two device syncs), under the pass that issued it: the
+forward, the backward, or a checkpointed layer's recompute during the
+backward. A described mesh traced as one of its ranks (`MeshSpec.as_rank`,
+the dry run's) has no process group: its collectives are logged and not
+issued, so a step of a 256-rank mesh can be traced in one process.
+
+On a differentiable path a collective goes through one of the three
+autograd functions of the model axis (Megatron's conjugate pairs), never
+through `all_sum` itself, which autograd does not see:
+
+  `model_sum`    forward: the sum over the model ranks (a vocab-parallel
+                 embedding's rows, a row-parallel product's float32
+                 partials); backward: identity, since every rank's output
+                 gradient is already the whole one.
+  `model_grad`   forward: identity; backward: the sum of the ranks'
+                 gradients (in float32, rounded once). For a replicated
+                 activation entering a split region (the MLP's, q/k/v's,
+                 the heads' and the MoE buffer's input) and for a replicated
+                 leaf or gate applied to this rank's heads or slots
+                 (``q_norm``, ``k_norm``, the MoE gates): each rank's
+                 gradient covers only its part.
+  `model_gather` forward: the shards gathered whole along a dim (the
+                 vocab); backward: this rank's slice of the gradient,
+                 since the loss above it is the same on every rank.
+
+`gather_whole` is the inverse of `sharding.local_shards`: a local tree
+back to whole leaves, leaf by leaf to the host (checkpoints).
 """
 from __future__ import annotations
 
@@ -156,20 +179,61 @@ def join_ranks(device=None, model: int = 1) -> Tuple[MeshSpec, str]:
 
 
 # ---------------------------------------------------------------- collectives
+PASSES = ("forward", "backward", "recompute")
+
+
+def _pass(backward: bool) -> str:
+    """The pass issuing a collective: a backward function's own, else a
+    forward run inside the autograd engine (a checkpointed layer's
+    recompute), else the forward."""
+    if backward:
+        return "backward"
+    return "recompute" if torch._C._current_graph_task_id() != -1 else "forward"
+
+
 class CollectiveLog:
-    """Per collective kind (the reference's names): the operand bytes and
-    the count of the collectives issued while it is open, and with
-    `timed` the host seconds each took between two device syncs."""
+    """Per pass (`PASSES`) and collective kind (the reference's names):
+    the operand bytes and the count of the collectives issued while it is
+    open, and with `timed` the host seconds each took between two device
+    syncs (`passes`); `bytes`, `counts` and `seconds` sum them over the
+    passes."""
 
     def __init__(self, timed: bool = False):
         self.timed = timed
-        self.bytes = defaultdict(int)
-        self.counts = defaultdict(int)
-        self.seconds = defaultdict(float)
+        self.passes = {p: {"bytes": defaultdict(int), "counts": defaultdict(int),
+                           "seconds": defaultdict(float)} for p in PASSES}
 
-    def add(self, kind: str, x: torch.Tensor):
-        self.bytes[kind] += x.numel() * x.element_size()
-        self.counts[kind] += 1
+    def _total(self, what):
+        out = {}
+        for d in self.passes.values():
+            for kind, v in d[what].items():
+                out[kind] = out.get(kind, 0) + v
+        return out
+
+    @property
+    def bytes(self):
+        return self._total("bytes")
+
+    @property
+    def counts(self):
+        return self._total("counts")
+
+    @property
+    def seconds(self):
+        return self._total("seconds")
+
+    def add(self, kind: str, x: torch.Tensor, where: str = "forward"):
+        self.passes[where]["bytes"][kind] += x.numel() * x.element_size()
+        self.passes[where]["counts"][kind] += 1
+
+    def add_seconds(self, kind: str, s: float, where: str = "forward"):
+        self.passes[where]["seconds"][kind] += s
+
+    def by_pass(self):
+        """{pass: {"counts": ..., "bytes": ...}} of the passes that issued
+        a collective."""
+        return {p: {"counts": dict(d["counts"]), "bytes": dict(d["bytes"])}
+                for p, d in self.passes.items() if d["counts"]}
 
 
 _LOG: Optional[CollectiveLog] = None
@@ -191,16 +255,18 @@ def _sync(x: torch.Tensor):
         torch.cuda.synchronize(x.device)
 
 
-def all_sum(x: torch.Tensor, group) -> torch.Tensor:
+def all_sum(x: torch.Tensor, group, backward: bool = False) -> torch.Tensor:
     """Sum `x` over the ranks of `group`, in place; returns `x`. A None
     group is a described mesh's (`MeshSpec.as_rank`): the call is logged
     and leaves `x` as it is, and outside `record_collectives` it raises,
-    since no rank would add its part."""
+    since no rank would add its part. `backward`: issued by a backward
+    function (logged under that pass)."""
     import torch.distributed as dist
 
     log = _LOG
     if log is not None:
-        log.add("all-reduce", x)
+        where = _pass(backward)
+        log.add("all-reduce", x, where)
     if group is None:
         if log is None:
             raise ValueError("a collective over a described mesh (no process group) runs "
@@ -211,7 +277,7 @@ def all_sum(x: torch.Tensor, group) -> torch.Tensor:
         t0 = time.perf_counter()
         dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
         _sync(x)
-        log.seconds["all-reduce"] += time.perf_counter() - t0
+        log.add_seconds("all-reduce", time.perf_counter() - t0, where)
         return x
     dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
     return x
@@ -232,3 +298,93 @@ def gather_cat(block: torch.Tensor, index: int, n: int, group, dim: int = 0) -> 
     `gather_blocks`)."""
     d = dim % block.dim()
     return gather_blocks(block.contiguous(), index, n, group).movedim(0, d).flatten(d, d + 1)
+
+
+# ------------------------------------------- differentiable collectives
+class _ModelSum(torch.autograd.Function):
+    """Forward: `all_sum` over the group, in place on `x` (marked dirty:
+    the callers pass a tensor no other op saved). Backward: identity."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.mark_dirty(x)
+        return all_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _ModelGrad(torch.autograd.Function):
+    """Forward: identity. Backward: the gradient summed over the group in
+    float32 and rounded once to its dtype."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        total = g.to(torch.float32, copy=True).contiguous()
+        return all_sum(total, ctx.group, backward=True).to(g.dtype), None
+
+
+class _ModelGather(torch.autograd.Function):
+    """Forward: the ranks' shards concatenated along `dim`. Backward: this
+    rank's slice of the gradient (no collective)."""
+
+    @staticmethod
+    def forward(ctx, x, index, n, group, dim):
+        ctx.index, ctx.dim, ctx.size = index, dim % x.dim(), x.shape[dim]
+        return gather_cat(x, index, n, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.index * ctx.size, ctx.size), None, None, None, None
+
+
+def model_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of `x` over the model ranks of `group`, in place; the
+    gradient passes through unchanged (each rank's output gradient is the
+    whole one). A described mesh's None group leaves `x` as it is."""
+    return _ModelSum.apply(x, group)
+
+
+def model_grad(x: torch.Tensor, group) -> torch.Tensor:
+    """`x` unchanged; its gradient is summed over the model ranks of
+    `group` (float32, rounded once). For a replicated activation or leaf
+    whose uses on this rank cover only its part of a split width."""
+    return _ModelGrad.apply(x, group)
+
+
+def model_gather(x: torch.Tensor, index: int, n: int, group, dim: int = -1) -> torch.Tensor:
+    """Every model rank's shard of `x` concatenated along `dim`; the
+    gradient of the whole is cut back to this rank's shard."""
+    return _ModelGather.apply(x, index, n, group, dim)
+
+
+def gather_whole(tree, specs, mesh: MeshSpec):
+    """The whole leaves of a tree of this rank's slices (the inverse of
+    `sharding.local_shards` under the same `specs`), each gathered over
+    the axes that split it and moved to the host as it comes, so the card
+    holds one whole leaf at a time. Every rank of the split axes must
+    call it; each gets the whole tree."""
+    import torch.utils._pytree as pytree
+
+    leaves, treedef = pytree.tree_flatten(tree)
+    spec_leaves = pytree.tree_leaves(specs, is_leaf=lambda s: isinstance(s, tuple))
+    if len(spec_leaves) != len(leaves):
+        raise ValueError(f"{len(leaves)} leaves against {len(spec_leaves)} specs")
+    out = []
+    for leaf, spec in zip(leaves, spec_leaves):
+        whole = leaf
+        for dim, ax in enumerate(spec):
+            if ax is None or mesh.axis_size(ax) == 1:
+                continue
+            if not isinstance(ax, str):
+                raise ValueError(f"gather_whole takes one axis a dim, not {ax}")
+            whole = gather_cat(whole, mesh.coordinate(ax), mesh.axis_size(ax), mesh.group(ax),
+                               dim)
+        out.append(whole.detach().cpu())
+    return pytree.tree_unflatten(out, treedef)

@@ -35,18 +35,14 @@ run over a model axis above one rank.
 """
 from __future__ import annotations
 
-import contextlib
-
 import torch
 
-from repro_torch import sharding
-from repro_torch._device import as_tensor, require_device, resolve_device
+from repro_torch._device import as_tensor, require_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.exits import gate_statistics
 from repro_torch.core.policy import OffloadPlan
-from repro_torch.data.pipeline import shard_batch
-from repro_torch.launch.mesh import gather_cat
-from repro_torch.models import moe, registry, transformer
+from repro_torch.models import registry, transformer
+from repro_torch.sharding import check_mesh, mesh_device, mesh_scope, rows_of
 
 
 def _make_exit_gater(cfg: ModelConfig, plan, temperatures):
@@ -86,49 +82,6 @@ def _stack_gates(gates, b, device):
         return (torch.zeros((0, b), device=device),
                 torch.zeros((0, b), dtype=torch.int32, device=device))
     return torch.stack([g[0] for g in gates]), torch.stack([g[1] for g in gates])
-
-
-def check_mesh(cfg: ModelConfig, mesh) -> None:
-    """Raise NotImplementedError when `cfg` cannot run over `mesh`'s model
-    axis: only the attention families (attention in every layer, no
-    encoder) run tensor-parallel."""
-    if sharding.model_size(mesh) == 1:
-        return
-    if cfg.is_encoder_decoder or {m for m, _ in cfg.layer_plan()} != {"attn"}:
-        raise NotImplementedError(
-            f"{cfg.name} over a model axis of {mesh.axis_size('model')} ranks: only the "
-            "attention families run tensor-parallel (mamba, the hybrids and whisper wait "
-            "for their own slice)")
-
-
-def mesh_device(mesh, device):
-    """The steps' device: `device` if named, else a bound mesh's, else
-    `resolve_device`'s."""
-    if device is None and mesh is not None and mesh.device is not None:
-        device = mesh.device
-    return resolve_device(device)
-
-
-@contextlib.contextmanager
-def mesh_scope(mesh, sharded: bool):
-    """Run the models under `mesh` (`sharding.use_mesh`), and the MoE
-    blocks over the data axis when the rows are `sharded` over it."""
-    with sharding.use_mesh(mesh), contextlib.ExitStack() as stack:
-        if sharded:
-            group, index, n = sharding.data_split(mesh)
-            stack.enter_context(moe.data_parallel(group, index, n))
-        yield
-
-
-def rows_of(batch: dict, mesh):
-    """(this rank's rows of a global batch as a dict, whether the ranks
-    of the data axis hold different rows, a function that gathers a
-    tensor's rows (along `dim`) over the data axis when they do)."""
-    sh = None if mesh is None else shard_batch(batch, mesh)
-    if sh is None or not sh.sharded:
-        return batch, False, lambda x, dim=0: x
-    group, index, n = sharding.data_split(mesh)
-    return dict(sh), True, lambda x, dim=0: gather_cat(x, index, n, group, dim)
 
 
 def make_prefill_step(cfg: ModelConfig, plan: OffloadPlan = None,

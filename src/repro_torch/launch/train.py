@@ -23,8 +23,21 @@ of one is the one-device run.
   python -m torch.distributed.run --standalone --nproc-per-node 2 \
       -m repro_torch.launch.train --arch mamba2-130m --smoke --device cpu
 
+With ``--model M`` the W ranks form a (data = W / M, model = M) mesh
+(`join_ranks(model=)`), the counterpart at one machine's size of the
+reference's (data, model) production mesh: each rank draws the seeded
+init and keeps its slices (`init_params(mesh=)`), the data ranks that
+share a model coordinate are checked equal, and the step is
+tensor-parallel over the model axis (`training.loop`; the attention
+families only). ``--ckpt`` gathers the slices and rank 0 writes one
+device's file (`training.checkpoint`).
+
+  python -m torch.distributed.run --standalone --nproc-per-node 2 \
+      -m repro_torch.launch.train --arch qwen3-8b --smoke --model 2 --device cpu
+
 `--production-mesh` (the reference's TPU pod mesh) raises
-NotImplementedError: one machine has no 256- or 512-chip mesh.
+NotImplementedError: one machine has no 256- or 512-chip mesh; ``--model``
+runs the same (data, model) layout on this machine's ranks, and
 `launch.dryrun --mesh 16x16` (or ``2x16x16``) gives the bytes each card of
 such a mesh would hold.
 """
@@ -37,6 +50,7 @@ import time
 import torch
 import torch.utils._pytree as pytree
 
+from repro_torch import sharding
 from repro_torch._device import resolve_device
 from repro_torch.configs import get_config, get_smoke
 from repro_torch.data.pipeline import TokenIterator, prefetch
@@ -44,7 +58,7 @@ from repro_torch.data.synthetic import lm_sequences
 from repro_torch.launch.mesh import gather_blocks, join_ranks
 from repro_torch.models import registry, transformer
 from repro_torch.training import checkpoint, optim
-from repro_torch.training.loop import make_train_step
+from repro_torch.training.loop import make_train_step, whole_specs
 
 
 def _sync(device):
@@ -53,9 +67,9 @@ def _sync(device):
 
 
 def check_same_params(params, mesh):
-    """Raise unless every rank of `mesh`'s data axis holds the same
-    params: each leaf's float64 sum and sum of squares, compared over the
-    ranks."""
+    """Raise unless the ranks along `mesh`'s data axis (those that share
+    this rank's model coordinate) hold the same params: each leaf's
+    float64 sum and sum of squares, compared over them."""
     sums = torch.stack([torch.stack([x.double().sum(), x.double().square().sum()])
                         for x in pytree.tree_leaves(params)])
     every = gather_blocks(sums, mesh.coordinate("data"), mesh.axis_size("data"),
@@ -77,6 +91,8 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--production-mesh", action="store_true")
+    ap.add_argument("--model", type=int, default=1,
+                    help="model-axis ranks under torch.distributed.run (default 1)")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, help="cuda (the default) or cpu")
@@ -84,25 +100,30 @@ def main(argv=None):
 
     if args.production_mesh:
         raise NotImplementedError(
-            "--production-mesh: one card has no 256- or 512-chip mesh; run "
-            "`python -m repro_torch.launch.dryrun --mesh 16x16` (or 2x16x16) for the bytes "
-            "each card of such a mesh would hold")
+            "--production-mesh: one card has no 256- or 512-chip mesh; run the same "
+            "(data, model) layout on this machine's ranks with `--model M` under "
+            "torch.distributed.run, or `python -m repro_torch.launch.dryrun --mesh 16x16` (or "
+            "2x16x16) for the bytes each card of such a mesh would hold")
     mesh = None
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:  # under torch.distributed.run
-        mesh, backend = join_ranks(args.device)
+        mesh, backend = join_ranks(args.device, model=args.model)
         device = mesh.device
+    elif args.model != 1:
+        raise ValueError(f"--model {args.model} needs that many ranks: run under "
+                         "`python -m torch.distributed.run --nproc-per-node W`")
     else:
         device = resolve_device(args.device)
-    lead = mesh is None or mesh.coordinate("data") == 0
+    lead = mesh is None or not any(mesh.coordinate(a) for a in mesh.axis_names)
     say = print if lead else (lambda *a, **k: None)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     say(f"arch={cfg.name} params={cfg.param_count():,} "
         f"active={cfg.active_param_count():,}")
     if mesh is not None:
-        say(f"mesh (data={mesh.axis_size('data')}, model=1) over {backend}, rank 0 on {device}")
+        say(f"mesh (data={mesh.axis_size('data')}, model={mesh.axis_size('model')}) over "
+            f"{backend}, rank 0 on {device}")
 
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = registry.init_params(gen, cfg, device=device)
+    params = registry.init_params(gen, cfg, device=device, mesh=mesh)
     if mesh is not None:
         check_same_params(params, mesh)
     say(f"instantiated params: {transformer.num_params(params):,}")
@@ -145,9 +166,14 @@ def main(argv=None):
                 )
                 + f" gnorm={m['grad_norm']:.2f} ({time.time()-t0:.1f}s)"
             )
-    if args.ckpt and lead:
-        checkpoint.save(args.ckpt, {"params": params,
-                                    "step": torch.tensor(args.steps, dtype=torch.int32)})
+    if args.ckpt:
+        tree = {"params": params, "step": torch.tensor(args.steps, dtype=torch.int32)}
+        by_path = whole_specs(cfg, mesh)
+        if by_path is not None:  # every rank gathers its slices; rank 0 writes
+            checkpoint.save(args.ckpt, tree, mesh,
+                            {"params": sharding.lay_over(params, by_path), "step": ()})
+        elif lead:
+            checkpoint.save(args.ckpt, tree)
         say(f"saved checkpoint to {args.ckpt}")
     return {"params": params, "step_s": step_s, "metrics": step_metrics}
 

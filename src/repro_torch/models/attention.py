@@ -27,6 +27,12 @@ attends over its own heads, and ``wo`` is row-parallel
 h // (qh / kvh); where the kv heads are whole (8 kv heads over 16
 ranks) the rank projects and caches all of them and attends with the
 ones its q heads read (`_rank_kv`).
+
+Under autograd (the tensor-parallel train step) the input of a split
+projection goes through `layers.enter_split`, as do ``q_norm`` and
+``k_norm`` where they scale this rank's heads only; where the kv heads
+are whole, k and v go through it after their projection instead, since
+each rank's attention reads only the kv heads its q heads use.
 """
 from __future__ import annotations
 
@@ -36,6 +42,7 @@ from repro_torch.models.layers import (
     apply_rope,
     cdtype,
     einsum,
+    enter_split,
     normal,
     partial_product,
     promote,
@@ -78,14 +85,18 @@ def _add(x, b):
 
 def _project_qkv(p, cfg, x, positions, rope=True):
     """x: (b, s, d) -> q (b,s,qh,hd), k/v (b,s,kvh,hd)."""
-    q = einsum("bsd,dhk->bshk", x, p["wq"])
-    k = einsum("bsd,dhk->bshk", x, p["wk"])
-    v = einsum("bsd,dhk->bshk", x, p["wv"])
+    qs = split_width(p["wq"].shape[-2], cfg.num_heads)
+    kvs = split_width(p["wk"].shape[-2], cfg.num_kv_heads)
+    xq = enter_split(x, qs)
+    xkv = xq if kvs is not None else x  # whole kv heads: k, v enter in `_rank_kv`
+    q = einsum("bsd,dhk->bshk", xq, p["wq"])
+    k = einsum("bsd,dhk->bshk", xkv, p["wk"])
+    v = einsum("bsd,dhk->bshk", xkv, p["wv"])
     if cfg.qkv_bias:
         q, k, v = _add(q, p["bq"]), _add(k, p["bk"]), _add(v, p["bv"])
     if cfg.qk_norm:
-        q = rms_norm_headwise(q, p["q_norm"])
-        k = rms_norm_headwise(k, p["k_norm"])
+        q = rms_norm_headwise(q, enter_split(p["q_norm"], qs))
+        k = rms_norm_headwise(k, enter_split(p["k_norm"], kvs))
     if rope and cfg.use_rope:
         cos, sin = rope_freqs(cfg, positions)
         q = apply_rope(q, cos, sin)
@@ -104,6 +115,7 @@ def _rank_kv(cfg, q, k, v):
     split = split_width(qh_loc, cfg.num_heads)
     if split is None or k.shape[2] != kvh:
         return k, v
+    k, v = enter_split(k, split), enter_split(v, split)
     g = cfg.num_heads // kvh
     heads = [(split[1] * qh_loc + j) // g for j in range(qh_loc)]
     lo, n = heads[0], heads[-1] - heads[0] + 1

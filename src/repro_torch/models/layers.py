@@ -23,13 +23,21 @@ collective; the products out of one (``w_down``, ``wo``) are
 row-parallel: `reduce_partial` sums each rank's float32 partial over the
 model axis and rounds once to the activation dtype, so a bf16 result
 differs from one device's only by the order of float32 sums.
+
+Under autograd every collective goes through `launch.mesh`'s functions
+of the model axis: the embedding's and the row-parallel sums are
+`model_sum` (the gradient passes through), and a replicated activation
+entering a column-parallel product goes through `enter_split`
+(`model_grad`: its gradient, partial on each rank, is summed over the
+axis), so every replicated leaf gets one device's whole gradient on
+every rank.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.launch.mesh import all_sum
+from repro_torch.launch.mesh import model_grad, model_sum
 from repro_torch.sharding import model_split
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
@@ -72,15 +80,42 @@ def split_width(local: int, width: int):
     return tp
 
 
+def enter_split(x, split):
+    """`x` as the input of a product into a width `split` cuts (its
+    gradient summed over the model ranks), or as it is when `split` is
+    None."""
+    return x if split is None else model_grad(x, split[0])
+
+
+class _WideMM(torch.autograd.Function):
+    """``x @ w`` of 2-D bf16 operands in one GEMM with a float32 output
+    (`torch.mm(..., out_dtype=)`, which has no derivative of its own).
+    Backward as one device's bf16 product: the output gradient, which
+    reaches a partial only through its rounding to bf16 and so is exact in
+    bf16, times the other operand, in bf16."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        return (g @ w.T if ctx.needs_input_grad[0] else None,
+                x.T @ g if ctx.needs_input_grad[1] else None)
+
+
 def partial_product(x, w):
     """``x @ w`` for a 2-D `w`, its sum accumulated and returned in
     float32 (a row-parallel partial, reduced by `reduce_partial`). On the
-    card bf16 operands go through one GEMM with a float32 output;
-    elsewhere they are cast up, which is the same sum (a product of two
-    bf16 values is exact in float32)."""
+    card bf16 operands go through one GEMM with a float32 output
+    (`_WideMM`); elsewhere they are cast up, which is the same sum (a
+    product of two bf16 values is exact in float32)."""
     x, w = promote(x, w)
     if x.dtype != torch.float32 and x.is_cuda:
-        y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        y = _WideMM.apply(x.reshape(-1, x.shape[-1]), w)
         return y.reshape(x.shape[:-1] + (w.shape[1],))
     return x.to(torch.float32) @ w.to(torch.float32)
 
@@ -88,7 +123,7 @@ def partial_product(x, w):
 def reduce_partial(y, split, dtype):
     """Sum a float32 partial over the model ranks of `split` and round it
     once to `dtype`."""
-    return all_sum(y.contiguous(), split[0]).to(dtype)
+    return model_sum(y.contiguous(), split[0]).to(dtype)
 
 
 def row_parallel(x, w, width: int):
@@ -155,6 +190,7 @@ def init_mlp(generator, cfg, d_ff=None):
 
 
 def apply_mlp(p, cfg, x):
+    x = enter_split(x, split_width(p["w_up"].shape[-1], cfg.d_ff))
     up = matmul(x, p["w_up"])
     if cfg.mlp_type == "swiglu":
         up = F.silu(matmul(x, p["w_gate"])) * up
@@ -180,7 +216,7 @@ def apply_embed(p, tokens, vocab=None):
     local = tokens - split[1] * n
     mine = (local >= 0) & (local < n)
     x = p["w"][torch.where(mine, local, 0)] * mine[..., None].to(p["w"].dtype)
-    return all_sum(x, split[0])
+    return model_sum(x, split[0])
 
 
 def init_unembed(generator, cfg):

@@ -28,7 +28,11 @@ sums of their slots' contributions are added by one all-reduce over the
 model axis and rounded once (as `layers.reduce_partial`). Padded experts
 live on the last ranks only and never receive a row. Experts that the
 axis does not divide stay whole on every rank, which runs them all as
-one device.
+one device. Under autograd the tokens entering the buffer and the kept
+gates weighting this rank's slots go through `layers.enter_split`: each
+rank's gradient of them covers its experts' slots only, and the sum
+over the axis is one device's (so the replicated router learns from the
+whole combine).
 
 Under `data_parallel` (W ranks, each with an equal shard of the tokens,
 in rank order: the train step's data mesh) the block keeps the one-device
@@ -55,7 +59,14 @@ import torch.nn.functional as F
 from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.launch.mesh import gather_blocks
-from repro_torch.models.layers import cdtype, einsum, normal, reduce_partial, split_width
+from repro_torch.models.layers import (
+    cdtype,
+    einsum,
+    enter_split,
+    normal,
+    reduce_partial,
+    split_width,
+)
 
 # (process group, this rank's index, ranks) while `data_parallel` is open;
 # module state, not a context variable: a checkpointed layer recomputes
@@ -156,7 +167,7 @@ def apply_moe(p, cfg, x):
         # a fake tensor (the dry run's trace) has no values: size at the bound C
         c_loc = (C if isinstance(kept_here, FakeTensor)
                  else max(1, int(kept_here[e0:e0 + E_loc].max())))
-    gates = gate_vals.reshape(T * k) * keep.to(torch.float32)
+    gates = enter_split(gate_vals.reshape(T * k) * keep.to(torch.float32), tp)
 
     # ---- dispatch: scatter tokens into (E_loc, C_loc, d) buffers (C_loc =
     # C on one device; a kept slot's local position is below C_loc; E_loc
@@ -166,7 +177,7 @@ def apply_moe(p, cfg, x):
     mine = keep if tp is None else keep & (eidx >= e0) & (eidx < e0 + E_loc)
     safe_pos = torch.where(mine, pos, c_loc - 1).to(torch.int64)
     safe_e = eidx if tp is None else torch.where(mine, eidx - e0, 0)
-    src = torch.repeat_interleave(xt, k, dim=0) * mine[:, None].to(xt.dtype)
+    src = torch.repeat_interleave(enter_split(xt, tp), k, dim=0) * mine[:, None].to(xt.dtype)
     buf = xt.new_zeros((E_loc, c_loc, d)).index_put((safe_e, safe_pos), src, accumulate=True)
 
     # ---- expert FFN: (E, C, d) x (E, d, f) ----

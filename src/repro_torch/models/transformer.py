@@ -38,7 +38,10 @@ None, "tp"), and are gathered (`gather_vocab`) where one device's whole
 rows are needed: the exit logits before their gates, the prefill's and
 the cloud partition's final logits. Decode keeps its final logits as
 this rank's shard; `vocab_argmax` takes the global argmax from the
-shards.
+shards. `forward_train` returns every head's logits as this rank's vocab
+shard (the loss is vocab-parallel, `training.losses.softmax_xent`); the
+heads' input enters the split through `layers.enter_split`, and
+`gather_vocab` is differentiable (`launch.mesh.model_gather`).
 """
 from __future__ import annotations
 
@@ -52,7 +55,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import sharding
 from repro_torch._device import as_tensor, require_device, resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.launch.mesh import gather_blocks, gather_cat
+from repro_torch.launch.mesh import gather_blocks, model_gather
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mb
 from repro_torch.models.layers import (
@@ -61,6 +64,7 @@ from repro_torch.models.layers import (
     apply_norm,
     apply_unembed,
     cdtype,
+    enter_split,
     init_embed,
     init_mlp,
     init_norm,
@@ -261,25 +265,27 @@ def _lm_logits(params, cfg, x):
     """The final head's logits: this rank's vocab shard under a model axis
     (column-parallel; the tied embedding's rows are its vocab)."""
     h = apply_norm(params["final_norm"], cfg, x)
-    if cfg.tie_embeddings:
-        return matmul(h, params["embed"]["w"].T)
-    return apply_unembed(params["lm_head"], h)
+    w = params["embed"]["w"].T if cfg.tie_embeddings else params["lm_head"]["w"]
+    return matmul(enter_split(h, split_width(w.shape[-1], cfg.vocab_size)), w)
 
 
 def exit_logits_fn(params, cfg, i, x):
     """Exit `i`'s logits: this rank's vocab shard under a model axis."""
     ep = params["exits"][i]
-    return apply_unembed(ep["head"], apply_norm(ep["norm"], cfg, x))
+    h = apply_norm(ep["norm"], cfg, x)
+    return apply_unembed(ep["head"], enter_split(h, split_width(ep["head"]["w"].shape[-1],
+                                                                cfg.vocab_size)))
 
 
 def gather_vocab(logits, cfg):
     """Whole (..., V) rows from this rank's vocab shards (one all-reduce
-    of the ranks' blocks, exact); logits that are whole pass through."""
+    of the ranks' blocks, exact; the gradient is cut back to the shard);
+    logits that are whole pass through."""
     split = split_width(logits.shape[-1], cfg.vocab_size)
     if split is None:
         return logits
     group, index, n = split
-    return gather_cat(logits, index, n, group, dim=-1)
+    return model_gather(logits, index, n, group, dim=-1)
 
 
 def vocab_argmax(logits, cfg):

@@ -30,8 +30,8 @@ import torch.utils._pytree as pytree
 from repro_torch._device import as_tensor, require_device, resolve_device, to_numpy
 from repro_torch.core.policy import OffloadPlan
 from repro_torch.kernels import compress
-from repro_torch.launch.serve import check_mesh, mesh_device, mesh_scope, rows_of
 from repro_torch.models import convnet, transformer
+from repro_torch.sharding import check_mesh, mesh_device, mesh_scope, rows_of
 
 
 @dataclass

@@ -51,7 +51,9 @@ from typing import Optional
 import torch
 import torch.utils._pytree as pytree
 
-from repro_torch.launch.mesh import MeshSpec
+from repro_torch._device import resolve_device
+from repro_torch.data.pipeline import shard_batch
+from repro_torch.launch.mesh import MeshSpec, gather_cat
 
 
 # the mesh the models run under while `use_mesh` is open
@@ -97,6 +99,52 @@ def data_split(mesh: Optional[MeshSpec]):
         return None
     group = mesh.group(axes[0]) if len(axes) == 1 else None
     return group, local_index(axes, mesh), n
+
+
+# ------------------------------------------------ the steps over a mesh
+def check_mesh(cfg, mesh) -> None:
+    """Raise NotImplementedError when `cfg` cannot run over `mesh`'s model
+    axis: only the attention families (attention in every layer, no
+    encoder) run tensor-parallel."""
+    if model_size(mesh) == 1:
+        return
+    if cfg.is_encoder_decoder or {m for m, _ in cfg.layer_plan()} != {"attn"}:
+        raise NotImplementedError(
+            f"{cfg.name} over a model axis of {mesh.axis_size('model')} ranks: only the "
+            "attention families run tensor-parallel (mamba, the hybrids and whisper wait "
+            "for their own slice)")
+
+
+def mesh_device(mesh, device):
+    """A step's device: `device` if named, else a bound mesh's, else
+    `resolve_device`'s."""
+    if device is None and mesh is not None and mesh.device is not None:
+        device = mesh.device
+    return resolve_device(device)
+
+
+@contextlib.contextmanager
+def mesh_scope(mesh, sharded: bool):
+    """Run the models under `mesh` (`use_mesh`), and the MoE blocks over
+    the data axis when the rows are `sharded` over it."""
+    from repro_torch.models import moe  # the models import this module
+
+    with use_mesh(mesh), contextlib.ExitStack() as stack:
+        if sharded:
+            group, index, n = data_split(mesh)
+            stack.enter_context(moe.data_parallel(group, index, n))
+        yield
+
+
+def rows_of(batch: dict, mesh):
+    """(this rank's rows of a global batch as a dict, whether the ranks
+    of the data axis hold different rows, a function that gathers a
+    tensor's rows (along `dim`) over the data axis when they do)."""
+    sh = None if mesh is None else shard_batch(batch, mesh)
+    if sh is None or not sh.sharded:
+        return batch, False, lambda x, dim=0: x
+    group, index, n = data_split(mesh)
+    return dict(sh), True, lambda x, dim=0: gather_cat(x, index, n, group, dim)
 
 
 def _spec(*entries) -> tuple:
@@ -202,6 +250,21 @@ def param_specs(params, mesh: Optional[MeshSpec]):
     """A spec tree matching `params` (tensors, meta tensors or anything
     with a ``shape``)."""
     return _map_with_path(lambda p, leaf: spec_for(p, leaf.shape, mesh), params)
+
+
+def specs_by_path(whole, mesh: Optional[MeshSpec]) -> dict:
+    """{tree path: spec} of the whole params `whole` (one device's shapes,
+    meta tensors will do) over `mesh`: what a rank's slices of them are
+    cut and gathered by, whatever order a tree's dicts hold their keys in
+    (`lay_over`)."""
+    flat = pytree.tree_flatten_with_path(param_specs(whole, mesh), is_leaf=_is_spec)[0]
+    return {path_str(p): spec for p, spec in flat}
+
+
+def lay_over(tree, by_path: dict):
+    """A spec tree shaped like `tree` (a rank's slices), each leaf's spec
+    looked up by its path in `specs_by_path`'s map."""
+    return _map_with_path(lambda p, leaf: by_path[p], tree)
 
 
 # ------------------------------------------------------------ local shards

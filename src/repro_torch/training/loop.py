@@ -27,6 +27,23 @@ losses are the global batch's (the mean of the ranks'; every shard has
 the same size) and ``grad_norm`` is the reduced gradient's. Where the
 ranks do not divide the batch every rank runs the one-device step on all
 of it, and nothing is reduced.
+
+Tensor parallelism (a (data, model) mesh with model > 1, from
+`join_ranks(model=)`; params from `init_params(mesh=)` or
+`params_from_jax(mesh=)`, moments from `optim.init` of them): the step
+runs the model under `sharding.use_mesh`, each rank holding its slices;
+every collective on the loss's path is one of `launch.mesh`'s autograd
+functions, the loss is vocab-parallel (`losses.softmax_xent`), and a
+rank's gradient of a split leaf is its block of one device's while a
+replicated leaf's is the whole of it, the same on every model rank.
+Gradients and metrics are averaged over the data axis only (as above),
+the global norm adds the split leaves over the model axis and counts
+the replicated ones once (`optim.global_norm`), and each rank updates
+its blocks: the reference's one-device step, cut. Only the attention
+families run so (`sharding.check_mesh` raises for the others). The
+eval step over such a mesh returns whole-vocab logits
+(`transformer.gather_vocab`) of the whole batch on every rank, as
+calibration reads them.
 """
 from __future__ import annotations
 
@@ -35,12 +52,13 @@ import contextlib
 import torch
 import torch.utils._pytree as pytree
 
+from repro_torch import sharding
 from repro_torch._device import as_tensor, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data.pipeline import Shard, shard_batch
 from repro_torch.launch.mesh import all_sum
-from repro_torch.models import moe, registry
-from repro_torch.sharding import data_split
+from repro_torch.models import moe, registry, transformer
+from repro_torch.sharding import check_mesh, data_split, mesh_device, mesh_scope, rows_of
 from repro_torch.training import optim
 from repro_torch.training.losses import multi_exit_loss, softmax_xent
 
@@ -62,7 +80,7 @@ def loss_fn(params, cfg: ModelConfig, batch, remat: bool = True):
         metrics["loss"] = loss
         return loss, metrics
     return multi_exit_loss(out, batch["labels"], cfg.exit_loss_weights,
-                           cfg.moe_aux_loss_weight)
+                           cfg.moe_aux_loss_weight, vocab=cfg.vocab_size)
 
 
 def _on(device, params, batch):
@@ -86,14 +104,29 @@ def _mean_over(tensors, group, world: int):
     return out
 
 
-def make_train_step(cfg: ModelConfig, opt_cfg: optim.AdamWConfig, remat: bool = True,
-                    device=None, inplace: bool = False, mesh=None):
+def whole_specs(cfg: ModelConfig, mesh):
+    """{tree path: spec} of `cfg`'s whole params over `mesh`
+    (`sharding.specs_by_path`); None without a model axis above one
+    rank."""
+    if sharding.model_size(mesh) == 1:
+        return None
+    return sharding.specs_by_path(registry.param_specs_shapes(cfg), mesh)
+
+
+def make_grad_fn(cfg: ModelConfig, remat: bool = True, device=None, mesh=None):
+    """The train step's first half, the counterpart of the reference's
+    ``jax.value_and_grad(loss_fn, has_aux=True)``: (params, batch) ->
+    (metrics, grads, params as the step saw them), on `device` and over
+    `mesh` as `make_train_step` describes; the grads are a tree shaped
+    like `params`, a split leaf's this rank's block, averaged over the
+    data axis; the metrics are detached, the global batch's."""
+    check_mesh(cfg, mesh)
     split = None if mesh is None else data_split(mesh)
     world = 1 if split is None else split[2]
     if device is None and mesh is not None:
         device = mesh.device
 
-    def train_step(params, opt_state, batch):
+    def grad_fn(params, batch):
         dev = resolve_device(device)
         if world > 1 and not isinstance(batch, Shard):
             batch = shard_batch(batch, mesh)
@@ -104,7 +137,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: optim.AdamWConfig, remat: bool = 
         leaves = [p.detach().requires_grad_(True) for p in leaves]
         scope = (moe.data_parallel(group, split[1], world) if dp
                  else contextlib.nullcontext())
-        with torch.enable_grad(), scope:
+        with torch.enable_grad(), sharding.use_mesh(mesh), scope:
             loss, metrics = loss_fn(pytree.tree_unflatten(leaves, spec), cfg, batch, remat)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                         materialize_grads=True)
@@ -115,22 +148,45 @@ def make_train_step(cfg: ModelConfig, opt_cfg: optim.AdamWConfig, remat: bool = 
             names = list(metrics)
             metrics = dict(zip(names, _mean_over([metrics[k].to(torch.float32) for k in names],
                                                  group, world)))
-        params, opt_state, opt_metrics = optim.update(
-            opt_cfg, pytree.tree_unflatten([p.detach() for p in leaves], spec),
-            pytree.tree_unflatten(list(grads), spec), opt_state, inplace=inplace)
+        return (metrics, pytree.tree_unflatten(list(grads), spec),
+                pytree.tree_unflatten([p.detach() for p in leaves], spec))
+
+    return grad_fn
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: optim.AdamWConfig, remat: bool = True,
+                    device=None, inplace: bool = False, mesh=None):
+    grad_fn = make_grad_fn(cfg, remat, device, mesh)
+    by_path = whole_specs(cfg, mesh)
+
+    def train_step(params, opt_state, batch):
+        metrics, grads, params = grad_fn(params, batch)
+        split = None
+        if by_path is not None:  # which of the grads' leaves the model axis splits
+            flat = pytree.tree_flatten_with_path(grads)[0]
+            split = (["model" in by_path[sharding.path_str(p)] for p, _ in flat],
+                     mesh.group("model"))
+        params, opt_state, opt_metrics = optim.update(opt_cfg, params, grads, opt_state,
+                                                      inplace=inplace, split=split)
         metrics.update(opt_metrics)
         return params, opt_state, metrics
 
     return train_step
 
 
-def make_eval_step(cfg: ModelConfig, device=None):
-    """Returns per-sample (exit_logits list, final logits) for calibration."""
+def make_eval_step(cfg: ModelConfig, device=None, mesh=None):
+    """Returns per-sample (exit_logits list, final logits) for calibration.
+    Over `mesh` every rank is called with the same global batch and
+    returns one device's whole-vocab logits of all of it."""
+    check_mesh(cfg, mesh)
 
     def eval_step(params, batch):
-        params, batch = _on(resolve_device(device), params, batch)
-        with torch.no_grad():
-            out = registry.forward_train(params, cfg, batch, remat=False)
-        return {"logits": out["logits"], "exit_logits": out["exit_logits"]}
+        params, batch = _on(mesh_device(mesh, device), params, batch)
+        rows, sharded, gather = rows_of(batch, mesh)
+        with torch.no_grad(), mesh_scope(mesh, sharded):
+            out = registry.forward_train(params, cfg, rows, remat=False)
+            return {"logits": gather(transformer.gather_vocab(out["logits"], cfg)),
+                    "exit_logits": [gather(transformer.gather_vocab(z, cfg))
+                                    for z in out["exit_logits"]]}
 
     return eval_step

@@ -16,6 +16,13 @@ the parameters' device, so an update never waits on the host.
 `torch.optim.AdamW` is not used: its clip and decay differ.
 `state_specs` lays out the moments over a described mesh (ZeRO-1), for
 `launch.dryrun`'s per-card bytes.
+
+Over a model axis (``split``: which gradient leaves are this rank's block
+of a split leaf, and the axis's process group) the global norm adds the
+split leaves' squares over the ranks, one all-reduce of the per-leaf
+sums, and counts each replicated leaf once: every rank gets the one
+device's norm, so the clip scale and the update are the same on every
+rank, and each rank updates its own blocks.
 """
 from __future__ import annotations
 
@@ -25,6 +32,8 @@ from typing import NamedTuple
 
 import torch
 import torch.utils._pytree as pytree
+
+from repro_torch.launch.mesh import all_sum
 
 
 @dataclass(frozen=True)
@@ -67,20 +76,32 @@ def init(params) -> OptState:
                     pytree.tree_map(torch.clone, zeros))
 
 
-def global_norm(tree):
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
-                          for x in pytree.tree_leaves(tree)))
+def global_norm(tree, split=None):
+    """sqrt of the sum of every leaf's squares (float32). `split`: (a list
+    of flags, one a leaf in `tree_leaves` order, True where the leaf is
+    this rank's block of a leaf split over the model axis; the axis's
+    group): the split leaves' sums are added over the ranks first."""
+    sums = [torch.sum(torch.square(x.to(torch.float32))) for x in pytree.tree_leaves(tree)]
+    if split is not None and any(split[0]):
+        flags, group = split
+        vec = torch.stack(sums)
+        mask = torch.tensor(flags, device=vec.device)
+        reduced = all_sum(torch.where(mask, vec, 0.0), group)
+        sums = torch.where(mask, reduced, vec).unbind()
+    return torch.sqrt(sum(sums))
 
 
 @torch.no_grad()
-def update(cfg: AdamWConfig, params, grads, state: OptState, inplace: bool = False):
+def update(cfg: AdamWConfig, params, grads, state: OptState, inplace: bool = False,
+           split=None):
     """Returns (new_params, new_state, metrics). The inputs are not
     modified, unless `inplace`: then each parameter and moment is
     overwritten with its new value, leaf by leaf, and the returned trees
     hold the same tensors: the memory of one copy of the parameters and
     float32 moments, where the functional update holds two. The
-    arithmetic is the same either way."""
-    gnorm = global_norm(grads)
+    arithmetic is the same either way. `split` as in `global_norm`, for
+    the leaves of `grads`."""
+    gnorm = global_norm(grads, split)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     step = state.step + 1
     lr = schedule(cfg, step)

@@ -164,6 +164,11 @@ lm = registry.init_params(torch.Generator().manual_seed(0), cfg, device='cpu', m
 assert lm['embed']['w'].shape[0] == cfg.vocab_size // 2
 out = make_prefill_step(cfg, mesh=tp)(lm, {'tokens': np.ones((2, 8), np.int32)})
 assert tuple(out['logits'].shape) == (2, 1, cfg.vocab_size)
+import os
+ck = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'tp.msgpack')
+run = train.main(['--arch', 'qwen3-8b', '--smoke', '--model', '2', '--steps', '2', '--batch', '2',
+                  '--seq', '16', '--device', 'cpu', '--ckpt', ck])
+assert len(run['step_s']) == 2 and run['params']['embed']['w'].shape[0] == 256
 assert 'jax' not in sys.modules, 'jax was imported'
 bad = [m for m in sys.modules if m == 'repro' or m.startswith('repro.')]
 assert not bad, bad
@@ -183,9 +188,11 @@ def test_running_the_fleet_and_orchestration_loads_neither_jax_nor_repro(tmp_pat
     moe, mamba and whisper models, one dry-run pair on a described
     16x16 mesh with ZeRO-1, and two gloo ranks (`torch.distributed.run`)
     that each train the moe smoke data-parallel through `launch.train`,
-    run a 2-cell compiled fleet sharded over cells and a tensor-parallel
-    prefill of the qwen2 smoke over a model axis of two, all on the CPU --
-    and only then are the loaded modules checked, in every process."""
+    run a 2-cell compiled fleet sharded over cells, a tensor-parallel
+    prefill of the qwen2 smoke over a model axis of two and
+    `launch.train --model 2` on the qwen3 smoke with a checkpoint, all on
+    the CPU -- and only then are the loaded modules checked, in every
+    process."""
     rank_script = tmp_path / "rank_run.py"
     rank_script.write_text(RANK_RUN)
     code = (

@@ -1,19 +1,22 @@
 #!/usr/bin/env python3
-"""Phase 15 of `chip_smoke.py` (tensor parallelism on a model axis) alone,
-on the cards of this machine.
+"""Phases 15 and 16 of `chip_smoke.py` (tensor-parallel serving, then
+tensor-parallel training, on a model axis) alone, on the cards of this
+machine.
 
     python3 tools/tp_phase.py          # from the repo root
+    python3 tools/tp_phase.py --train  # phase 16 only
 
-It builds the kernels and runs `tp_phase`: the same serving runs on one
-rank in this process, then over W ranks of ``python -m
+It builds the kernels and runs `tp_phase`, then `tp_train_phase`: the
+same runs on one rank in this process, then over W ranks of ``python -m
 torch.distributed.run`` as a (data 1, model W) mesh, each held to the
 one-rank run. W is the card count where it is 2 or more (NCCL, a card a
 rank), else 2 ranks sharing the one card (gloo). With four cards or more
-it also serves Qwen2-72B uncut (80 layers, about 37.6 GB of bf16
-parameters a card at W = 4), which no single card holds: a prefill at
-8 x 512, 32 tokens decoded from the prefill's caches and lm_engine at
-codec levels 0, 1 and 2. About a minute and a half on one H100. Exits
-non-zero if a rank or a comparison fails.
+phase 15 also serves Qwen2-72B uncut (80 layers, about 37.6 GB of bf16
+parameters a card at W = 4) and phase 16 trains Qwen3-8B uncut (36
+layers: its bf16 parameters, gradients and float32 AdamW moments take
+about 113 GB on one card, 28 GB a card at W = 4) for 3 steps at 8 x 512,
+then calibrates it and serves it at codec levels 0, 1 and 2; neither
+model fits one card. Exits non-zero if a rank or a comparison fails.
 """
 import os
 import subprocess
@@ -50,13 +53,16 @@ def main() -> int:
     def say(msg, timed=False):
         print(f"[tp] {msg}" + (f" [{smi[0]}]" if timed else ""), flush=True)
 
-    t1 = time.perf_counter()
-    counts = cs.tp_phase(cuda, cs.tp_spec(uncut=n_cards >= 4),
-                         os.path.join(ROOT, "build", "chip_smoke", "tp"), say=say)
-    missing = [n for n in cs.PHASE_KERNELS["tp"] if counts[n] == 0]
-    assert not missing, f"kernels never launched on the tp path: {missing}"
-    print(f"phase in {time.perf_counter() - t1:.2f} s; the ranks' launches {counts}; "
-          f"{time.perf_counter() - t0:.2f} s in all [{smi[0]}]")
+    phases = [("tp_train", cs.tp_train_phase, cs.tp_train_spec(uncut=n_cards >= 4))]
+    if "--train" not in sys.argv[1:]:
+        phases.insert(0, ("tp", cs.tp_phase, cs.tp_spec(uncut=n_cards >= 4)))
+    for name, phase, spec in phases:
+        t1 = time.perf_counter()
+        counts = phase(cuda, spec, os.path.join(ROOT, "build", "chip_smoke", name), say=say)
+        missing = [n for n in cs.PHASE_KERNELS[name] if counts.get(n, 0) == 0]
+        assert not missing, f"kernels never launched on the {name} path: {missing}"
+        print(f"phase {name} in {time.perf_counter() - t1:.2f} s; the ranks' launches {counts}; "
+              f"{time.perf_counter() - t0:.2f} s in all [{smi[0]}]", flush=True)
     return 0
 
 
