@@ -230,9 +230,11 @@ Phases, each printing its own lines:
             2e-4, the params after the steps at rtol / atol 2e-4 on every
             element whose gradient stayed within rel 0.1 of one rank's (the
             rest, where rounding sets Adam's update, at most 1e-3 of the
-            model, counted by leaf), the params read from the ranks'
-            checkpoint, one device's file, reloaded bit for bit on every
-            rank; every replicated leaf bit-equal over the ranks; (c)
+            model, counted by leaf), each rank against its slices of the
+            one-rank run's, which this process keeps in memory and serves
+            them over a local socket, the ranks' checkpoint, one device's
+            file, reloaded bit for bit on every rank; every replicated leaf
+            bit-equal over the ranks; (c)
             granite-moe reduced to 4 layers, float32, capacity factor 1.0,
             its experts split over the ranks: one step held as (b), dropped
             counts per layer equal; (d) the trained model (a): the eval
@@ -247,16 +249,41 @@ Phases, each printing its own lines:
             launches worked out and asserted. `tools/tp_phase.py` runs it
             after phase 15, and on four cards also trains Qwen3-8B uncut
             (36 layers, over NCCL).
-17. result  one JSON line with every kernel's numbers, the nvidia-smi
+17. tp_ssm  the mamba and hybrid families on the same kind of mesh
+            (``--tp-ssm DIR``), each mamba layer on its block of SSD heads
+            with B and C whole (`sharding.layout_specs`); the same runs
+            first on one rank in this process. (a) mamba2-130m uncut, bf16:
+            prefill 8 x 512, 16 tokens decoded from its caches, lm_engine
+            at codec levels 0 and 2, held within the derived (2L + 2) 2u
+            of max|z|, then 3 remat steps at 8 x 512 held as phase 16 holds
+            its bf16 run; (b) its float32 twin, uncut: prefill 4 x 256 and
+            4 tokens at rtol / atol 2e-4, 3 steps at 4 x 256 held as phase
+            16 holds its twin (every gradient leaf at every step, the
+            params, every element held whole bit-equal over the ranks, the
+            checkpoint), then the trained twin calibrated (K2 against the
+            plain fit, on labels planted at T* = 1.5 too) and served over
+            the mesh at levels 0 and 2; (c) jamba-v0.1-52b's widths
+            reduced to one 8-layer period, bf16: prefill 8 x 512, 8 tokens,
+            lm_engine at levels 0 and 2, held as (a) on the rows whose
+            tokens every rank routed as one rank did (the others finite),
+            each MoE layer's dropped count within its rerouted tokens of
+            one rank's; (d) jamba reduced to 2 layers (mamba + MLP, mamba +
+            MoE): one bf16 remat step at 4 x 512 held as (a). ms a step and
+            a token, peak GB per rank, the all-reduces' share by pass; each
+            rank's K1-K4 launches worked out and asserted.
+            `tools/tp_phase.py --ssm` runs it alone, and on four cards
+            also serves jamba-v0.1-52b uncut (32 layers, over NCCL) beside
+            the dry run's peak of its prefill as rank 0 of the mesh.
+18. result  one JSON line with every kernel's numbers, the nvidia-smi
             line, and last {"ok": true, "device": {...}}.
 
-Phases 4-16 are the main path: each sets the launch counts to 0 just
+Phases 4-17 are the main path: each sets the launch counts to 0 just
 before it and reads them just after, and fails if a kernel of its path
 did not run (train: K1; serving: K1-K4; paper: K1, K2; bank: K1, K3,
 K4; runtime: K1, K3, K4; fleet and compiled: K1, K3, K4; lm and
-train_lm: K1-K4; dryrun: K1; ranks and tp: K1, K3, K4, tp_train: K1-K4,
-counted in each rank from 0 over its runs, while this process launches
-none).
+train_lm: K1-K4; dryrun: K1; ranks and tp: K1, K3, K4, tp_train and
+tp_ssm: K1-K4, counted in each rank from 0 over its runs, while this
+process launches none).
 Every line that prints a time names the card and its power limit.
 
 Any failure raises, so the process exits non-zero and prints no result;
@@ -267,6 +294,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -310,7 +338,8 @@ PHASE_KERNELS = {"train": ("exit_gate",),
                  "dryrun": ("exit_gate",),
                  "ranks": ("exit_gate", "encode", "decode"),
                  "tp": ("exit_gate", "encode", "decode"),
-                 "tp_train": ("exit_gate", "calib_nll", "encode", "decode")}
+                 "tp_train": ("exit_gate", "calib_nll", "encode", "decode"),
+                 "tp_ssm": ("exit_gate", "calib_nll", "encode", "decode")}
 # the log grid K2's LM temperature fit starts its Newton steps from
 K2_GRID = (0.25, 0.5, 1.0, 2.0, 4.0)
 # K1's boundary: the kernel's conf = 1/S and the plain max(exp(logp)) are
@@ -1976,14 +2005,17 @@ def grow_caches(cfg, caches, batch, length, dev, mesh=None):
 
 
 class MoeTap:
-    """Records the aux (load-balance loss, dropped share) and the expert
-    buffer's rows of every MoE layer the model runs while the tap is
-    open."""
+    """Records the aux (load-balance loss, dropped share), the expert
+    buffer's rows and the routes (each token's top-k experts, (T, k) on
+    the host, as the block's router picks them) of every MoE layer the
+    model runs while the tap is open."""
 
     def __enter__(self):
+        import torch
+
         from repro_torch.models import moe, transformer
 
-        self.saved, self.aux, self.rows = transformer.apply_moe, [], []
+        self.saved, self.aux, self.rows, self.routes = transformer.apply_moe, [], [], []
 
         def tapped(p, cfg, x):
             einsum, seen = moe.einsum, []
@@ -2000,6 +2032,13 @@ class MoeTap:
                 moe.einsum = einsum
             self.aux.append({k: v.detach() for k, v in aux.items()})
             self.rows.append(seen[0])
+            with torch.no_grad():  # the block's routing, as `moe.apply_moe` computes it
+                logits = x.reshape(-1, x.shape[-1]).to(torch.float32) @ p["router"]
+                pad = moe.n_alloc_experts(cfg) - cfg.moe_num_experts
+                if pad:
+                    logits = torch.cat([logits, logits.new_full((len(logits), pad), -1e30)], -1)
+                self.routes.append(torch.topk(torch.softmax(logits, dim=-1), cfg.moe_top_k,
+                                              dim=-1)[1].to(torch.int16).cpu().numpy())
             return y, aux
 
         transformer.apply_moe = tapped
@@ -3187,31 +3226,35 @@ def bf16_tp_bound(n_layers):
     return (2 * n_layers + 2) * 2 * BF16_U
 
 
-def prefill_flops(cfg, b, s):
-    """The dry run's FLOPs of one (b, s) prefill step on one card
-    (`launch.hlo_cost.analyze` on fake CPU tensors)."""
+def prefill_cost(cfg, b, s, model=1):
+    """The dry run's cost (`launch.hlo_cost.analyze` on fake CPU tensors:
+    ``flops``, ``peak_bytes``, ...) of one (b, s) prefill step on one card,
+    or as rank 0 of a (data 1, model `model`) mesh."""
     import torch
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import dryrun, hlo_cost
+    from repro_torch.launch.mesh import make_debug_mesh, record_collectives
 
-    with FakeTensorMode(allow_fallback_kernels=False):
+    mesh = make_debug_mesh(1, model).as_rank() if model > 1 else None
+    with FakeTensorMode(allow_fallback_kernels=False), record_collectives():
         step, args, _ = dryrun.build_step(cfg, ShapeConfig("tp", s, b, "prefill"),
-                                          torch.device("cpu"))
-        return hlo_cost.analyze(step, *args)["flops"]
+                                          torch.device("cpu"), mesh=mesh)
+        return hlo_cost.analyze(step, *args)
 
 
 def tp_runs(dev, spec, mesh, p_tars=None, names=("bf16", "f32", "moe")):
-    """Phase 15's serving runs on `dev` over `mesh` (None: one rank), one
-    model at a time, each from `init_params(mesh=)`: a prefill step (timed
-    three times, once for the MoE, then once more with every collective
-    timed between two syncs), decode steps from the prefill's caches (one more timed
-    token), the decode's last logits against a prefill over the same
-    tokens, and `lm_engine` at the spec's levels (p_tar from `p_tars`, or
-    the one-rank prefill's middle exit-0 confidences). Returns numpy
-    outputs, times, peaks, the K1/K3/K4 launches (each step's worked out
-    and asserted) and the p_tars used."""
+    """The serving runs of phase 15 (and phase 17) on `dev` over `mesh`
+    (None: one rank), one model at a time, each from `init_params(mesh=)`:
+    a prefill step (timed three times, a MoE's routes and drops from the
+    first, then once more with every collective timed between two syncs),
+    decode steps from the prefill's caches (one more timed token), the
+    decode's last logits against a prefill over the same tokens, and
+    `lm_engine` at the spec's levels (p_tar from `p_tars`, or the one-rank
+    prefill's middle exit-0 confidences). Returns numpy outputs, times,
+    peaks (the init's, then the serving's alone), the K1/K3/K4 launches
+    (each step's worked out and asserted) and the p_tars used."""
     import torch
     import torch.utils._pytree as pytree
 
@@ -3260,17 +3303,21 @@ def tp_runs(dev, spec, mesh, p_tars=None, names=("bf16", "f32", "moe")):
         fresh()
         params, init_ms = timed(lambda: registry.init_params(
             torch.Generator(device=dev).manual_seed(0), cfg, device=dev, mesh=mesh))
+        init_peak = peak()  # the init's, then the serving's alone
+        if card:
+            torch.cuda.reset_peak_memory_stats(dev)
         toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (b, s + decode)).astype(
             np.int32)
         plan = OffloadPlan(p_tar=0.5, calibrators=[TemperatureScaling.from_temperature(1.0)]
                            * n_ex)
-        r = {"scalars": transformer.num_params(params), "init_ms": init_ms, "ms": []}
+        r = {"scalars": transformer.num_params(params), "init_ms": init_ms,
+             "init_peak": init_peak, "ms": []}
         pre = make_prefill_step(cfg, plan=plan, device=dev, mesh=mesh)
         batch = {"tokens": toks[:, :s]}
         tap = MoeTap() if cfg.moe_num_experts else contextlib.nullcontext()
-        for i in range(1 if cfg.moe_num_experts else 3):
+        for i in range(3):
             before = log.now()
-            with tap:
+            with tap if i == 0 else contextlib.nullcontext():
                 o, ms = timed(lambda: pre(params, batch))
             log.expect(f"{name} prefill", before, exit_gate=n_ex)
             r["ms"].append(ms)
@@ -3280,6 +3327,7 @@ def tp_runs(dev, spec, mesh, p_tars=None, names=("bf16", "f32", "moe")):
         if cfg.moe_num_experts:
             slots = b * s * cfg.moe_top_k
             r["dropped"] = [round(float(a["moe_dropped_frac"]) * slots) for a in tap.aux]
+            r["routes"] = {"prefill": tap.routes, "decode": []}
         r["prefill"] = {k: host(o[k]) for k in ("logits", "exit_confidence", "exit_prediction")}
         if mesh is None:  # the exits' logits, whose top-2 gaps decide which rows must agree
             with torch.no_grad():
@@ -3302,10 +3350,14 @@ def tp_runs(dev, spec, mesh, p_tars=None, names=("bf16", "f32", "moe")):
             r["decode"], r["decode_ms"] = [], []
             for t in range(decode):
                 before = log.now()
-                d, ms = timed(lambda: step(params, toks[:, s + t:s + t + 1], caches, s + t)[0])
+                with tap:
+                    d, ms = timed(lambda: step(params, toks[:, s + t:s + t + 1], caches,
+                                               s + t)[0])
                 log.expect(f"{name} decode", before, exit_gate=n_ex)
                 r["decode_ms"].append(ms)
                 r["decode"].append({k: host(v) for k, v in d.items()})
+                if cfg.moe_num_experts:
+                    r["routes"]["decode"].append(tap.routes)
             if mesh is not None:
                 before = log.now()
                 r["decode_share"] = share(lambda: step(params, toks[:, -1:], caches, s + decode))
@@ -3389,60 +3441,47 @@ def _top2_clear(z, gap):
     return (top2[..., 1] - top2[..., 0]) > gap
 
 
-def tp_phase(dev, spec, out_dir, timeout=900, say=print):
-    """Phase 15: LM serving with the parameters split over a model axis of
-    W ranks (``python -m torch.distributed.run --standalone``, each rank
-    this script under ``--tp``, `tp_rank_main`): W is the card count
-    where it is 2 or more (NCCL, a card a rank), else 2 ranks sharing the
-    one card (gloo), or 2 gloo ranks on the CPU for a rehearsal; the mesh
-    is (data 1, model W). The same runs first on one rank in this process
-    (`tp_runs`; its launches kept out of the phase's counts), which then
-    frees its cache; each rank's outputs are held to them: the bf16 model
-    within `bf16_tp_bound`, the float32 twin and the MoE at rtol / atol
-    2e-4, predictions and decisions equal where one rank's margins clear
-    that, payload_bytes and dropped counts equal. Returns the K1-K4
-    launches summed over the ranks."""
+def rank_world(dev):
+    """(W, backend) of a phase over ranks: the card count where it is 2 or
+    more (NCCL, a card a rank), else 2 ranks sharing the one card (gloo),
+    or 2 gloo ranks on the CPU for a rehearsal."""
+    import torch
+
+    world = max(2, torch.cuda.device_count() if dev.type == "cuda" else 2)
+    backend = "nccl" if dev.type == "cuda" and torch.cuda.device_count() >= world else "gloo"
+    return world, backend
+
+
+def launch_ranks(flag, out_dir, world, job, timeout, meanwhile=None):
+    """Run W = `world` ranks of this script under ``python -m
+    torch.distributed.run --standalone`` with ``flag out_dir``, `job`
+    pickled to out_dir/job.pkl for them, and `meanwhile` (if given) in this
+    process while they run. Each rank writes rank<r>.pkl; their output goes
+    to ranks.log beside it, whose tail the failure shows. Returns (the
+    ranks' results in rank order, seconds from launch to exit, what
+    `meanwhile` returned)."""
     import pickle
 
     import torch
 
-    world = torch.cuda.device_count() if dev.type == "cuda" else 2
-    world = world if world >= 2 else 2
-    backend = "nccl" if dev.type == "cuda" and torch.cuda.device_count() >= world else "gloo"
     os.makedirs(out_dir, exist_ok=True)
-
-    t0 = time.perf_counter()
-    # the one-rank reference's launches stay out of the phase's counts: the
-    # ranks' runs are the path, each rank counting its own from 0
-    counters = LaunchLog(dev).counters
-    before = {n: k.launches for n, k in counters.items()}
-    one = tp_runs(dev, spec, None)
-    for n, k in counters.items():
-        k.launches = before[n]
-    say(f"one rank in this process, {time.perf_counter() - t0:.2f} s: " + "; ".join(
-        f"{n} {r['scalars']} scalars, prefill {ms3(r['ms'])} ms, peak {gb(r['peak'])}"
-        for n, r in one["runs"].items()), timed=True)
     with open(os.path.join(out_dir, "job.pkl"), "wb") as f:
-        pickle.dump({"spec": spec, "p_tar": one["p_tar"], "model": world}, f)
+        pickle.dump(job, f)
     for r in range(world):
         if os.path.exists(os.path.join(out_dir, f"rank{r}.pkl")):
             os.remove(os.path.join(out_dir, f"rank{r}.pkl"))
-    if dev.type == "cuda":
+    if torch.cuda.is_available():
         torch.cuda.empty_cache()  # the ranks share the card(s) with this process
-
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
-           str(world), os.path.abspath(__file__), "--tp", out_dir]
+           str(world), os.path.abspath(__file__), flag, out_dir]
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [os.path.join(ROOT, "src")] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
     log_path = os.path.join(out_dir, "ranks.log")
     t0 = time.perf_counter()
     with open(log_path, "w") as logf:
         proc = subprocess.Popen(cmd, stdout=logf, stderr=subprocess.STDOUT, env=env, cwd=ROOT)
-        # the dry run's FLOPs of the prefills (a trace on fake CPU tensors)
-        # while the ranks run
-        flops = {n: prefill_flops(r["cfg"], *r["serve"]) for n, r in spec["runs"].items()
-                 if n in ("bf16", "uncut")}
         try:
+            extra = meanwhile() if meanwhile is not None else None
             rc = proc.wait(timeout=timeout)
         except subprocess.TimeoutExpired:
             rc = "timeout"
@@ -3462,98 +3501,221 @@ def tp_phase(dev, spec, out_dir, timeout=900, say=print):
     for r in range(world):
         with open(os.path.join(out_dir, f"rank{r}.pkl"), "rb") as f:
             reps.append(pickle.load(f))
+    return reps, wall, extra
+
+
+def check_reps(reps, world, backend):
+    """The ranks of a (data 1, model W) mesh, in rank order, over `backend`."""
+    assert [p["rank"] for p in reps] == list(range(world))
+    assert all(p["backend"] == backend and p["mesh"] == (1, world) for p in reps)
+    assert [p["coords"] for p in reps] == [(0, m) for m in range(world)]
+
+
+def rerouted(got, want, b, s):
+    """Where a rank routed tokens of a bf16 MoE model's serving run
+    otherwise than one rank did: a token whose router input differs by a
+    rounding can change its top-k experts where two of them nearly tie,
+    and its output then differs by far more than the rounding, as, through
+    the mixers, the later tokens of its row do a little. From the routes of
+    every MoE call (`MoeTap`), per compared step (the prefill's last
+    position, then each decode step): (rows with a rerouted token there or
+    before, rows whose compared token itself was rerouted), and the
+    rerouted token count of each prefill call."""
+    flips = [(g != w).any(-1).reshape(b, s) for g, w in zip(got["prefill"], want["prefill"])]
+    seen = np.zeros(b, dtype=bool)
+    for f in flips:
+        seen |= f.any(-1)
+    steps = [(seen.copy(), np.any([f[:, -1] for f in flips], axis=0))]
+    for g_t, w_t in zip(got["decode"], want["decode"]):
+        own = np.any([(g != w).any(-1) for g, w in zip(g_t, w_t)], axis=0)
+        seen |= own
+        steps.append((seen.copy(), own))
+    return steps, [int(f.sum()) for f in flips]
+
+
+def held_serving(one, reps, name, bound=None):
+    """Every rank's serving outputs of run `name` (`tp_runs`) against one
+    rank's: the logits within `bound` of max|z| (bf16) or at rtol / atol
+    2e-4 (float32, no bound); predictions and gate decisions equal
+    wherever one rank's margins clear that gap delta (a top-2 gap above 2
+    delta; a confidence farther than conf (e^{2 delta} - 1) + 1e-6 from
+    p_tar, hazard d besides); payload_bytes and dropped counts equal. Of a
+    bf16 MoE model (`rerouted`), a (row, step) pair whose compared token a
+    rank routed otherwise than one rank, in some MoE call, is held to
+    finite values only, and each prefill layer's dropped count may move by
+    its rerouted tokens (each moves one slot); a pair whose own token was
+    routed alike is held as above, also where an earlier token of its row
+    was rerouted. Returns (the worst gap held, relative to max|z|, the
+    predictions and decisions held equal, the pairs held to finite values
+    only, and the worst gap held among the pairs with an earlier token
+    rerouted, both over the ranks)."""
+    want, p_tar = one["runs"][name], one["p_tar"][name]
+    tol = dict(rtol=2e-4, atol=2e-4)
+
+    def delta(z):
+        m = float(np.abs(z).max())
+        return bound * m if bound else 2e-4 * (1 + m)
+
+    def same_argmax(got_pred, z):
+        if not z.size:  # no row held
+            return 0
+        clear = _top2_clear(z, 2 * delta(z))
+        np.testing.assert_array_equal(got_pred[clear], z.argmax(-1)[clear], err_msg=name)
+        return int(clear.sum())
+
+    def same_decisions(got_on, want_conf, z):
+        if not z.size:
+            return 0
+        clear = np.abs(want_conf - p_tar) > want_conf * np.expm1(2 * delta(z)) + BOUNDARY
+        np.testing.assert_array_equal(got_on[clear], (want_conf >= p_tar)[clear],
+                                      err_msg=name)
+        return int(clear.sum())
+
+    worst, decided, unheld, carried = 0.0, 0, 0, 0.0
+    for p in reps:
+        got = p["runs"][name]
+        b = len(want["prefill"]["logits"])
+        n_steps = 1 + len(want.get("decode", []))
+        steps, flips = [(np.zeros(b, dtype=bool),) * 2] * n_steps, None
+        if bound is not None and "routes" in want:
+            steps, flips = rerouted(got["routes"], want["routes"], b,
+                                    len(want["routes"]["prefill"][0]) // b)
+        keep, keep_t = ~steps[0][1], [~own for _, own in steps[1:]]
+        pairs = [(got["prefill"]["logits"][:, 0], want["prefill"]["logits"][:, 0])]
+        pairs += [(d["logits"], w["logits"]) for d, w in zip(got.get("decode", []),
+                                                             want.get("decode", []))]
+        for (g, w), (seen, own) in zip(pairs, steps):  # decode: the rank's vocab shard
+            assert np.isfinite(g).all(), name
+            lo = 0 if g.shape[-1] == w.shape[-1] else p["coords"][1] * g.shape[-1]
+            ws = w[:, lo:lo + g.shape[-1]]
+            rel = np.abs(g - ws).max(-1) / np.abs(w).max()
+            unheld += int(own.sum())
+            if (seen & ~own).any():
+                carried = max(carried, float(rel[seen & ~own].max()))
+            if own.all():
+                continue
+            gap = float(rel[~own].max())
+            worst = max(worst, gap)
+            if bound is None:
+                np.testing.assert_allclose(g, ws, **tol, err_msg=name)
+            else:
+                assert gap <= bound, (f"{name}: rank {p['rank']} logits rel {gap:.3g} > "
+                                      f"{bound:.3g}")
+        decided += same_argmax(got["prefill"]["logits"][keep, 0].argmax(-1),
+                               want["prefill"]["logits"][keep, 0])
+        for d, w, k in zip(got.get("decode", []), want.get("decode", []), keep_t):
+            decided += same_argmax(d["token"][k], w["logits"][k])
+        for i, ze in enumerate(want["prefill"]["exit_logits"]):
+            gc, wc = got["prefill"]["exit_confidence"][i], want["prefill"]["exit_confidence"][i]
+            if bound is None:
+                np.testing.assert_allclose(gc, wc, **tol, err_msg=name)
+            decided += same_argmax(got["prefill"]["exit_prediction"][i][keep], ze[keep])
+            decided += same_decisions((gc >= p_tar)[keep], wc[keep], ze[keep])
+        for level, w in want["engine"].items():  # its gate is exit 0's on the same rows
+            g = got["engine"][level]
+            assert g["payload_bytes"] == w["payload_bytes"], (name, level)
+            decided += same_decisions(g["on_device"][keep],
+                                      want["prefill"]["exit_confidence"][0][keep],
+                                      want["prefill"]["exit_logits"][0][keep])
+        if "dropped" in want:
+            slack = flips or [0] * len(want["dropped"])
+            assert all(abs(g - w) <= f for g, w, f in zip(got["dropped"], want["dropped"],
+                                                           slack)), (
+                name, got["dropped"], want["dropped"], slack)
+    return worst, decided, unheld, carried
+
+
+def serve_shares(r):
+    """A serving run's all-reduces' share of a synced prefill and token."""
+    out = []
+    for k in ("prefill_share", "decode_share"):
+        if k in r:
+            s = r[k]
+            out.append(f"{k.split('_')[0]}: {s['n']} all-reduces of {s['gb']:.3f} GB, "
+                       f"{s['ar_ms']:.2f} of {s['ms']:.2f} ms ({s['ar_ms'] / s['ms']:.1%})")
+    return "; ".join(out)
+
+
+def engine_line(r):
+    """A serving run's lm_engine levels: ms (edge, cloud), offloads, bytes."""
+    return ", ".join(f"level {lv} {e['ms']:.1f} ms (edge {e['edge_ms']:.1f}, cloud "
+                     f"{e['cloud_ms']:.1f}), {e['offloaded']} offloaded, {e['payload_bytes']} "
+                     f"payload bytes" for lv, e in r["engine"].items())
+
+
+def summed_launches(reps):
+    """The kernels' launches summed over the ranks."""
+    counts = {}
+    for p in reps:
+        for k, v in p["launches"].items():
+            counts[k] = counts.get(k, 0) + v
+    return counts
+
+
+def uncut_serving_line(cfg, serve, r0, reps, world, flops, extra=""):
+    """Run (d) of phase 15 and its phase 17 counterpart: a model served
+    uncut over the mesh."""
+    b, s = serve
+    for p in reps:
+        u = p["runs"]["uncut"]
+        assert u["scalars"] * world >= cfg.param_count(), (u["scalars"], cfg.param_count())
+        assert all(np.isfinite(d["logits"]).all() for d in u["decode"])
+    best = min(r0["ms"])
+    return (f"{cfg.name} uncut ({cfg.num_layers} layers, param_count {cfg.param_count()}), "
+            f"bf16 through the sharded init in {r0['init_ms'] / 1e3:.1f} s: "
+            f"{[p['runs']['uncut']['scalars'] for p in reps]} scalars a rank, peak "
+            f"{[gb(p['runs']['uncut']['init_peak']) for p in reps]} drawing them and "
+            f"{[gb(p['runs']['uncut']['peak']) for p in reps]} serving{extra}; prefill "
+            f"{b} x {s} ms {ms3(r0['ms'])} "
+            f"({flops:.4g} FLOPs: {flops / (best * 1e-3) / 1e12:.1f} TFLOP/s, "
+            f"{flops / (best * 1e-3) / (world * BF16_FLOP_PER_S):.1%} of {world} x 989 TFLOP/s); "
+            f"{len(r0['decode'])} tokens from a {s + len(r0['decode']) + 1}-slot cache filled by "
+            f"the prefill, ms a token {ms3(r0['decode_ms'])}; the last "
+            f"token's logits against a prefill over the same tokens: rel {r0['resume_gap']:.3g}"
+            f" of max|z|, argmax equal on {r0['resume_argmax']:.0%} of rows; {serve_shares(r0)}; "
+            f"lm_engine {engine_line(r0)}")
+
+
+def tp_phase(dev, spec, out_dir, timeout=900, say=print):
+    """Phase 15: LM serving with the parameters split over a model axis of
+    W ranks (``python -m torch.distributed.run --standalone``, each rank
+    this script under ``--tp``, `tp_rank_main`; W and the backend as
+    `rank_world` picks them); the mesh is (data 1, model W). The same runs
+    first on one rank in this process (`tp_runs`; its launches kept out of
+    the phase's counts), which then frees its cache; each rank's outputs
+    are held to them (`held_serving`): the bf16 model within
+    `bf16_tp_bound`, the float32 twin and the MoE at rtol / atol 2e-4,
+    predictions and decisions equal where one rank's margins clear that,
+    payload_bytes and dropped counts equal. Returns the K1-K4 launches
+    summed over the ranks."""
+    world, backend = rank_world(dev)
+    t0 = time.perf_counter()
+    # the one-rank reference's launches stay out of the phase's counts: the
+    # ranks' runs are the path, each rank counting its own from 0
+    counters = LaunchLog(dev).counters
+    before = {n: k.launches for n, k in counters.items()}
+    one = tp_runs(dev, spec, None)
+    for n, k in counters.items():
+        k.launches = before[n]
+    say(f"one rank in this process, {time.perf_counter() - t0:.2f} s: " + "; ".join(
+        f"{n} {r['scalars']} scalars, prefill {ms3(r['ms'])} ms, peak {gb(r['peak'])}"
+        for n, r in one["runs"].items()), timed=True)
+    # the dry run's FLOPs of the prefills (a trace on fake CPU tensors)
+    # while the ranks run
+    reps, wall, flops = launch_ranks(
+        "--tp", out_dir, world, {"spec": spec, "p_tar": one["p_tar"], "model": world}, timeout,
+        meanwhile=lambda: {n: prefill_cost(r["cfg"], *r["serve"])["flops"]
+                           for n, r in spec["runs"].items() if n in ("bf16", "uncut")})
     say(f"{world} ranks over {backend}, mesh (data 1, model {world}) (python -m "
         f"torch.distributed.run --standalone --nproc-per-node {world}), {wall:.2f} s from "
         f"launch to exit: " + "; ".join(
             f"rank {p['rank']} on {p['device']} ({p['card']}, {p['backend']}), its runs "
             f"{p['seconds']:.2f} s" for p in reps), timed=True)
-    assert [p["rank"] for p in reps] == list(range(world))
-    assert all(p["backend"] == backend and p["mesh"] == (1, world) for p in reps)
-    assert [p["coords"] for p in reps] == [(0, m) for m in range(world)]
-
-    def held(name, bound=None):
-        """Every rank's outputs of run `name` against one rank's: the logits
-        within `bound` of max|z| (bf16) or at rtol / atol 2e-4 (float32,
-        no bound); predictions and gate decisions equal wherever one rank's
-        margins clear that gap delta (a top-2 gap above 2 delta; a
-        confidence farther than conf (e^{2 delta} - 1) + 1e-6 from p_tar,
-        hazard d besides); payload_bytes and dropped counts equal. Returns
-        (the worst gap relative to max|z|, the rows held to be equal)."""
-        want, p_tar = one["runs"][name], one["p_tar"][name]
-        tol = dict(rtol=2e-4, atol=2e-4)
-
-        def delta(z):
-            m = float(np.abs(z).max())
-            return bound * m if bound else 2e-4 * (1 + m)
-
-        def same_argmax(got_pred, z):
-            clear = _top2_clear(z, 2 * delta(z))
-            np.testing.assert_array_equal(got_pred[clear], z.argmax(-1)[clear], err_msg=name)
-            return int(clear.sum())
-
-        def same_decisions(got_on, want_conf, z):
-            clear = np.abs(want_conf - p_tar) > want_conf * np.expm1(2 * delta(z)) + BOUNDARY
-            np.testing.assert_array_equal(got_on[clear], (want_conf >= p_tar)[clear],
-                                          err_msg=name)
-            return int(clear.sum())
-
-        worst, decided = 0.0, 0
-        for p in reps:
-            got = p["runs"][name]
-            pairs = [(got["prefill"]["logits"][:, 0], want["prefill"]["logits"][:, 0])]
-            pairs += [(d["logits"], w["logits"]) for d, w in zip(got.get("decode", []),
-                                                                 want.get("decode", []))]
-            for g, w in pairs:  # a decode step's logits are the rank's vocab shard
-                lo = 0 if g.shape[-1] == w.shape[-1] else p["coords"][1] * g.shape[-1]
-                ws = w[:, lo:lo + g.shape[-1]]
-                gap = float(np.abs(g - ws).max() / np.abs(w).max())
-                worst = max(worst, gap)
-                if bound is None:
-                    np.testing.assert_allclose(g, ws, **tol, err_msg=name)
-                else:
-                    assert gap <= bound, (f"{name}: rank {p['rank']} logits rel {gap:.3g} > "
-                                          f"{bound:.3g}")
-            decided += same_argmax(got["prefill"]["logits"][:, 0].argmax(-1),
-                                   want["prefill"]["logits"][:, 0])
-            for d, w in zip(got.get("decode", []), want.get("decode", [])):
-                decided += same_argmax(d["token"], w["logits"])
-            for i, ze in enumerate(want["prefill"]["exit_logits"]):
-                gc, wc = got["prefill"]["exit_confidence"][i], want["prefill"]["exit_confidence"][i]
-                if bound is None:
-                    np.testing.assert_allclose(gc, wc, **tol, err_msg=name)
-                decided += same_argmax(got["prefill"]["exit_prediction"][i], ze)
-                decided += same_decisions(gc >= p_tar, wc, ze)
-            for level, w in want["engine"].items():  # its gate is exit 0's on the same rows
-                g = got["engine"][level]
-                assert g["payload_bytes"] == w["payload_bytes"], (name, level)
-                decided += same_decisions(g["on_device"], want["prefill"]["exit_confidence"][0],
-                                          want["prefill"]["exit_logits"][0])
-            if "dropped" in want:
-                assert got["dropped"] == want["dropped"], (name, got["dropped"], want["dropped"])
-        return worst, decided
-
-    counts = {}
-    for p in reps:
-        for k, v in p["launches"].items():
-            counts[k] = counts.get(k, 0) + v
-
-    def shares(r):
-        out = []
-        for k in ("prefill_share", "decode_share"):
-            if k in r:
-                s = r[k]
-                out.append(f"{k.split('_')[0]}: {s['n']} all-reduces of {s['gb']:.3f} GB, "
-                           f"{s['ar_ms']:.2f} of {s['ms']:.2f} ms ({s['ar_ms'] / s['ms']:.1%})")
-        return "; ".join(out)
-
-    def engine_line(r):
-        return ", ".join(f"level {lv} {e['ms']:.1f} ms (edge {e['edge_ms']:.1f}, cloud "
-                         f"{e['cloud_ms']:.1f}), {e['offloaded']} offloaded, {e['payload_bytes']} "
-                         f"payload bytes" for lv, e in r["engine"].items())
+    check_reps(reps, world, backend)
 
     runs = spec["runs"]
     bound = bf16_tp_bound(runs["bf16"]["cfg"].num_layers)
-    gap, n = held("bf16", bound)
+    gap, n, *_ = held_serving(one, reps, "bf16", bound)
     cfg, r0, w0 = runs["bf16"]["cfg"], reps[0]["runs"]["bf16"], one["runs"]["bf16"]
     agree = [float(np.mean(p["runs"]["bf16"]["prefill"]["exit_prediction"]
                            == w0["prefill"]["exit_prediction"])) for p in reps]
@@ -3569,17 +3731,17 @@ def tp_phase(dev, spec, out_dir, timeout=900, say=print):
         f"{ms3(w0['ms'])}, rank 0 {ms3(r0['ms'])} ({flops['bf16']:.4g} FLOPs, "
         f"{flops['bf16'] / (min(r0['ms']) * 1e-3) / 1e12:.1f} TFLOP/s over the {world} ranks); "
         f"decode ms a token one rank {ms3(w0['decode_ms'])}, rank 0 {ms3(r0['decode_ms'])}; "
-        f"{shares(r0)}; lm_engine one rank {engine_line(w0)}; rank 0 {engine_line(r0)}; peak "
-        f"per rank {[gb(p['runs']['bf16']['peak']) for p in reps]} (one rank {gb(w0['peak'])})",
-        timed=True)
-    gap, n = held("f32")
+        f"{serve_shares(r0)}; lm_engine one rank {engine_line(w0)}; rank 0 {engine_line(r0)}; "
+        f"peak per rank {[gb(p['runs']['bf16']['peak']) for p in reps]} (one rank "
+        f"{gb(w0['peak'])})", timed=True)
+    gap, n, *_ = held_serving(one, reps, "f32")
     cfg, r0 = runs["f32"]["cfg"], reps[0]["runs"]["f32"]
     say(f"b. float32 twin ({cfg.num_layers} layers, exits {cfg.exit_layers}, "
         f"{runs['f32']['serve'][0]} x {runs['f32']['serve'][1]}, {len(r0['decode'])} decode "
         f"steps): every rank within rel {gap:.3g} (rtol / atol 2e-4), {n} predictions and "
         f"decisions equal where one rank's margins clear the tolerance; prefill ms "
         f"{ms3(r0['ms'])} against {ms3(one['runs']['f32']['ms'])}", timed=True)
-    gap, n = held("moe")
+    gap, n, *_ = held_serving(one, reps, "moe")
     cfg, r0 = runs["moe"]["cfg"], reps[0]["runs"]["moe"]
     assert sum(r0["dropped"]) > 0, "no token dropped: the MoE check needs drops"
     say(f"c. {cfg.name} widths ({cfg.moe_num_experts} experts top-{cfg.moe_top_k}, "
@@ -3587,33 +3749,27 @@ def tp_phase(dev, spec, out_dir, timeout=900, say=print):
         f"factor {cfg.moe_capacity_factor}, float32, prefill {runs['moe']['serve'][0]} x "
         f"{runs['moe']['serve'][1]}: dropped (token, slot) pairs per layer {r0['dropped']} on "
         f"every rank, as on one; logits within rel {gap:.3g} (rtol / atol 2e-4); ms "
-        f"{ms3(r0['ms'])} against {ms3(one['runs']['moe']['ms'])}; {shares(r0)}", timed=True)
+        f"{ms3(r0['ms'])} against {ms3(one['runs']['moe']['ms'])}; {serve_shares(r0)}",
+        timed=True)
     if "uncut" in runs:
-        cfg, r0 = runs["uncut"]["cfg"], reps[0]["runs"]["uncut"]
-        b, s = runs["uncut"]["serve"]
-        for p in reps:
-            u = p["runs"]["uncut"]
-            assert u["scalars"] * world >= cfg.param_count(), (u["scalars"], cfg.param_count())
-            assert all(np.isfinite(d["logits"]).all() for d in u["decode"])
-        flops, best = flops["uncut"], min(r0["ms"])
-        say(f"d. {cfg.name} uncut ({cfg.num_layers} layers, param_count {cfg.param_count()}), "
-            f"bf16 through the sharded init in {r0['init_ms'] / 1e3:.1f} s: "
-            f"{[p['runs']['uncut']['scalars'] for p in reps]} scalars a rank, peak "
-            f"{[gb(p['runs']['uncut']['peak']) for p in reps]}; prefill "
-            f"{b} x {s} ms {ms3(r0['ms'])} "
-            f"({flops:.4g} FLOPs: {flops / (best * 1e-3) / 1e12:.1f} TFLOP/s, "
-            f"{flops / (best * 1e-3) / (world * BF16_FLOP_PER_S):.1%} of {world} x 989 TFLOP/s); "
-            f"{len(r0['decode'])} tokens from a {s + len(r0['decode']) + 1}-slot cache filled by "
-            f"the prefill, ms a token {ms3(r0['decode_ms'])}; the last "
-            f"token's logits against a prefill over the same tokens: rel {r0['resume_gap']:.3g}"
-            f" of max|z|, argmax equal on {r0['resume_argmax']:.0%} of rows; {shares(r0)}; "
-            f"lm_engine {engine_line(r0)}", timed=True)
+        say("d. " + uncut_serving_line(runs["uncut"]["cfg"], runs["uncut"]["serve"],
+                                       reps[0]["runs"]["uncut"], reps, world, flops["uncut"]),
+            timed=True)
     say("launches per rank (K1, K3, K4): " + "; ".join(
         f"rank {p['rank']} {tuple(p['launches'].values())}" for p in reps))
-    return counts
+    return summed_launches(reps)
 
 
 # ------------------------------------------------------------ tp_train (16)
+# what `tp_train_runs` does besides the steps, by run: a bf16 run reads
+# one rank's max|z| (`bf16_tp_train_bound`) and times a split step's
+# collectives by pass; a float32 twin holds every step's gradients and the
+# params after the steps element by element (`HeldToOneRank`) and writes
+# and reloads the ranks' checkpoint
+BF16_RUN = dict(zmax=True, share=True)
+F32_RUN = dict(held=True, ckpt=True)
+
+
 def tp_train_spec(full=True, uncut=False):
     """Phase 16's runs, each a config with its (batch, seq) and step count,
     and the calibration and serving sizes of run (d): Qwen3-8B's published
@@ -3627,32 +3783,33 @@ def tp_train_spec(full=True, uncut=False):
         runs = {
             # reduced: 36 -> 4 layers, the exits (8, 17) moved inside the cut
             "bf16": dict(cfg=q.replace(num_layers=4, exit_layers=(1, 2)), batch=(8, 512),
-                         steps=3, levels=(0, 2)),
+                         steps=3, levels=(0, 2), **BF16_RUN),
             # reduced: 36 -> 2 layers, one exit after layer 0, float32
             "f32": dict(cfg=q.replace(num_layers=2, exit_layers=(0,), exit_loss_weights=(1.0,),
-                                      dtype="float32"), batch=(4, 128), steps=3),
+                                      dtype="float32"), batch=(4, 128), steps=3, **F32_RUN),
             # reduced: 32 -> 4 layers, float32; capacity factor 1.25 -> 1.0,
             # so that tokens drop
             "moe": dict(cfg=g.replace(num_layers=4, exit_layers=(1,), exit_loss_weights=(1.0,),
                                       dtype="float32", moe_capacity_factor=1.0),
-                        batch=(4, 512), steps=1),
+                        batch=(4, 512), steps=1, held=True),
         }
         if uncut:
-            runs["uncut"] = dict(cfg=q, batch=(8, 512), steps=3, levels=(0, 1, 2))
+            runs["uncut"] = dict(cfg=q, batch=(8, 512), steps=3, levels=(0, 1, 2), share=True)
         return dict(device=None, runs=runs, val=(8, 128), serve=(8, 512))
     q = get_smoke("qwen3-8b")
     runs = {
         "bf16": dict(cfg=q.replace(num_layers=4, exit_layers=(1, 2),
                                    exit_loss_weights=(1.0, 1.0)), batch=(4, 32), steps=3,
-                     levels=(0, 2)),
-        "f32": dict(cfg=q.replace(dtype="float32"), batch=(4, 16), steps=3),
+                     levels=(0, 2), **BF16_RUN),
+        "f32": dict(cfg=q.replace(dtype="float32"), batch=(4, 16), steps=3, **F32_RUN),
         "moe": dict(cfg=get_smoke("granite-moe-3b-a800m").replace(
-            num_layers=4, dtype="float32", moe_capacity_factor=0.5), batch=(4, 16), steps=1),
+            num_layers=4, dtype="float32", moe_capacity_factor=0.5), batch=(4, 16), steps=1,
+            held=True),
     }
     if uncut:
         runs["uncut"] = dict(cfg=q.replace(num_layers=6, exit_layers=(1, 3),
                                            exit_loss_weights=(1.0, 1.0)), batch=(4, 32),
-                             steps=3, levels=(0, 1, 2))
+                             steps=3, levels=(0, 1, 2), share=True)
     return dict(device="cpu", runs=runs, val=(4, 32), serve=(4, 32))
 
 
@@ -3788,34 +3945,278 @@ ADAM_RHO = 0.1
 OPEN_SHARE_MAX = 1e-3
 
 
-def rank_parts(whole, blocks, by_path):
-    """(path, index into the whole leaf, a rank's block) for each leaf of
-    `whole` ({path: tensor}) and each of `blocks` (a list in model order
-    of a (data 1, model W) mesh's ranks' {path: tensor}): a split leaf's
-    block is its slice along the split dim, a replicated leaf's the whole."""
-    for path in whole:
-        spec = by_path[path]
-        for m, b in enumerate(blocks):
-            g = b[path]
-            if "model" in spec:
-                d, n = spec.index("model"), g.shape[spec.index("model")]
-                yield path, (slice(None),) * d + (slice(m * n, (m + 1) * n),), g
-            else:
-                yield path, (), g
+def whole_elements(a, spec, mesh):
+    """The elements of a rank's leaf `a` (laid out by `spec`) that every
+    model rank holds whole, as one tensor: all of a replicated leaf, the
+    whole blocks of a packed dim; None for a split leaf."""
+    import torch
+
+    from repro_torch import sharding
+
+    dim, blocks = sharding.model_parts(spec, a.shape, mesh)
+    pieces = [part.reshape(-1) for part, (_, split) in
+              zip(torch.split(a, [n for n, _ in blocks], dim), blocks) if not split]
+    return torch.cat(pieces) if pieces else None
 
 
-def tp_train_runs(dev, spec, mesh, out_dir, names=("bf16", "f32", "moe")):
-    """Phase 16's runs on `dev` over `mesh` (None: one rank), one model at a
-    time from `init_params(mesh=)`, with `launch.train`'s AdamW (in place,
-    remat): (a) 3 bf16 steps, then with `levels` the trained model's
-    calibration and serving (`calibrate_and_serve`); (b) 3 steps of the
-    float32 twin; (c) one MoE step.
-    (b) and (c) take each step's gradients first (`make_grad_fn`). Over a
-    mesh a split step is run once more with every collective timed (no
-    update), (b)'s and (c)'s gradients and (c)'s params go to rank files in
-    `out_dir` and (b)'s params to a checkpoint written from the ranks'
-    slices, reloaded and checked; one rank keeps them on the host. Returns
-    the numbers, the K1-K4 launches and the steps' worked-out counts."""
+def owned(shape, spec, mesh):
+    """A mask over a rank's leaf of `shape` (laid out by `spec`) of the
+    elements it counts for the model: its blocks of the split dims, and the
+    whole ones on model rank 0 only."""
+    import torch
+
+    from repro_torch import sharding
+
+    first = mesh.coordinate("model") == 0
+    dim, blocks = sharding.model_parts(spec, shape, mesh)
+    line = torch.cat([torch.full((n,), split or first) for n, split in blocks])
+    return line.reshape((-1,) + (1,) * (len(shape) - dim - 1)).expand(shape)
+
+
+def send_msg(sock, obj):
+    """A pickled message on a socket, its length first."""
+    import pickle
+    import struct
+
+    data = pickle.dumps(obj)
+    sock.sendall(struct.pack("!Q", len(data)) + data)
+
+
+def recv_into(sock, view):
+    """Fill `view` (a writable byte buffer) from `sock`."""
+    view = memoryview(view).cast("B")
+    while len(view):
+        n = sock.recv_into(view)
+        if n == 0:
+            raise EOFError("the socket closed")
+        view = view[n:]
+
+
+def recv_msg(sock):
+    """A message of `send_msg`."""
+    import pickle
+    import struct
+
+    head = bytearray(8)
+    recv_into(sock, head)
+    data = bytearray(struct.unpack("!Q", head)[0])
+    recv_into(sock, data)
+    return pickle.loads(data)
+
+
+class OneRankStore:
+    """The one-rank run's gradients and params ({key: {path: tensor on the
+    host}}, a key (run, "grads", step) or (run, "params")), kept in this
+    process's memory and served to the ranks of a (data 1, model W) mesh
+    over a local socket (a token of its own to connect): a rank asks for a
+    leaf and gets its slice of it only (`sharding.local_shards` under the
+    layout, as rank (0, m)), its bytes received straight into a buffer.
+    Nothing goes through the disk, which the float32 twin's three steps of
+    gradients (27 GB) and its params would otherwise fill."""
+
+    def __init__(self, trees, by_path, world):
+        import socket
+        import threading
+
+        self.trees, self.by_path, self.world = trees, by_path, world
+        self.token = os.urandom(16)
+        self.sock = socket.create_server(("localhost", 0))
+        self.address = self.sock.getsockname()[:2]
+        threading.Thread(target=self._serve, daemon=True).start()
+
+    def _serve(self):
+        import threading
+
+        while True:
+            try:
+                conn, _ = self.sock.accept()
+            except OSError:  # closed
+                return
+            threading.Thread(target=self._client, args=(conn,), daemon=True).start()
+
+    def _client(self, conn):
+        import torch
+
+        from repro_torch import sharding
+        from repro_torch.launch.mesh import make_debug_mesh
+
+        with conn:
+            try:
+                if recv_msg(conn) != self.token:
+                    return
+                while True:
+                    key, path, m = recv_msg(conn)
+                    mesh = make_debug_mesh(1, self.world).as_rank((0, m))
+                    a = sharding.local_shards([self.trees[key][path]],
+                                              [self.by_path[key[0]][path]], mesh)[0]
+                    a = a.contiguous()
+                    send_msg(conn, (str(a.dtype).split(".")[-1], tuple(a.shape)))
+                    conn.sendall(a.reshape(-1).view(torch.uint8).numpy())
+            except EOFError:
+                return
+
+    def ticket(self):
+        """What a rank needs to reach the store (`StoreClient`)."""
+        return {"address": self.address, "token": self.token}
+
+    def close(self):
+        self.sock.close()
+
+
+class StoreClient:
+    """A rank's connection to a `OneRankStore`."""
+
+    def __init__(self, ticket):
+        import socket
+
+        self.sock = socket.create_connection(ticket["address"])
+        send_msg(self.sock, ticket["token"])
+        self.seconds = 0.0
+
+    def fetch(self, key, path, m, dev):
+        """Rank m's slice of leaf `path` of the store's tree `key`, on `dev`."""
+        import torch
+
+        t0 = time.perf_counter()
+        send_msg(self.sock, (key, path, m))
+        dtype, shape = recv_msg(self.sock)
+        out = torch.empty(shape, dtype=getattr(torch, dtype))
+        recv_into(self.sock, out.reshape(-1).view(torch.uint8).numpy())
+        out = out.to(dev)
+        self.seconds += time.perf_counter() - t0
+        return out
+
+    def close(self):
+        self.sock.close()
+
+
+def grad_noise(grad_fn, params, batch, grads, seed=5):
+    """How far one rank's gradients `grads` of `batch` move, leaf by leaf
+    (max|g' - g| / max|g| by tree path), when the step is taken again as
+    it was ("repeat") and with every float32 param moved one ulp up or
+    down at random ("ulp", the params put back after): the model's own
+    spread at float32's rounding, beside which a mesh's gaps are read."""
+    import torch
+    import torch.utils._pytree as pytree
+
+    from repro_torch import sharding
+
+    flat = pytree.tree_flatten_with_path(grads)[0]
+
+    def gaps(again):
+        return {sharding.path_str(p): float((a - g).abs().max()) / max(float(g.abs().max()),
+                                                                        1e-30)
+                for (p, g), a in zip(flat, pytree.tree_leaves(again))}
+
+    out = {"repeat": gaps(grad_fn(params, batch)[1])}
+    leaves = pytree.tree_leaves(params)
+    gen = torch.Generator(device=leaves[0].device).manual_seed(seed)
+    up = [torch.rand(p.shape, generator=gen, device=p.device) < 0.5 for p in leaves]
+
+    def move(sign):
+        with torch.no_grad():
+            for p, u in zip(leaves, up):
+                p.copy_(torch.nextafter(p, torch.full_like(p, sign * math.inf).masked_fill_(
+                    ~u, -sign * math.inf)))
+
+    move(1)
+    try:
+        out["ulp"] = gaps(grad_fn(params, batch)[1])
+    finally:
+        move(-1)
+    return out
+
+
+class HeldToOneRank:
+    """A rank's gradients at each step and its params after the steps
+    against its blocks of one rank's, which the one-rank run keeps in
+    memory and serves slice by slice (`OneRankStore`, reached through
+    `ticket`). Gradients: every element within 2e-4 |w| + 2e-4 max|w| of
+    the whole leaf (max|w| from the one-rank run); an element is open where
+    at some step the rank's gradient lies further than ADAM_RHO |w| from
+    one rank's. Params: every element within 2e-4 |w| + 2e-4, the open
+    ones 2.002 sum(lr) further (Adam's largest swing in 3 steps); the open
+    ones are counted by leaf (each whole element once, on model rank 0),
+    for the parent to hold their share to OPEN_SHARE_MAX of the model."""
+
+    def __init__(self, by_path, mesh, dev, ticket):
+        self.by_path, self.mesh, self.dev = by_path, mesh, dev
+        self.open, self.grad_gaps = {}, []
+        self.store = StoreClient(ticket)
+
+    def _mine(self, key, path):
+        """This rank's slice of leaf `path` of the one-rank tree `key`."""
+        return self.store.fetch(key, path, self.mesh.coordinate("model"), self.dev)
+
+    def grads(self, name, t, grads, tops):
+        import torch
+        import torch.utils._pytree as pytree
+
+        from repro_torch import sharding
+
+        flat = {sharding.path_str(p): g for p, g in pytree.tree_flatten_with_path(grads)[0]}
+        assert sorted(flat) == sorted(tops), name
+        self.grad_gaps.append({})
+        for path, g in flat.items():
+            w, top = self._mine((name, "grads", t), path), tops[path]
+            diff = (g - w).abs()
+            bad = ~(diff <= 2e-4 * top + 2e-4 * w.abs())
+            assert not bool(bad.any()), (
+                f"{name} step {t} gradient {path}: {int(bad.sum())} elements apart by up "
+                f"to {float(diff[bad].max()):.3g} (max|g| {top:.3g})")
+            self.grad_gaps[-1][path] = float(diff.max()) / max(top, 1e-30)
+            mask = self.open.setdefault(path, torch.zeros(g.shape, dtype=torch.bool,
+                                                          device=self.dev))
+            mask |= diff > ADAM_RHO * w.abs()
+
+    def params(self, name, params, lr_sum):
+        """Returns (the worst gap of the elements that are not open, the
+        open ones past 2e-4 and their worst gap, the open count by leaf)."""
+        import torch.utils._pytree as pytree
+
+        from repro_torch import sharding
+
+        extra = 2.002 * lr_sum
+        worst, n_out, worst_out, where = 0.0, 0, 0.0, {}
+        for p, g in pytree.tree_flatten_with_path(params)[0]:
+            path = sharding.path_str(p)
+            w, mark = self._mine((name, "params"), path), self.open[path]
+            diff, lim = (g - w).abs(), 2e-4 + 2e-4 * w.abs()
+            out = mark & ~(diff <= lim)
+            n_out += int(out.sum())
+            if bool(out.any()):
+                worst_out = max(worst_out, float(diff[out].max()))
+            bad = ~(diff <= lim + extra * mark)
+            assert not bool(bad.any()), (f"{name} params {path}: {int(bad.sum())} elements "
+                                         f"apart by up to {float(diff[bad].max()):.3g}")
+            worst = max(worst, float(diff.masked_fill(mark, 0.0).max()))
+            mine = owned(tuple(mark.shape), self.by_path[path], self.mesh)
+            n = int((mark & mine.to(mark.device)).sum())
+            if n:
+                where[path] = n
+        self.store.close()
+        return worst, n_out, worst_out, where
+
+
+def tp_train_runs(dev, spec, mesh, out_dir, names=("bf16", "f32", "moe"), store=None):
+    """The training runs of phase 16 (and phase 17) on `dev` over `mesh`
+    (None: one rank), one model at a time from `init_params(mesh=)`, with
+    `launch.train`'s AdamW (in place, remat), as each run's flags say
+    (`BF16_RUN`, `F32_RUN`): the steps; with ``zmax`` one rank reads
+    max|z| of every head before and after them; with ``share`` a split step
+    is run once more with every collective timed (no update); with
+    ``held`` each step's gradients are taken first (`make_grad_fn`): one
+    rank keeps them, and its params after the steps, on the host (under
+    ``grads`` and ``params``, with each gradient leaf's max|g| under
+    ``grad_tops``, and the first step's `grad_noise` under ``grad_noise``),
+    and each rank of a mesh holds its blocks to them
+    (`HeldToOneRank`; `store` the one-rank run's `OneRankStore.ticket` and
+    its maxima by run); with ``ckpt`` the ranks write their checkpoint to
+    `out_dir`, one device's file, and reload it; with ``levels``
+    the trained model is calibrated and served (`calibrate_and_serve`).
+    Over a mesh every element held whole is checked bit-equal over the
+    ranks. Returns the numbers, the K1-K4 launches and the steps'
+    worked-out counts."""
     import torch
     import torch.utils._pytree as pytree
 
@@ -3863,8 +4264,8 @@ def tp_train_runs(dev, spec, mesh, out_dir, names=("bf16", "f32", "moe")):
              "ms": []}
         step = make_train_step(cfg, opt_cfg, remat=True, device=dev, inplace=True, mesh=mesh)
         state = optim.init(params)
-        zmax = grad_fn = None
-        if mesh is None and name == "bf16":
+        zmax = grad_fn = held = None
+        if mesh is None and run.get("zmax"):
             # max|z| of every head, before and after the steps, for
             # `bf16_tp_train_bound`
             ev = make_eval_step(cfg, device=dev)
@@ -3874,20 +4275,27 @@ def tp_train_runs(dev, spec, mesh, out_dir, names=("bf16", "f32", "moe")):
                 return max(float(z.abs().max()) for z in [o["logits"]] + o["exit_logits"])
 
             r["zmax"] = [zmax()]
-        if name in ("f32", "moe"):
+        if run.get("held"):
             # each step's gradients first, at the params the step sees: one
-            # rank keeps them on the host, a rank writes its blocks to a file
-            grad_fn, r["grads"] = make_grad_fn(cfg, device=dev, mesh=mesh), []
+            # rank writes them, a rank of the mesh holds its blocks to them
+            grad_fn = make_grad_fn(cfg, device=dev, mesh=mesh)
+            if mesh is None:
+                r["grad_tops"], r["grads"] = [], []
+            else:
+                held = HeldToOneRank(by_path, mesh, dev, store["ticket"])
         tap = MoeTap() if cfg.moe_num_experts else contextlib.nullcontext()
-        dropped = []
+        dropped, routes = [], []
         for i, b in enumerate(batches):
             if grad_fn is not None:
                 _, grads, _ = grad_fn(params, b)
                 if mesh is None:
-                    r["grads"].append(local_path_tree(grads))
+                    tree = local_path_tree(grads)
+                    r["grad_tops"].append({p: float(a.abs().max()) for p, a in tree.items()})
+                    r["grads"].append(tree)
+                    if i == 0:
+                        r["grad_noise"] = grad_noise(grad_fn, params, b, grads)
                 else:
-                    torch.save(local_path_tree(grads),
-                               os.path.join(out_dir, f"{name}_grads{m_idx}_{i}.pt"))
+                    held.grads(name, i, grads, store["tops"][name][i])
                 del grads
             before = log.now()
             with tap:
@@ -3898,14 +4306,15 @@ def tp_train_runs(dev, spec, mesh, out_dir, names=("bf16", "f32", "moe")):
             if cfg.moe_num_experts:
                 slots = run["batch"][0] * run["batch"][1] * cfg.moe_top_k
                 dropped += [round(float(a["moe_dropped_frac"]) * slots) for a in tap.aux]
+                routes += tap.routes
         del m
         if zmax is not None:
             r["zmax"].append(zmax())
         if cfg.moe_num_experts:
-            r["dropped"] = dropped
+            r["dropped"], r["routes"] = dropped, routes
         r["lr_sum"] = sum(float(optim.schedule(opt_cfg, t)) for t in range(1, steps + 1))
         r["peak"] = peak()
-        if mesh is not None and name in ("bf16", "uncut"):
+        if mesh is not None and run.get("share"):
             # the step's forward and backward once more, every collective
             # timed between two syncs (no update)
             grad_fn = make_grad_fn(cfg, device=dev, mesh=mesh)
@@ -3917,37 +4326,38 @@ def tp_train_runs(dev, spec, mesh, out_dir, names=("bf16", "f32", "moe")):
                 "ms": 1e3 * d["seconds"].get("all-reduce", 0.0)} for p, d in clog.passes.items()}}
         del state
         if mesh is not None:
-            # every replicated leaf, bit for bit the same on every model rank
+            # every element held whole (a replicated leaf, a packed leaf's
+            # whole blocks), bit for bit the same on every model rank
             group, w = mesh.group("model"), mesh.axis_size("model")
             n_rep = 0
             for p, a in pytree.tree_flatten_with_path(params)[0]:
-                if "model" not in by_path[sharding.path_str(p)]:
-                    bits = a.detach().reshape(-1).view(torch.int16 if a.element_size() == 2
-                                                       else torch.int32).to(torch.float64)
+                whole = whole_elements(a.detach(), by_path[sharding.path_str(p)], mesh)
+                if whole is not None:
+                    bits = whole.reshape(-1).view(torch.int16 if a.element_size() == 2
+                                                  else torch.int32).to(torch.float64)
                     every = gather_blocks(bits, m_idx, w, group)
                     assert bool((every == every[0]).all()), (name, sharding.path_str(p))
-                    n_rep += 1
+                    n_rep += whole.numel()
             r["replicated_equal"] = n_rep
-        if name == "f32":
-            if mesh is None:
-                r["params"] = pytree.tree_map(lambda a: a.detach().cpu(), params)
-            else:  # (e) the checkpoint of the ranks' slices, one device's file
-                path = os.path.join(out_dir, "f32.msgpack")
-                specs = sharding.lay_over(params, by_path)
-                t0 = time.perf_counter()
-                checkpoint.save(path, params, mesh, specs)
-                torch.distributed.barrier()
-                r["ckpt_save_s"] = time.perf_counter() - t0
-                back = checkpoint.load(path, params, mesh, specs)
-                r["ckpt_back"] = all(torch.equal(a, b) for a, b in zip(
-                    pytree.tree_leaves(back), pytree.tree_leaves(params)))
-                assert r["ckpt_back"], "the reloaded checkpoint differs from the rank's slices"
-                del back
-        if name == "moe":
+        if run.get("held"):
             if mesh is None:
                 r["params"] = local_path_tree(params)
             else:
-                torch.save(local_path_tree(params), os.path.join(out_dir, f"moe_params{m_idx}.pt"))
+                r["held"] = held.params(name, params, r["lr_sum"])
+                r["grad_gaps"], r["fetch_s"], held = held.grad_gaps, held.store.seconds, None
+        if mesh is not None and run.get("ckpt"):
+            # the checkpoint of the ranks' slices, one device's file
+            path = os.path.join(out_dir, f"{name}.msgpack")
+            specs = sharding.lay_over(params, by_path)
+            t0 = time.perf_counter()
+            checkpoint.save(path, params, mesh, specs)
+            torch.distributed.barrier()
+            r["ckpt_save_s"] = time.perf_counter() - t0
+            back = checkpoint.load(path, params, mesh, specs)
+            r["ckpt_back"] = all(torch.equal(a, b) for a, b in zip(
+                pytree.tree_leaves(back), pytree.tree_leaves(params)))
+            assert r["ckpt_back"], "the reloaded checkpoint differs from the rank's slices"
+            del back
         r["train_s"] = time.perf_counter() - t_run
         if "levels" in run:
             r["serve"] = calibrate_and_serve(dev, spec, name, cfg, params, run["levels"], mesh,
@@ -4136,7 +4546,8 @@ def tp_train_rank_main(out_dir) -> int:
     t0 = time.perf_counter()
     a = job["spec"]["runs"]["bf16"]
     grad_gap = model_grad_check(mesh, (a["batch"][0] * a["batch"][1], a["cfg"].d_model))
-    res = tp_train_runs(dev, job["spec"], mesh, out_dir, names=("uncut", "bf16", "f32", "moe"))
+    res = tp_train_runs(dev, job["spec"], mesh, out_dir, names=("uncut", "bf16", "f32", "moe"),
+                        store=job["store"])
     res.update(model_grad=grad_gap, rank=torch.distributed.get_rank(), coords=(mesh.coordinate("data"),
                                                            mesh.coordinate("model")),
                mesh=mesh.shape, backend=backend, device=str(dev),
@@ -4148,39 +4559,182 @@ def tp_train_rank_main(out_dir) -> int:
     return 0
 
 
+def one_rank_store(one, spec, world):
+    """A `OneRankStore` of the one-rank training runs' held gradients and
+    params (taken out of `one`), with ``job``: what the ranks are handed
+    (its ticket, and each run's per-step max|g| by leaf)."""
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.training.loop import whole_specs
+
+    trees, by_path, tops = {}, {}, {}
+    for name, r in one["runs"].items():
+        if "grads" not in r:
+            continue
+        for t, tree in enumerate(r.pop("grads")):
+            trees[(name, "grads", t)] = tree
+        trees[(name, "params")] = r.pop("params")
+        by_path[name] = whole_specs(spec["runs"][name]["cfg"], make_debug_mesh(1, world))
+        tops[name] = r["grad_tops"]
+    store = OneRankStore(trees, by_path, world)
+    store.job = {"ticket": store.ticket(), "tops": tops}
+    return store
+
+
+def same_metrics(one, reps, name, rel=None):
+    """Every rank's per-step metrics of run `name` against one rank's:
+    within `rel` relative (bf16), else rtol / atol 2e-4; returns the
+    worst gap."""
+    worst = 0.0
+    for p in reps:
+        for t, (g, w) in enumerate(zip(p["runs"][name]["metrics"],
+                                       one["runs"][name]["metrics"])):
+            assert sorted(g) == sorted(w), (name, sorted(g), sorted(w))
+            for k in w:
+                gap = abs(g[k] - w[k]) / max(abs(w[k]), 1e-30)
+                if k != "moe_aux" or w[k]:
+                    worst = max(worst, gap)
+                if rel is not None:
+                    assert gap <= rel, f"{name} step {t} {k}: rel {gap:.3g} > {rel:.3g}"
+                else:
+                    np.testing.assert_allclose(g[k], w[k], err_msg=f"{name} {t} {k}",
+                                               rtol=2e-4, atol=2e-4)
+    return worst
+
+
+def held_line(one, reps, name, steps):
+    """The ranks' `HeldToOneRank` results of run `name`, summed: the open
+    elements held to OPEN_SHARE_MAX of the model; returns the log line's
+    text (gradients, then params)."""
+    n_all = one["runs"][name]["scalars"]
+    where = {}
+    for p in reps:
+        for path, n in p["runs"][name]["held"][3].items():
+            where[path] = where.get(path, 0) + n
+    n_open = sum(where.values())
+    top = sorted(where.items(), key=lambda kv: -kv[1])
+    assert n_open <= OPEN_SHARE_MAX * n_all, (
+        f"{name}: {n_open} of {n_all} elements open, more than {OPEN_SHARE_MAX:g} of them "
+        f"({top[:6]})")
+    p_gap = max(p["runs"][name]["held"][0] for p in reps)
+    n_out = sum(p["runs"][name]["held"][1] for p in reps)
+    w_out = max(p["runs"][name]["held"][2] for p in reps)
+    gaps = [{path: max(p["runs"][name]["grad_gaps"][t][path] for p in reps)
+             for path in reps[0]["runs"][name]["grad_gaps"][t]} for t in range(steps)]
+    noise = one["runs"][name]["grad_noise"]
+    first = sorted(gaps[0], key=lambda k: -gaps[0][k])
+    lr_sum = one["runs"][name]["lr_sum"]
+    fetch = max(p["runs"][name]["fetch_s"] for p in reps)
+    return (f"each step's gradients within {[float(f'{max(g.values()):.3g}') for g in gaps]} "
+            f"of max|g| by step (rtol 2e-4, atol 2e-4 max|g|, each rank against its slices of "
+            f"one rank's, fetched from this process in {fetch:.1f} s at most); step 1 by leaf, "
+            f"the ranks' gap (one rank's step again; with every param one ulp off): "
+            + ", ".join(f"{k} {gaps[0][k]:.3g} ({noise['repeat'][k]:.3g}; {noise['ulp'][k]:.3g})"
+                        for k in first[:5])
+            + f"; the largest of the leaves one rank's step again "
+            f"{max(noise['repeat'].values()):.3g}, with the params one ulp off "
+            f"{max(noise['ulp'].values()):.3g}; the params after "
+            f"{'the step' if steps == 1 else f'the {steps} steps'} within {p_gap:.3g} abs "
+            f"(rtol / atol 2e-4) on every element whose gradient stayed within rel "
+            f"{ADAM_RHO:g} of one rank's at each step (Adam's update then within "
+            f"{2.002 * ADAM_RHO / (1 - ADAM_RHO):.4g} sum(lr)); open {n_open} of {n_all} "
+            f"({n_open / n_all:.3g}, at most {OPEN_SHARE_MAX:g}): "
+            + (", ".join(f"{p} {n}" for p, n in top[:4]) or "none")
+            + f"; {n_out} of them past 2e-4, by up to {w_out:.3g} (allowed "
+            f"{2.002 * lr_sum:.3g} more)")
+
+
+def train_line(one, reps, name):
+    r0, w0 = reps[0]["runs"][name], one["runs"][name]
+    return (f"steps ms one rank {ms3(w0['ms'])}, per rank "
+            f"{[ms3(p['runs'][name]['ms']) for p in reps]}; peak per rank "
+            f"{[gb(p['runs'][name]['peak']) for p in reps]} (one rank {gb(w0['peak'])}); "
+            f"{r0['scalars']} scalars a rank of {w0['scalars']}")
+
+
+def train_shares(r):
+    s = r["share"]
+    return (f"a synced step's forward and backward {s['ms']:.1f} ms: " + ", ".join(
+        f"{p} {d['n']} all-reduces of {d['gb']:.3f} GB in {d['ms']:.1f} ms "
+        f"({d['ms'] / s['ms']:.1%})" for p, d in s["passes"].items() if d["n"]))
+
+
+def bf16_train_line(one, reps, name, spec):
+    """Run (a) of phase 16 and its phase 17 counterpart: a bf16 model's
+    losses and grad_norm held to one rank within `bf16_tp_train_bound`."""
+    cfg, run = spec["runs"][name]["cfg"], spec["runs"][name]
+    m0 = one["runs"][name]["metrics"]
+    ce = min(v for m in m0 for k, v in m.items() if k.startswith("loss_"))
+    zmax = one["runs"][name]["zmax"]
+    bound = bf16_tp_train_bound(cfg.num_layers, max(zmax), ce)
+    gap = same_metrics(one, reps, name, bound)
+    return (f"{run['steps']} remat steps at {run['batch'][0]} x {run['batch'][1]}: losses "
+            f"and grad_norm per step within rel {gap:.3g} of one rank (the derived bound "
+            f"(2L + 2) 2u max(1, 2 max|z| / loss) = {bound:.4g}, with max|z| of one rank's heads "
+            f"{[round(z, 4) for z in zmax]} before and after the steps and its least head loss "
+            f"{ce:.4f}); one rank's loss {[round(m['loss'], 4) for m in m0]}, grad_norm "
+            f"{[round(m['grad_norm'], 4) for m in m0]}; " + train_line(one, reps, name) + "; "
+            + train_shares(reps[0]["runs"][name]))
+
+
+def served_lines(reps, name, spec, say, tag="d"):
+    """Run (d) of phase 16 and its phase 17 counterpart (`tag`): the trained
+    model calibrated and served over the mesh (`calibrate_and_serve`),
+    every rank's decisions one device's."""
+    d0 = reps[0]["runs"][name]["serve"]
+    for p in reps[1:]:  # every rank returns one device's decisions
+        for key, d in p["runs"][name]["serve"]["plans"].items():
+            for level, e in d["engine"].items():
+                np.testing.assert_array_equal(
+                    e["on_device"], d0["plans"][key]["engine"][level]["on_device"])
+    say(f"{tag}. {name}: the eval step's whole-vocab exit logits of {spec['val'][0]} x "
+        f"{spec['val'][1]} validation tokens in {d0['eval_ms']:.1f} ms; K2 fit (T, plain T, "
+        f"NLLs) {[tuple(round(v, 6) for v in f) for f in d0['fits']]}; planted T* = 1.5: "
+        f"K2 {d0['planted'][0]:.6f}, plain {d0['planted'][1]:.6f}", timed=True)
+    for key, d in d0["plans"].items():
+        one_r = d["one_rank"]
+        say(f"{tag}. {name}, plan of the {key} temperatures "
+            f"{[round(t, 6) for t in d['temperatures']]}, p_tar {d['p_tar']:.9g}: lm_engine "
+            f"over the mesh " + ", ".join(
+                f"level {lv} {e['ms']:.1f} ms, {e['offloaded']} offloaded, "
+                f"{e['payload_bytes']} payload bytes" for lv, e in d["engine"].items())
+            + f"; rank 0 serving the same weights gathered whole on one rank: exit-0 "
+            f"confidences within rel {one_r['conf_gap']:.3g} of the mesh's (bound "
+            f"{one_r['conf_bound']:.3g}), decisions equal on the {one_r['clear']} of "
+            f"{one_r['rows']} rows away from p_tar +- 1e-6 (on every row: "
+            f"{one_r['equal']}), ms {[round(v, 1) for v in one_r['ms'].values()]}",
+            timed=True)
+
+
+def clear_files(out_dir):
+    """Remove a phase's large files: the ranks' checkpoints."""
+    for f in os.listdir(out_dir):
+        if f.endswith((".pt", ".msgpack")):
+            os.remove(os.path.join(out_dir, f))
+
+
 def tp_train_phase(dev, spec, out_dir, timeout=900, say=print, world=None):
     """Phase 16: LM training with the parameters split over a model axis of
     W ranks (``python -m torch.distributed.run --standalone``, each rank
-    this script under ``--tp-train``, `tp_train_rank_main`), then the
-    trained model calibrated and served on the same mesh: W is the card
-    count where it is 2 or more (NCCL, a card a rank), else 2 ranks
-    sharing the one card (gloo), or 2 gloo ranks on the CPU for a
-    rehearsal; the mesh is (data 1, model W). The same training runs
-    first on one rank in this process (`tp_train_runs`; its launches kept
-    out of the phase's counts; its memory freed before the ranks start),
-    and each rank is held to it: (a) the bf16 losses and grad_norm per
-    step within `bf16_tp_train_bound`, and its reduces on their own
-    (`wide_mm_check` here, `model_grad_check` in the ranks); (b) the
-    float32 twin's losses and grad_norm, every gradient leaf at every step
-    (atol 2e-4 * max|g|) and its parameters after 3 steps (read from the
-    ranks' checkpoint, one device's file) at rtol / atol 2e-4 but on the
-    open elements (`ADAM_RHO`); (c) the MoE step's metrics, gradients and
-    parameters the same way, its dropped counts per layer equal. Run (d)
-    is held within the ranks (`calibrate_and_serve`). `world` sets W for a
-    rehearsal on the CPU. Returns the K1-K4 launches summed over the
-    ranks."""
-    import pickle
-
-    import torch
-
+    this script under ``--tp-train``, `tp_train_rank_main`; W and the
+    backend as `rank_world` picks them), then the trained model calibrated
+    and served on the same mesh; the mesh is (data 1, model W). The same
+    training runs first on one rank in this process (`tp_train_runs`; its
+    launches kept out of the phase's counts; its memory freed before the
+    ranks start), and each rank is held to it: (a) the bf16 losses and
+    grad_norm per step within `bf16_tp_train_bound`, and its reduces on
+    their own (`wide_mm_check` here, `model_grad_check` in the ranks); (b)
+    the float32 twin's losses and grad_norm, every gradient leaf at every
+    step and its parameters after 3 steps, each rank against its slices of
+    the one-rank run's (`OneRankStore`, `HeldToOneRank`), its checkpoint one
+    device's file, reloaded bit for bit; (c) the MoE step's metrics,
+    gradients and parameters the same way, its dropped counts per layer
+    equal. Run (d) is held within the ranks (`calibrate_and_serve`).
+    `world` sets W for a rehearsal on the CPU. Returns the K1-K4 launches
+    summed over the ranks."""
     from repro_torch.kernels import calib_nll
-    from repro_torch.launch.mesh import make_debug_mesh
-    from repro_torch.training import checkpoint
-    from repro_torch.training.loop import whole_specs
 
-    if world is None:
-        world = max(2, torch.cuda.device_count() if dev.type == "cuda" else 2)
-    backend = "nccl" if dev.type == "cuda" and torch.cuda.device_count() >= world else "gloo"
+    w_, backend = rank_world(dev)
+    world = world or w_
     os.makedirs(out_dir, exist_ok=True)
 
     t0 = time.perf_counter()
@@ -4195,42 +4749,14 @@ def tp_train_phase(dev, spec, out_dir, timeout=900, say=print, world=None):
     a = spec["runs"]["bf16"]
     wide = (wide_mm_check(dev, a["cfg"], a["batch"][0] * a["batch"][1], world)
             if dev.type == "cuda" else None)
-    with open(os.path.join(out_dir, "job.pkl"), "wb") as f:
-        pickle.dump({"spec": spec, "model": world}, f)
-    for r in range(world):
-        if os.path.exists(os.path.join(out_dir, f"rank{r}.pkl")):
-            os.remove(os.path.join(out_dir, f"rank{r}.pkl"))
-    if dev.type == "cuda":
-        torch.cuda.empty_cache()  # the ranks share the card(s) with this process
-
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
-           str(world), os.path.abspath(__file__), "--tp-train", out_dir]
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [os.path.join(ROOT, "src")] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
-    log_path = os.path.join(out_dir, "ranks.log")
-    t0 = time.perf_counter()
-    with open(log_path, "w") as logf:
-        proc = subprocess.Popen(cmd, stdout=logf, stderr=subprocess.STDOUT, env=env, cwd=ROOT)
-        try:
-            rc = proc.wait(timeout=timeout)
-        except subprocess.TimeoutExpired:
-            rc = "timeout"
-        finally:
-            if proc.poll() is None:  # torchrun stops its ranks on SIGTERM
-                proc.terminate()
-                try:
-                    proc.wait(timeout=60)
-                except subprocess.TimeoutExpired:
-                    proc.kill()
-                    proc.wait()
-    wall = time.perf_counter() - t0
-    with open(log_path) as f:
-        text = f.read()
-    assert rc == 0, f"the ranks failed ({rc}); their output ends:\n{text[-6000:]}"
-    reps = []
-    for r in range(world):
-        with open(os.path.join(out_dir, f"rank{r}.pkl"), "rb") as f:
-            reps.append(pickle.load(f))
+    store = one_rank_store(one, spec, world)
+    try:
+        reps, wall, _ = launch_ranks("--tp-train", out_dir, world,
+                                     {"spec": spec, "model": world, "store": store.job},
+                                     timeout)
+    finally:
+        store.close()
+    clear_files(out_dir)
     say(f"{world} ranks over {backend}, mesh (data 1, model {world}) (python -m "
         f"torch.distributed.run --standalone --nproc-per-node {world}), {wall:.2f} s from "
         f"launch to exit: " + "; ".join(
@@ -4238,137 +4764,17 @@ def tp_train_phase(dev, spec, out_dir, timeout=900, say=print, world=None):
             f"{p['seconds']:.2f} s (" + ", ".join(
                 f"{n} {r['train_s']:.1f} s training, {r['seconds']:.1f} s in all"
                 for n, r in p["runs"].items()) + ")" for p in reps), timed=True)
-    assert [p["rank"] for p in reps] == list(range(world))
-    assert all(p["backend"] == backend and p["mesh"] == (1, world) for p in reps)
-    assert [p["coords"] for p in reps] == [(0, m) for m in range(world)]
+    check_reps(reps, world, backend)
     runs = spec["runs"]
-    tol = dict(rtol=2e-4, atol=2e-4)
     hold = "cuda" if dev.type == "cuda" else "cpu"
-
-    def same_metrics(name, rel=None):
-        """Every rank's per-step metrics against one rank's: within `rel`
-        relative (bf16), else rtol / atol 2e-4; returns the worst gap."""
-        worst = 0.0
-        for p in reps:
-            for t, (g, w) in enumerate(zip(p["runs"][name]["metrics"],
-                                           one["runs"][name]["metrics"])):
-                assert sorted(g) == sorted(w), (name, sorted(g), sorted(w))
-                for k in w:
-                    gap = abs(g[k] - w[k]) / max(abs(w[k]), 1e-30)
-                    if k != "moe_aux" or w[k]:
-                        worst = max(worst, gap)
-                    if rel is not None:
-                        assert gap <= rel, f"{name} step {t} {k}: rel {gap:.3g} > {rel:.3g}"
-                    else:
-                        np.testing.assert_allclose(g[k], w[k], err_msg=f"{name} {t} {k}", **tol)
-        return worst
-
-    def held_grads(name):
-        """Each step's gradients of every rank (its files) against one
-        rank's (freed as they are read), within 2e-4 |w| + 2e-4 max|w| of the
-        whole leaf. Returns the worst gap (relative to the leaf's max|w|)
-        and the open elements, {path: mask of the whole leaf}: where at some
-        step a rank's gradient lies further than ADAM_RHO |w| from one
-        rank's."""
-        by_path = whole_specs(runs[name]["cfg"], make_debug_mesh(1, world))
-        worst, open_, steps = 0.0, {}, one["runs"][name].pop("grads")
-        for t in range(len(steps)):
-            want, steps[t] = steps[t], None
-            files = [os.path.join(out_dir, f"{name}_grads{m}_{t}.pt") for m in range(world)]
-            blocks = [torch.load(f, mmap=True) for f in files]
-            assert all(sorted(b) == sorted(want) for b in blocks), name
-            w_path = None
-            for path, idx, g in rank_parts(want, blocks, by_path):
-                if path != w_path:  # one whole leaf on the card at a time
-                    w_path, whole = path, want[path].to(hold)
-                    top = float(whole.abs().max())
-                w = whole[idx]
-                diff = (g.to(hold) - w).abs()
-                bad = ~(diff <= tol["atol"] * top + tol["rtol"] * w.abs())
-                assert not bool(bad.any()), (
-                    f"{name} step {t} gradient {path}: {int(bad.sum())} elements apart by up "
-                    f"to {float(diff[bad].max()):.3g} (max|g| {top:.3g})")
-                worst = max(worst, float(diff.max()) / max(top, 1e-30))
-                mask = open_.setdefault(path, torch.zeros(whole.shape, dtype=torch.bool,
-                                                          device=hold))
-                mask[idx] |= diff > ADAM_RHO * w.abs()
-            del blocks, whole, want
-            for f in files:
-                os.remove(f)
-        return worst, open_
-
-    def held_params(name, want, parts, open_):
-        """A rank's params after the steps (`parts`, from `rank_parts`)
-        against one rank's `want`, within 2e-4 |w| + 2e-4 on every element
-        but the open ones, which may lie 2.002 sum(lr) further (Adam's
-        largest swing in 3 steps), and make at most OPEN_SHARE_MAX of the
-        model. Returns (the worst gap of the others, the open count, the
-        model's size, how many open ones lie past 2e-4 and by how much at
-        most, the open count per leaf)."""
-        extra = 2.002 * one["runs"][name]["lr_sum"]
-        n_all = sum(w.numel() for w in want.values())
-        where = {p: int(m.sum()) for p, m in open_.items() if bool(m.any())}
-        n_open = sum(where.values())
-        assert n_open <= OPEN_SHARE_MAX * n_all, (
-            f"{name}: {n_open} of {n_all} elements open, more than {OPEN_SHARE_MAX:g} of them "
-            f"({sorted(where.items(), key=lambda kv: -kv[1])[:6]})")
-        worst, n_out, worst_out = 0.0, 0, 0.0
-        for path, idx, g in parts:
-            w, mark = want[path][idx].to(hold), open_[path][idx]
-            diff, lim = (g.to(hold) - w).abs(), tol["atol"] + tol["rtol"] * w.abs()
-            out = mark & ~(diff <= lim)
-            n_out += int(out.sum())
-            if bool(out.any()):
-                worst_out = max(worst_out, float(diff[out].max()))
-            bad = ~(diff <= lim + extra * mark)
-            assert not bool(bad.any()), (f"{name} params {path}: {int(bad.sum())} elements "
-                                         f"apart by up to {float(diff[bad].max()):.3g}")
-            worst = max(worst, float(torch.where(mark, 0.0, diff).max()))
-        return worst, n_open, n_all, n_out, worst_out, where
-
-    def open_line(name, p_gap, n_open, n_all, n_out, w_out, where):
-        top = sorted(where.items(), key=lambda kv: -kv[1])[:4]
-        n = runs[name]["steps"]
-        return (f"the params after {'the step' if n == 1 else f'the {n} steps'} within {p_gap:.3g} abs (rtol / atol 2e-4) on every "
-                f"element whose gradient stayed within rel {ADAM_RHO:g} of one rank's at each "
-                f"step (Adam's update then within {2.002 * ADAM_RHO / (1 - ADAM_RHO):.4g} "
-                f"sum(lr)); open {n_open} of {n_all} ({n_open / n_all:.3g}, at most "
-                f"{OPEN_SHARE_MAX:g}): " + (", ".join(f"{p} {n}" for p, n in top) or "none")
-                + f"; {n_out} of them past 2e-4, by up to {w_out:.3g} (allowed "
-                f"{2.002 * one['runs'][name]['lr_sum']:.3g} more)")
-
-    def line(name):
-        r0, w0 = reps[0]["runs"][name], one["runs"][name]
-        return (f"steps ms one rank {ms3(w0['ms'])}, per rank "
-                f"{[ms3(p['runs'][name]['ms']) for p in reps]}; peak per rank "
-                f"{[gb(p['runs'][name]['peak']) for p in reps]} (one rank {gb(w0['peak'])}); "
-                f"{r0['scalars']} scalars a rank of {w0['scalars']}")
-
-    def shares(r):
-        s = r["share"]
-        return (f"a synced step's forward and backward {s['ms']:.1f} ms: " + ", ".join(
-            f"{p} {d['n']} all-reduces of {d['gb']:.3f} GB in {d['ms']:.1f} ms "
-            f"({d['ms'] / s['ms']:.1%})" for p, d in s["passes"].items() if d["n"]))
 
     # (a) bf16
     cfg = runs["bf16"]["cfg"]
     rows = runs["bf16"]["batch"][0] * runs["bf16"]["batch"][1]
-    m0 = one["runs"]["bf16"]["metrics"]
-    ce = min(v for m in m0 for k, v in m.items() if k.startswith("loss_"))
-    zmax = one["runs"]["bf16"]["zmax"]
-    bound = bf16_tp_train_bound(cfg.num_layers, max(zmax), ce)
-    gap = same_metrics("bf16", bound)
     say(f"a. {cfg.name} widths (d {cfg.d_model}, {cfg.num_heads} heads, kv "
         f"{cfg.num_kv_heads}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}) reduced to "
-        f"{cfg.num_layers} layers, exits {cfg.exit_layers}, bf16, {runs['bf16']['steps']} remat "
-        f"steps at {runs['bf16']['batch'][0]} x {runs['bf16']['batch'][1]}: losses and "
-        f"grad_norm per step within rel {gap:.3g} of one rank (the derived bound (2L + 2) 2u "
-        f"max(1, 2 max|z| / loss) = {bound:.4g}, with max|z| of one rank's heads "
-        f"{[round(z, 4) for z in zmax]} before and after the steps and its least head loss "
-        f"{ce:.4f}); one rank's loss "
-        f"{[round(m['loss'], 4) for m in m0]}, grad_norm "
-        f"{[round(m['grad_norm'], 4) for m in m0]}; " + line("bf16") + "; "
-        + shares(reps[0]["runs"]["bf16"]), timed=True)
+        f"{cfg.num_layers} layers, exits {cfg.exit_layers}, bf16, "
+        + bf16_train_line(one, reps, "bf16", spec), timed=True)
     say(f"a. the bf16 reduces on {hold}: model_grad's backward at ({rows}, {cfg.d_model}) the "
         f"float32 sum of the ranks' gradients rounded once"
         + (" (bit for bit)" if world == 2 else "") + ", worst gap over its bound "
@@ -4379,40 +4785,23 @@ def tp_train_phase(dev, spec, out_dir, timeout=900, say=print, world=None):
             if wide is not None else "_WideMM not run (the card's float32-output GEMM only)"),
         timed=True)
 
-    # (b) the float32 twin, its gradients from the rank files and its
-    # parameters from the ranks' checkpoint
+    # (b) the float32 twin
     cfg = runs["f32"]["cfg"]
-    gap = same_metrics("f32")
-    g_gap, open_ = held_grads("f32")
-    want = one["runs"]["f32"]["params"]
-    tree = local_path_tree(checkpoint.load(os.path.join(out_dir, "f32.msgpack"), want))
-    want = local_path_tree(want)
-    p_b = held_params("f32", want, rank_parts(want, [tree], {p: () for p in want}), open_)
-    n_leaves = len(open_)
-    del tree, want, open_
+    gap = same_metrics(one, reps, "f32")
     r0 = reps[0]["runs"]["f32"]
     assert all(p["runs"]["f32"]["ckpt_back"] for p in reps)
     say(f"b. float32 twin ({cfg.num_layers} layers, exits {cfg.exit_layers}, "
         f"{runs['f32']['batch'][0]} x {runs['f32']['batch'][1]}, {runs['f32']['steps']} steps): "
-        f"losses and grad_norm within rel {gap:.3g}; each step's gradients, "
-        f"{n_leaves} leaves, {r0['scalars']} scalars a rank, within "
-        f"{g_gap:.3g} of max|g| (rtol 2e-4, atol 2e-4 max|g|); " + open_line("f32", *p_b)
-        + f"; the params read with checkpoint.load from the ranks' file of one device's layout "
-        f"(written in {r0['ckpt_save_s']:.2f} s, reloaded bit for bit on every rank); "
-        f"{r0['replicated_equal']} replicated leaves bit-equal over the ranks; "
-        + line("f32"), timed=True)
+        f"losses and grad_norm within rel {gap:.3g}; "
+        + held_line(one, reps, "f32", runs["f32"]["steps"])
+        + f"; the ranks' checkpoint, one device's layout, written in {r0['ckpt_save_s']:.2f} s "
+        f"and reloaded bit for bit on every rank; {r0['replicated_equal']} replicated elements "
+        f"bit-equal over the ranks; " + train_line(one, reps, "f32"), timed=True)
 
     # (c) the MoE step
     cfg = runs["moe"]["cfg"]
-    by_path = whole_specs(cfg, make_debug_mesh(1, world))
-    gap = same_metrics("moe")
-    g_gap, open_ = held_grads("moe")
-    files = [os.path.join(out_dir, f"moe_params{m}.pt") for m in range(world)]
-    blocks = [torch.load(f, mmap=True) for f in files]
-    w0 = one["runs"]["moe"]
-    p_c = held_params("moe", w0["params"], rank_parts(w0["params"], blocks, by_path), open_)
-    del blocks, open_
-    r0 = reps[0]["runs"]["moe"]
+    gap = same_metrics(one, reps, "moe")
+    w0, r0 = one["runs"]["moe"], reps[0]["runs"]["moe"]
     assert sum(w0["dropped"]) > 0, "no token dropped: the MoE check needs drops"
     for p in reps:
         assert p["runs"]["moe"]["dropped"] == w0["dropped"], (p["runs"]["moe"]["dropped"],
@@ -4421,61 +4810,297 @@ def tp_train_phase(dev, spec, out_dir, timeout=900, say=print, world=None):
         f"{cfg.moe_num_experts // world} a rank) reduced to {cfg.num_layers} layers, capacity "
         f"factor {cfg.moe_capacity_factor}, float32, one step at {runs['moe']['batch'][0]} x "
         f"{runs['moe']['batch'][1]}: dropped (token, slot) pairs per layer {r0['dropped']} on "
-        f"every rank, as on one; metrics within rel {gap:.3g}; the step's gradients within "
-        f"{g_gap:.3g} of max|g|; " + open_line("moe", *p_c) + "; " + line("moe"), timed=True)
-    for f in os.listdir(out_dir):  # the large files
-        if f.endswith((".pt", ".msgpack")):
-            os.remove(os.path.join(out_dir, f))
+        f"every rank, as on one; metrics within rel {gap:.3g}; "
+        + held_line(one, reps, "moe", runs["moe"]["steps"]) + "; " + train_line(one, reps, "moe"),
+        timed=True)
 
     # (d) the trained model, calibrated and served over the mesh
+    if "uncut" in runs:
+        cfg, r0 = runs["uncut"]["cfg"], reps[0]["runs"]["uncut"]
+        b, s = runs["uncut"]["batch"]
+        for p in reps:
+            u = p["runs"]["uncut"]
+            assert u["scalars"] * world >= cfg.param_count(), (u["scalars"], cfg.param_count())
+            assert all(np.isfinite(m["loss"]) for m in u["metrics"])
+        say(f"{cfg.name} uncut ({cfg.num_layers} layers, param_count {cfg.param_count()}), "
+            f"bf16, {runs['uncut']['steps']} remat steps at {b} x {s}: "
+            f"{[p['runs']['uncut']['scalars'] for p in reps]} scalars a rank; losses "
+            f"{[round(m['loss'], 4) for m in r0['metrics']]}, grad_norm "
+            f"{[round(m['grad_norm'], 4) for m in r0['metrics']]}; steps ms per rank "
+            f"{[ms3(p['runs']['uncut']['ms']) for p in reps]}; peak per rank "
+            f"{[gb(p['runs']['uncut']['peak']) for p in reps]}; " + train_shares(r0), timed=True)
     for name in ("bf16", "uncut"):
-        if "levels" not in runs.get(name, {}):
-            continue
-        cfg = runs[name]["cfg"]
-        r0 = reps[0]["runs"][name]
-        d0 = r0["serve"]
-        for p in reps[1:]:  # every rank returns one device's decisions
-            for key, d in p["runs"][name]["serve"]["plans"].items():
-                for level, e in d["engine"].items():
-                    np.testing.assert_array_equal(
-                        e["on_device"], d0["plans"][key]["engine"][level]["on_device"])
-        if name == "uncut":
-            b, s = runs[name]["batch"]
-            for p in reps:
-                u = p["runs"][name]
-                assert u["scalars"] * world >= cfg.param_count(), (u["scalars"], cfg.param_count())
-                assert all(np.isfinite(m["loss"]) for m in u["metrics"])
-            say(f"{cfg.name} uncut ({cfg.num_layers} layers, param_count {cfg.param_count()}), "
-                f"bf16, {runs[name]['steps']} remat steps at {b} x {s}: "
-                f"{[p['runs'][name]['scalars'] for p in reps]} scalars a rank; losses "
-                f"{[round(m['loss'], 4) for m in r0['metrics']]}, grad_norm "
-                f"{[round(m['grad_norm'], 4) for m in r0['metrics']]}; steps ms per rank "
-                f"{[ms3(p['runs'][name]['ms']) for p in reps]}; peak per rank "
-                f"{[gb(p['runs'][name]['peak']) for p in reps]}; " + shares(r0), timed=True)
-        say(f"d. {name}: the eval step's whole-vocab exit logits of {spec['val'][0]} x "
-            f"{spec['val'][1]} validation tokens in {d0['eval_ms']:.1f} ms; K2 fit (T, plain T, "
-            f"NLLs) {[tuple(round(v, 6) for v in f) for f in d0['fits']]}; planted T* = 1.5: "
-            f"K2 {d0['planted'][0]:.6f}, plain {d0['planted'][1]:.6f}", timed=True)
-        for key, d in d0["plans"].items():
-            one_r = d["one_rank"]
-            say(f"d. {name}, plan of the {key} temperatures "
-                f"{[round(t, 6) for t in d['temperatures']]}, p_tar {d['p_tar']:.9g}: lm_engine "
-                f"over the mesh " + ", ".join(
-                    f"level {lv} {e['ms']:.1f} ms, {e['offloaded']} offloaded, "
-                    f"{e['payload_bytes']} payload bytes" for lv, e in d["engine"].items())
-                + f"; rank 0 serving the same weights gathered whole on one rank: exit-0 "
-                f"confidences within rel {one_r['conf_gap']:.3g} of the mesh's (bound "
-                f"{one_r['conf_bound']:.3g}), decisions equal on the {one_r['clear']} of "
-                f"{one_r['rows']} rows away from p_tar +- 1e-6 (on every row: "
-                f"{one_r['equal']}), ms {[round(v, 1) for v in one_r['ms'].values()]}",
-                timed=True)
-    counts = {}
-    for p in reps:
-        for k, v in p["launches"].items():
-            counts[k] = counts.get(k, 0) + v
+        if "levels" in runs.get(name, {}):
+            served_lines(reps, name, spec, say)
     say("launches per rank (K1, K3, K4, K2): " + "; ".join(
         f"rank {p['rank']} {tuple(p['launches'].values())}" for p in reps))
-    return counts
+    return summed_launches(reps)
+
+
+# ------------------------------------------------------------ tp_ssm (17)
+def tp_ssm_spec(full=True, uncut=False):
+    """Phase 17's runs: serving runs (`tp_runs`: a config, prefill (b, s),
+    decode steps, lm_engine's codec levels) and training runs
+    (`tp_train_runs`: a config, (batch, seq), steps, flags) of the mamba and
+    hybrid families, at their published widths (`full`), or a CPU
+    rehearsal of the same runs on smoke widths. With `uncut`, also
+    jamba-v0.1-52b served at its published 32 layers, which only a mesh of
+    four cards holds (`tools/tp_phase.py --ssm`)."""
+    from repro_torch.configs import get_config, get_smoke
+
+    if full:
+        m, j = get_config("mamba2-130m"), get_config("jamba-v0.1-52b")
+        f32 = m.replace(dtype="float32")
+        # reduced: 32 -> 8 layers, one period (7 mamba + 1 attention, 4
+        # MoE), the exits (7, 15) -> (3,), as phase 12 cuts it
+        j8 = j.replace(num_layers=8, exit_layers=(3,), exit_loss_weights=(1.0,))
+        # reduced: 32 -> 2 layers (mamba + dense MLP, mamba + MoE), the
+        # exits (7, 15) -> (0,)
+        j2 = j.replace(num_layers=2, exit_layers=(0,), exit_loss_weights=(1.0,))
+        serve = {"ssm_bf16": dict(cfg=m, serve=(8, 512), decode=16, levels=(0, 2)),
+                 "ssm_f32": dict(cfg=f32, serve=(4, 256), decode=4, levels=()),
+                 "jamba": dict(cfg=j8, serve=(8, 512), decode=8, levels=(0, 2)),
+                 # reduced: 32 -> 5 layers (mamba + MLP, mamba + MoE twice, then
+                 # attention + MLP), exits -> (0,), float32, where routes and
+                 # drops must be one rank's: the check with teeth of (c)
+                 "jamba_f32": dict(cfg=j.replace(num_layers=5, exit_layers=(0,),
+                                                 exit_loss_weights=(1.0,), dtype="float32"),
+                                   serve=(4, 256), decode=4, levels=())}
+        train = {"ssm_bf16": dict(cfg=m, batch=(8, 512), steps=3, **BF16_RUN),
+                 "ssm_f32": dict(cfg=f32, batch=(4, 256), steps=3, levels=(0, 2), **F32_RUN),
+                 "jamba": dict(cfg=j2, batch=(4, 512), steps=1, **BF16_RUN)}
+        if uncut:
+            serve["uncut"] = dict(cfg=j, serve=(8, 512), decode=32, levels=(0, 1, 2))
+        return dict(device=None, serve=dict(device=None, runs=serve),
+                    train=dict(device=None, runs=train, val=(8, 128), serve=(8, 512)))
+    m = get_smoke("mamba2-130m").replace(num_layers=4, exit_layers=(0, 2),
+                                         exit_loss_weights=(1.0, 1.0))
+    j = get_smoke("jamba-v0.1-52b").replace(num_layers=4, exit_layers=(1,),
+                                            moe_capacity_factor=0.5)
+    serve = {"ssm_bf16": dict(cfg=m, serve=(4, 32), decode=4, levels=(0, 2)),
+             "ssm_f32": dict(cfg=m.replace(dtype="float32"), serve=(2, 32), decode=2,
+                             levels=()),
+             "jamba": dict(cfg=j, serve=(4, 32), decode=2, levels=(0, 2)),
+             "jamba_f32": dict(cfg=j.replace(num_layers=2, exit_layers=(0,), dtype="float32"),
+                               serve=(2, 32), decode=2, levels=())}
+    train = {"ssm_bf16": dict(cfg=m, batch=(4, 32), steps=3, **BF16_RUN),
+             "ssm_f32": dict(cfg=m.replace(dtype="float32"), batch=(4, 32), steps=3,
+                             levels=(0, 2), **F32_RUN),
+             "jamba": dict(cfg=j.replace(num_layers=2, exit_layers=(0,)), batch=(4, 32),
+                           steps=1, **BF16_RUN)}
+    if uncut:
+        serve["uncut"] = dict(cfg=j.replace(num_layers=6, exit_layers=(1, 3),
+                                            exit_loss_weights=(1.0, 1.0)),
+                              serve=(4, 32), decode=4, levels=(0, 1, 2))
+    return dict(device="cpu", serve=dict(device="cpu", runs=serve),
+                train=dict(device="cpu", runs=train, val=(4, 32), serve=(4, 32)))
+
+
+def run_tokens(run):
+    """The tokens of a training run's batch."""
+    return run["batch"][0] * run["batch"][1]
+
+
+SSM_SERVE = ("ssm_bf16", "ssm_f32", "jamba", "jamba_f32")
+SSM_TRAIN = ("ssm_bf16", "ssm_f32", "jamba")
+
+
+def tp_ssm_rank_main(out_dir) -> int:
+    """One rank of phase 17, under ``torch.distributed.run``: `tp_runs` and
+    then `tp_train_runs` over the (data 1, model W) mesh, the kernels'
+    launches counted from 0. Writes rank<r>.pkl to `out_dir`."""
+    import pickle
+
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.kernels import calib_nll
+    from repro_torch.launch.mesh import join_ranks
+
+    with open(os.path.join(out_dir, "job.pkl"), "rb") as f:
+        job = pickle.load(f)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh, backend = join_ranks(job["spec"]["device"], model=job["model"])
+    dev = mesh.device
+    for k in list(LaunchLog(dev).counters.values()) + [calib_nll.KERNEL]:
+        k.launches = 0
+    t0 = time.perf_counter()
+    serve = tp_runs(dev, job["spec"]["serve"], mesh, job["p_tar"],
+                    names=("uncut",) + SSM_SERVE)
+    t_serve = time.perf_counter() - t0
+    train = tp_train_runs(dev, job["spec"]["train"], mesh, out_dir, names=SSM_TRAIN,
+                          store=job["store"])
+    res = dict(serve=serve, train=train, launches={**serve["launches"], **train["launches"]},
+               rank=torch.distributed.get_rank(),
+               coords=(mesh.coordinate("data"), mesh.coordinate("model")), mesh=mesh.shape,
+               backend=backend, device=str(dev),
+               card=torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+               serve_s=t_serve, seconds=time.perf_counter() - t0)
+    with open(os.path.join(out_dir, f"rank{res['rank']}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def tp_ssm_phase(dev, spec, out_dir, timeout=900, say=print):
+    """Phase 17: the mamba and hybrid families with their parameters split
+    over a model axis of W ranks (``python -m torch.distributed.run
+    --standalone``, each rank this script under ``--tp-ssm``,
+    `tp_ssm_rank_main`; W and the backend as `rank_world` picks them); the
+    mesh is (data 1, model W), each mamba layer on its block of SSD heads
+    with B and C whole (`sharding.layout_specs`). The same runs first on
+    one rank in this process (their launches kept out of the phase's
+    counts, their memory freed before the ranks start), and each rank is
+    held to them: (a) mamba2-130m uncut, bf16: prefill, decode from its
+    caches and lm_engine within `bf16_tp_bound` (`held_serving`), 3 remat
+    steps' losses and grad_norm within `bf16_tp_train_bound`; (b) its
+    float32 twin: prefill and decode at rtol / atol 2e-4, every gradient
+    leaf at every step and the params after 3 steps against the one-rank
+    run's (`HeldToOneRank`), every element held whole bit-equal over the
+    ranks, the ranks' checkpoint one device's file, then the trained model
+    calibrated (K2 against the plain fit, on planted labels too) and served
+    over the mesh (`calibrate_and_serve`); (c) jamba-v0.1-52b's widths
+    reduced to 8 layers, bf16: prefill, decode and lm_engine within
+    `bf16_tp_bound` where a rank routed the compared token as one rank did
+    (`held_serving`: the other pairs finite, each layer's dropped count
+    within its rerouted tokens), and reduced to 5 layers (mamba with the
+    dense MLP and the MoE, then attention) in float32, at rtol / atol 2e-4
+    with dropped counts equal; (d) jamba reduced to 2 layers: one bf16
+    remat step held as (a), each dropped count within its rerouted tokens
+    of one rank's. With the
+    ``uncut`` run (four cards), jamba-v0.1-52b uncut is served over the
+    mesh beside the dry run's peak of its prefill as rank 0 of the mesh.
+    Returns the K1-K4 launches summed over the ranks."""
+    from repro_torch.kernels import calib_nll
+
+    world, backend = rank_world(dev)
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    counters = list(LaunchLog(dev).counters.values()) + [calib_nll.KERNEL]
+    before = [k.launches for k in counters]
+    one_s = tp_runs(dev, spec["serve"], None, names=SSM_SERVE)
+    t_serve = time.perf_counter() - t0
+    one_t = tp_train_runs(dev, spec["train"], None, out_dir, names=SSM_TRAIN)
+    for k, n in zip(counters, before):
+        k.launches = n
+    say(f"one rank in this process, {t_serve:.2f} s serving: " + "; ".join(
+        f"{n} {r['scalars']} scalars, prefill {ms3(r['ms'])} ms, peak {gb(r['peak'])}"
+        for n, r in one_s["runs"].items()) + f"; {time.perf_counter() - t0 - t_serve:.2f} s "
+        f"training: " + "; ".join(
+        f"{n} {r['scalars']} scalars, steps {ms3(r['ms'])} ms, peak {gb(r['peak'])}"
+        for n, r in one_t["runs"].items()), timed=True)
+    store = one_rank_store(one_t, spec["train"], world)
+    runs_s, runs_t = spec["serve"]["runs"], spec["train"]["runs"]
+
+    def costs():  # the dry run's FLOPs, and the uncut model's peak as rank 0
+        out = {n: prefill_cost(r["cfg"], *r["serve"])["flops"] for n, r in runs_s.items()
+               if n in ("ssm_bf16", "jamba", "uncut")}
+        if "uncut" in runs_s:
+            out["uncut_peak"] = prefill_cost(runs_s["uncut"]["cfg"], *runs_s["uncut"]["serve"],
+                                             model=world)["peak_bytes"]
+        return out
+
+    try:
+        reps, wall, flops = launch_ranks(
+            "--tp-ssm", out_dir, world, {"spec": spec, "p_tar": one_s["p_tar"],
+                                         "store": store.job, "model": world}, timeout,
+            meanwhile=costs)
+    finally:
+        store.close()
+    clear_files(out_dir)
+    say(f"{world} ranks over {backend}, mesh (data 1, model {world}) (python -m "
+        f"torch.distributed.run --standalone --nproc-per-node {world}), {wall:.2f} s from "
+        f"launch to exit: " + "; ".join(
+            f"rank {p['rank']} on {p['device']} ({p['card']}, {p['backend']}), its runs "
+            f"{p['seconds']:.2f} s ({p['serve_s']:.1f} s serving)" for p in reps), timed=True)
+    check_reps(reps, world, backend)
+    sv = [dict(p["serve"], rank=p["rank"], coords=p["coords"]) for p in reps]
+    tr = [dict(p["train"], rank=p["rank"], coords=p["coords"]) for p in reps]
+
+    def serving(name, bound):
+        gap, n, unheld, carried = held_serving(one_s, sv, name, bound)
+        cfg, r0, w0 = runs_s[name]["cfg"], sv[0]["runs"][name], one_s["runs"][name]
+        b, s = runs_s[name]["serve"]
+        rate = (f" ({flops[name]:.4g} FLOPs, {flops[name] / (min(r0['ms']) * 1e-3) / 1e12:.1f} "
+                f"TFLOP/s over the {world} ranks)" if name in flops else "")
+        steps = 1 + len(w0.get("decode", []))
+        drops = ("" if "dropped" not in r0 else
+                 f"; dropped (token, slot) pairs per layer {r0['dropped']} on rank 0, one rank "
+                 f"{w0['dropped']}" + (
+                     "" if bound is None else
+                     f"; (row, step) pairs whose compared token a rank routed otherwise than "
+                     f"one rank (held to finite values only): {unheld} of {len(sv) * b * steps} "
+                     f"over the ranks; the worst gap held where only an earlier token of the "
+                     f"row was rerouted rel {carried:.3g} of max|z|"))
+        held = len(sv) * b * steps - unheld
+        tol = (f"within rel {gap:.3g} of max|z| of one rank on the {held} (row, step) pairs held "
+               f"(the derived bound (2L + 2) 2u = {bound:.4g})" if bound else
+               f"within rel {gap:.3g} (rtol / atol 2e-4)")
+        return (f"serving, {r0['scalars']} scalars a rank of {w0['scalars']}: prefill {b} x {s}, "
+                f"{len(r0.get('decode', []))} decode steps from its caches, lm_engine at levels "
+                f"{tuple(r0['engine'])}: every rank {tol}; {n} predictions and decisions equal "
+                f"where one rank's margins clear it; the last token's logits against a prefill "
+                f"over the same tokens rel {r0['resume_gap']:.3g}{drops}; prefill ms one rank "
+                f"{ms3(w0['ms'])}, rank 0 {ms3(r0['ms'])}{rate}; decode ms a token one rank "
+                f"{ms3(w0['decode_ms'])}, rank 0 {ms3(r0['decode_ms'])}; {serve_shares(r0)}"
+                + (f"; lm_engine one rank {engine_line(w0)}; rank 0 {engine_line(r0)}"
+                   if r0["engine"] else "")
+                + f"; peak per rank {[gb(p['runs'][name]['peak']) for p in sv]} (one rank "
+                f"{gb(w0['peak'])})")
+
+    cfg = runs_s["ssm_bf16"]["cfg"]
+    say(f"a. {cfg.name} uncut ({cfg.num_layers} layers, d {cfg.d_model}, {cfg.ssm_heads} SSD "
+        f"heads, {cfg.ssm_heads // world} a rank, state {cfg.ssm_state}, vocab "
+        f"{cfg.vocab_size}), bf16: " + serving("ssm_bf16", bf16_tp_bound(cfg.num_layers)),
+        timed=True)
+    say(f"a. {cfg.name} training: " + bf16_train_line(one_t, tr, "ssm_bf16", spec["train"]),
+        timed=True)
+    cfg = runs_s["ssm_f32"]["cfg"]
+    say(f"b. {cfg.name} float32 twin, uncut: " + serving("ssm_f32", None), timed=True)
+    run = runs_t["ssm_f32"]
+    gap = same_metrics(one_t, tr, "ssm_f32")
+    r0 = tr[0]["runs"]["ssm_f32"]
+    assert all(p["runs"]["ssm_f32"]["ckpt_back"] for p in tr)
+    say(f"b. float32 twin training, {run['steps']} steps at {run['batch'][0]} x "
+        f"{run['batch'][1]}: losses and grad_norm within rel {gap:.3g}; "
+        + held_line(one_t, tr, "ssm_f32", run["steps"])
+        + f"; {r0['replicated_equal']} elements held whole (the B and C columns of in_proj and "
+        f"channels of conv_w / conv_b, the norms) bit-equal over the ranks; the ranks' "
+        f"checkpoint, one device's layout, written in {r0['ckpt_save_s']:.2f} s and reloaded "
+        f"bit for bit on every rank; " + train_line(one_t, tr, "ssm_f32"), timed=True)
+    served_lines(tr, "ssm_f32", spec["train"], say, tag="b")
+    cfg = runs_s["jamba"]["cfg"]
+    say(f"c. {cfg.name} widths (d {cfg.d_model}, {cfg.ssm_heads} SSD heads, {cfg.num_heads} "
+        f"heads, kv {cfg.num_kv_heads}, {cfg.moe_num_experts} experts top-{cfg.moe_top_k}) "
+        f"reduced to {cfg.num_layers} layers, exits {cfg.exit_layers}, bf16: "
+        + serving("jamba", bf16_tp_bound(cfg.num_layers)), timed=True)
+    cfg = runs_s["jamba_f32"]["cfg"]
+    say(f"c. {cfg.name} widths reduced to {cfg.num_layers} layers ({cfg.layer_plan()}), exits "
+        f"{cfg.exit_layers}, float32: " + serving("jamba_f32", None), timed=True)
+    cfg = runs_t["jamba"]["cfg"]
+    w0 = one_t["runs"]["jamba"]
+    moved = []
+    for p in tr:  # each MoE layer's dropped count within its rerouted tokens of one rank's
+        got = p["runs"]["jamba"]
+        flips = [int((g != w).any(-1).sum()) for g, w in zip(got["routes"], w0["routes"])]
+        assert all(abs(g - w) <= f for g, w, f in zip(got["dropped"], w0["dropped"], flips)), (
+            got["dropped"], w0["dropped"], flips)
+        moved.append(flips)
+    say(f"d. {cfg.name} widths reduced to {cfg.num_layers} layers ({cfg.layer_plan()}), exits "
+        f"{cfg.exit_layers}, bf16: dropped (token, slot) pairs per MoE layer one rank "
+        f"{w0['dropped']}, per rank "
+        f"{[p['runs']['jamba']['dropped'] for p in tr]}, each within the tokens a rank routed "
+        f"otherwise than one rank ({moved} of {run_tokens(runs_t['jamba'])} a layer); "
+        + bf16_train_line(one_t, tr, "jamba", spec["train"]), timed=True)
+    if "uncut" in runs_s:
+        say("e. " + uncut_serving_line(
+            runs_s["uncut"]["cfg"], runs_s["uncut"]["serve"], sv[0]["runs"]["uncut"], sv, world,
+            flops["uncut"], extra=f" (the dry run's peak of the prefill as rank 0 of (data 1, "
+            f"model {world}): {flops['uncut_peak'] / 1e9:.2f} GB)"), timed=True)
+    say("launches per rank (K1, K3, K4, K2): " + "; ".join(
+        f"rank {p['rank']} {tuple(p['launches'].values())}" for p in reps))
+    return summed_launches(reps)
 
 
 def main() -> int:
@@ -5065,6 +5690,10 @@ def main() -> int:
         cuda, tp_train_spec(), os.path.join(ckpt_dir, "tp_train"), say=say), in_ranks=True)
 
     # ---------------------------------------------------------------- 17
+    run_phase("tp_ssm", lambda say: tp_ssm_phase(
+        cuda, tp_ssm_spec(), os.path.join(ckpt_dir, "tp_ssm"), say=say), in_ranks=True)
+
+    # ---------------------------------------------------------------- 18
     launches = {n: sum(c[n] for c in phase_launches.values()) for n in kernels}
     table = []
     for n in kernels:
@@ -5089,4 +5718,6 @@ if __name__ == "__main__":
         sys.exit(tp_rank_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--tp-train":
         sys.exit(tp_train_rank_main(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--tp-ssm":
+        sys.exit(tp_ssm_rank_main(sys.argv[2]))
     sys.exit(main())

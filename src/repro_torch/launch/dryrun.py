@@ -18,8 +18,10 @@ made from `models.registry`'s meta specs. Each record holds:
     (`hlo_cost.LiveBytes`, which follows each storage from the op that
     made it until the last tensor on it is gone);
   * ``per_card_bytes``: the same parts as one card of the described mesh
-    (``--mesh``, `launch.mesh`) would hold them under
-    `repro_torch.sharding`'s specs and `optim.state_specs` (``--zero1``);
+    (``--mesh``, `launch.mesh`) would hold them under the port's layout
+    (`sharding.layout_specs`, `sharding.cache_layout`: the reference's
+    specs but for mamba's packed leaves) and `optim.state_specs`
+    (``--zero1``);
   * ``fits_one_card``: whether the traced peak fits the card's own
     memory (`torch.cuda.get_device_properties().total_memory`; a CPU trace
     is held to the H100 SXM's 80 GB). A pair that does not fit is a
@@ -35,10 +37,10 @@ one card's, as the reference's are one device's (``traced_as``:
 ``"rank 0"``). A train step's schedule holds its backward's all-reduces
 and, with remat, the ones its checkpointed layers issue again while they
 recompute; ``collective_passes`` splits the counts and bytes by pass
-(forward, backward, recompute). A family that does not run
-tensor-parallel (mamba, the hybrids, whisper) on a model axis above one
-rank is traced as the whole step on one card instead (``traced_as``:
-``"one card"``), its collectives ``null`` with the reason in
+(forward, backward, recompute). The encoder-decoder family (whisper),
+which does not run tensor-parallel yet, is traced on a model axis above
+one rank as the whole step on one card instead (``traced_as``: ``"one
+card"``), its collectives ``null`` with the reason in
 ``collectives_note``. On one card (``1x1``) the step issues no
 collective and both are empty.
 
@@ -149,7 +151,7 @@ def build_step(cfg: ModelConfig, shape: ShapeConfig, device, remat: bool = True,
     handed it. Call it under a FakeTensorMode."""
     whole = registry.param_specs_shapes(cfg)
     if mesh is not None:
-        whole = sharding.local_shards(whole, sharding.param_specs(whole, mesh), mesh)
+        whole = sharding.local_shards(whole, sharding.layout_specs(whole, mesh), mesh)
     params = _fake(whole, device)
     batch = _fake(registry.input_specs(cfg, shape), device)
     if shape.kind == "train":
@@ -205,7 +207,7 @@ def run_one(arch: str, shape_name: str, outdir: str = os.path.join("build", "dry
         cost = dict(cost, collective_bytes=None, collective_counts=None, collective_passes=None)
 
     # specs over the described mesh, from the whole parts' shapes
-    pspecs = sharding.param_specs(whole["params"], mesh_spec)
+    pspecs = sharding.layout_specs(whole["params"], mesh_spec)
     specs = {"params": pspecs, "batch": sharding.batch_specs_tree(whole["batch"], mesh_spec)}
     if "opt_state" in whole:
         dp = sharding.dp_axes(mesh_spec)
@@ -215,8 +217,8 @@ def run_one(arch: str, shape_name: str, outdir: str = os.path.join("build", "dry
         whole = dict(whole, opt_state=list(whole["opt_state"]))
         parts = dict(parts, opt_state=list(parts["opt_state"]))
     if "cache" in whole:
-        specs["cache"] = sharding.cache_specs_tree(whole["cache"], mesh_spec,
-                                                   batch_sharded=shape.global_batch > 1)
+        specs["cache"] = sharding.cache_layout(whole["cache"], mesh_spec,
+                                               batch_sharded=shape.global_batch > 1)
     if dev.type == "cuda":
         device_name = torch.cuda.get_device_name(dev)
         card_bytes = torch.cuda.get_device_properties(dev).total_memory

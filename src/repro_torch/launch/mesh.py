@@ -51,7 +51,8 @@ through `all_sum` itself, which autograd does not see:
                  since the loss above it is the same on every rank.
 
 `gather_whole` is the inverse of `sharding.local_shards`: a local tree
-back to whole leaves, leaf by leaf to the host (checkpoints).
+back to whole leaves, leaf by leaf to the host (checkpoints), a packed
+dim (`sharding.Packed`) block by block.
 """
 from __future__ import annotations
 
@@ -372,6 +373,8 @@ def gather_whole(tree, specs, mesh: MeshSpec):
     call it; each gets the whole tree."""
     import torch.utils._pytree as pytree
 
+    from repro_torch.sharding import Packed
+
     leaves, treedef = pytree.tree_flatten(tree)
     spec_leaves = pytree.tree_leaves(specs, is_leaf=lambda s: isinstance(s, tuple))
     if len(spec_leaves) != len(leaves):
@@ -380,6 +383,9 @@ def gather_whole(tree, specs, mesh: MeshSpec):
     for leaf, spec in zip(leaves, spec_leaves):
         whole = leaf
         for dim, ax in enumerate(spec):
+            if isinstance(ax, Packed):
+                whole = _gather_packed(whole, dim, ax.blocks, mesh)
+                continue
             if ax is None or mesh.axis_size(ax) == 1:
                 continue
             if not isinstance(ax, str):
@@ -388,3 +394,19 @@ def gather_whole(tree, specs, mesh: MeshSpec):
                                dim)
         out.append(whole.detach().cpu())
     return pytree.tree_unflatten(out, treedef)
+
+
+def _gather_packed(x, dim: int, blocks, mesh: MeshSpec) -> torch.Tensor:
+    """The whole of a packed dim (`sharding.Packed`'s ``blocks``: (global
+    size, axis or None), one axis among them) from every rank's slice
+    `x`: each split block's blocks in rank order, each whole block once."""
+    (axis,) = {a for _, a in blocks if a is not None}
+    n = mesh.axis_size(axis)
+    every = gather_blocks(x.contiguous(), mesh.coordinate(axis), n, mesh.group(axis))
+    parts, start = [], 0
+    for size, a in blocks:
+        k = size // n if a is not None else size
+        piece = every.narrow(dim + 1, start, k)
+        parts.append(piece.movedim(0, dim).flatten(dim, dim + 1) if a is not None else piece[0])
+        start += k
+    return torch.cat(parts, dim)

@@ -30,8 +30,8 @@ exit's gate (one K1) runs on the rank's rows of whole-vocab exit logits,
 and the outputs are gathered over the data axis at the step's end, so
 every rank returns what one device returns, but for the decode step's
 ``logits``, which stay this rank's vocab shard (the next token is the
-global argmax, `transformer.vocab_argmax`). Only the attention families
-run over a model axis above one rank.
+global argmax, `transformer.vocab_argmax`). Every decoder-only family
+runs over a model axis above one rank; the encoder-decoder does not yet.
 """
 from __future__ import annotations
 

@@ -33,8 +33,8 @@ def _mod(cfg: ModelConfig):
 def init_params(generator, cfg: ModelConfig, device=None, mesh=None):
     """Seeded params on `device` (``cuda`` by default) from `generator`
     (on that device; None seeds a fresh one with 0). With `mesh`, this
-    rank's slices (`transformer.init_params`); only the transformer stack
-    splits over a model axis above one rank."""
+    rank's slices (`transformer.init_params`); only the decoder-only
+    stack splits over a model axis above one rank."""
     if _mod(cfg) is transformer and cfg.family != "convnet":
         return transformer.init_params(generator, cfg, device=device, mesh=mesh)
     if sharding.model_size(mesh) > 1:
@@ -56,13 +56,14 @@ def forward_prefill(params, cfg: ModelConfig, batch):
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device=None, mesh=None):
     """Zeroed decode caches; with `mesh`, only this rank's part of them,
-    as `sharding.cache_specs_tree` lays them out (batch rows over the data
-    axes where they divide the batch, kv heads over the model axis where
-    it divides them)."""
+    as `sharding.cache_layout` lays them out (batch rows over the data
+    axes where they divide the batch, kv heads and SSD heads over the
+    model axis where it divides them, a conv buffer's x channels with its
+    SSD heads and its B and C channels whole)."""
     if mesh is None:
         return _mod(cfg).init_cache(cfg, batch, seq_len, device=device)
     whole = _mod(cfg).init_cache(cfg, batch, seq_len, device="meta")
-    return sharding.local_zeros(whole, sharding.cache_specs_tree(whole, mesh), mesh,
+    return sharding.local_zeros(whole, sharding.cache_layout(whole, mesh), mesh,
                                 resolve_device(device))
 
 

@@ -27,12 +27,13 @@ per layer would materialise a zero tensor of the whole stack per layer.
 Decode updates the caches in place (see `attention` and `mamba`).
 
 Tensor parallelism: `init_params(mesh=)` and `params_from_jax(mesh=)`
-give a rank its slices (`sharding.local_shards` under `param_specs`),
-drawn layer by layer from the one-device stream, so no rank holds more
-than one layer whole; `registry.init_cache(mesh=)` allocates its batch
-rows and kv heads. Run under `sharding.use_mesh`, the attention families'
-forward passes split heads, ``d_ff``, experts and the vocabulary over
-the model axis (`layers`, `attention`, `moe`); the logits come out of
+give a rank its slices (`sharding.local_shards` under
+`sharding.layout_specs`), drawn layer by layer from the one-device
+stream, so no rank holds more than one layer whole;
+`registry.init_cache(mesh=)` allocates its batch rows, kv heads and SSD
+heads. Run under `sharding.use_mesh`, the forward passes split heads,
+``d_ff``, experts, mamba's SSD heads and the vocabulary over the model
+axis (`layers`, `attention`, `moe`, `mamba`); the logits come out of
 the heads as vocab shards, as the reference constrains them ("dp",
 None, "tp"), and are gathered (`gather_vocab`) where one device's whole
 rows are needed: the exit logits before their gates, the prefill's and
@@ -194,11 +195,12 @@ def _init_segment(generator, cfg, kind, n, cut=lambda tree: tree):
 
 def _cutter(mesh):
     """-> cut(tree): this rank's `sharding.local_shards` of a params
-    subtree under `param_specs` (its paths end as the full tree's do, so
-    the same rules match); no mesh keeps the tree whole."""
+    subtree under `sharding.layout_specs` (its paths end as the full
+    tree's do, so the same rules match, and a mamba layer's leaves are
+    cut together); no mesh keeps the tree whole."""
     if mesh is None:
         return lambda tree: tree
-    return lambda tree: sharding.local_shards(tree, sharding.param_specs(tree, mesh), mesh)
+    return lambda tree: sharding.local_shards(tree, sharding.layout_specs(tree, mesh), mesh)
 
 
 def init_params(generator: torch.Generator, cfg: ModelConfig, device=None, mesh=None):
@@ -209,7 +211,7 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, device=None, mesh=
 
     With `mesh` (this rank's coordinates known) each rank draws the
     one-device stream leaf by leaf and keeps its slices under
-    `sharding.param_specs`: bit for bit its block of the one-device
+    `sharding.layout_specs`: bit for bit its block of the one-device
     params, never holding more than one layer whole."""
     device = resolve_device(device)
     if generator is None:
@@ -241,7 +243,7 @@ def params_from_jax(tree, device=None, mesh=None):
     device = resolve_device(device)
     if mesh is not None:
         tree = pytree.tree_map(np.asarray, tree)
-        tree = sharding.local_shards(tree, sharding.param_specs(tree, mesh), mesh)
+        tree = sharding.local_shards(tree, sharding.layout_specs(tree, mesh), mesh)
 
     def convert(node):
         if isinstance(node, dict):

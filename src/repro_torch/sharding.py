@@ -22,17 +22,34 @@ name, as ``PartitionSpec`` normalizes it).
 ranks of a `torch.distributed` launch (`launch.mesh`).
 
 Tensor parallelism (a model axis above 1): `local_shards` cuts a full
-tree into this rank's slices under `param_specs`, and `use_mesh` installs
-the mesh the models run under (the reference's ``set_mesh``; module
-state, as the reference keeps it). The specs are the only layout: the
-models read each leaf's local width and `model_split`, and a leaf that
-`fit_spec` leaves whole (8 kv heads over 16 ranks, an odd vocabulary)
-is used whole. What the reference's ``"tp"`` constraints ask of the
-activations the port does with collectives in the layers
-(`models.layers`, `models.attention`, `models.moe`): a vocab-parallel
+tree into this rank's slices under `layout_specs`, and `use_mesh`
+installs the mesh the models run under (the reference's ``set_mesh``;
+module state, as the reference keeps it). The specs are the layout but
+for mamba's packed leaves: the models read each leaf's local width and
+`model_split`, and a leaf that `fit_spec` leaves whole (8 kv heads over
+16 ranks, an odd vocabulary) is used whole. What the reference's
+``"tp"`` constraints ask of the activations the port does with
+collectives in the layers (`models.layers`, `models.attention`,
+`models.moe`, `models.mamba`): a vocab-parallel
 embedding, column-parallel products into the split widths, row-parallel
 products reduced over the model axis, and logits gathered from their
 vocab shards.
+
+Mamba's packed leaves: ``in_proj`` packs the columns [z | x | B | C |
+dt], ``conv_w`` / ``conv_b`` and the conv cache the channels [x | B | C].
+The reference's rules split such a dim as one contiguous block, which
+GSPMD may do with a layout; the port computes on the split, so a rank
+must hold its SSD heads' z, x and dt and the whole of B and C (which feed
+every head: both configs have one group). `layout_specs` and
+`cache_layout` are `param_specs` and `cache_specs_tree` with those
+dims `Packed`: a concatenation of blocks, each split over the model axis
+or whole, a rank's slice its block of each split one followed by the
+whole ones, in the column order. A mamba layer splits only where the
+model axis divides its heads; elsewhere every leaf of it is whole and
+every rank computes it. `param_specs` and `cache_specs_tree` stay the
+reference's; every cut, gather and shape of a rank's tree goes by the
+layout (`local_shards`, `local_shape`, `local_zeros`, `shard_bytes`,
+`launch.mesh.gather_whole`, `model_parts`).
 
 No counterpart: ``constrain`` (the reference's activation sharding
 constraint): the port shards the batch once, at the step's input
@@ -46,8 +63,10 @@ from __future__ import annotations
 import contextlib
 import math
 import re
+from dataclasses import dataclass
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.utils._pytree as pytree
 
@@ -104,15 +123,15 @@ def data_split(mesh: Optional[MeshSpec]):
 # ------------------------------------------------ the steps over a mesh
 def check_mesh(cfg, mesh) -> None:
     """Raise NotImplementedError when `cfg` cannot run over `mesh`'s model
-    axis: only the attention families (attention in every layer, no
-    encoder) run tensor-parallel."""
+    axis: every decoder-only family runs tensor-parallel (attention,
+    mamba and the hybrids), the encoder-decoder does not yet."""
     if model_size(mesh) == 1:
         return
-    if cfg.is_encoder_decoder or {m for m, _ in cfg.layer_plan()} != {"attn"}:
+    if cfg.is_encoder_decoder:
         raise NotImplementedError(
-            f"{cfg.name} over a model axis of {mesh.axis_size('model')} ranks: only the "
-            "attention families run tensor-parallel (mamba, the hybrids and whisper wait "
-            "for their own slice)")
+            f"{cfg.name} over a model axis of {mesh.axis_size('model')} ranks: the "
+            "encoder-decoder family does not run tensor-parallel yet (whisper waits for "
+            "its own slice)")
 
 
 def mesh_device(mesh, device):
@@ -252,12 +271,143 @@ def param_specs(params, mesh: Optional[MeshSpec]):
     return _map_with_path(lambda p, leaf: spec_for(p, leaf.shape, mesh), params)
 
 
+# ------------------------------------------------- mamba's packed leaves
+@dataclass(frozen=True)
+class Packed:
+    """A spec entry for a dim that concatenates blocks, each split over a
+    mesh axis or whole: ``blocks`` is ((global size, axis or None), ...)
+    in the dim's order. A rank's slice of the dim is its block of each
+    split block and each whole block, in the same order."""
+
+    blocks: tuple
+
+    @property
+    def size(self) -> int:
+        return sum(n for n, _ in self.blocks)
+
+    def local_size(self, mesh) -> int:
+        return sum(n // axis_size(ax, mesh) for n, ax in self.blocks)
+
+    def ranges(self, mesh) -> list:
+        """This rank's (start, stop) ranges of the whole dim, in order."""
+        out, start = [], 0
+        for n, ax in self.blocks:
+            k = axis_size(ax, mesh)
+            i = 0 if k == 1 else local_index(ax, mesh)
+            if i is None:
+                raise ValueError("a packed dim is cut only for a rank of the mesh: a bound "
+                                 "mesh or MeshSpec.as_rank")
+            out.append((start + i * (n // k), start + (i + 1) * (n // k)))
+            start += n
+        return out
+
+
+def _mamba_groups(flat):
+    """{parent path: {leaf name: index into `flat`}} of the dicts holding a
+    mamba layer's params (``.../mamba``) or its decode cache (``conv`` and
+    ``ssd``), from (path, leaf) pairs."""
+    groups = {}
+    for i, (path, _) in enumerate(flat):
+        parent, _, name = path.rpartition("/")
+        if parent.endswith("mamba") or name in ("conv", "ssd"):
+            groups.setdefault(parent, {})[name] = i
+    return groups
+
+
+def _relaid(tree, mesh, specs, relay):
+    """`specs` (a spec tree over `tree`) with each mamba group's specs
+    replaced by ``relay(shapes by name, specs by name, mesh)``."""
+    if model_size(mesh) == 1:
+        return specs
+    flat = [(path_str(p), leaf) for p, leaf in pytree.tree_flatten_with_path(tree)[0]]
+    spec_leaves, treedef = pytree.tree_flatten(specs, is_leaf=_is_spec)
+    for members in _mamba_groups(flat).values():
+        shapes = {k: tuple(flat[i][1].shape) for k, i in members.items()}
+        got = relay(shapes, {k: spec_leaves[i] for k, i in members.items()}, mesh)
+        for k, i in members.items():
+            spec_leaves[i] = got[k]
+    return pytree.tree_unflatten(spec_leaves, treedef)
+
+
+def _mamba_params_layout(shapes, specs, mesh):
+    """A mamba layer's specs: its heads' blocks of z, x and dt and whole B
+    and C in the packed dims (dt_proj whole, as the reference's rule),
+    the per-head leaves, ``norm_scale`` and ``out_proj`` split by heads as
+    `param_specs` splits them; every leaf whole where the model axis does
+    not divide the heads."""
+    tp, m = tp_axis(mesh), model_size(mesh)
+    if "A_log" not in shapes:
+        return specs
+    h, di, conv_ch = shapes["A_log"][-1], shapes["norm_scale"][-1], shapes["conv_w"][-1]
+    if h % m:
+        return {k: () for k in specs}
+    bc = conv_ch - di
+    out = dict(specs)
+    proj = ((di, tp), (di, tp), (bc, None))
+    if shapes["in_proj"][-1] == 2 * di + bc + h:  # dt packed in too
+        proj += ((h, tp),)
+    for k, blocks in (("in_proj", proj), ("conv_w", ((di, tp), (bc, None))),
+                      ("conv_b", ((di, tp), (bc, None)))):
+        out[k] = (None,) * (len(shapes[k]) - 1) + (Packed(blocks),)
+    if "dt_proj" in out:
+        out["dt_proj"] = ()
+    return out
+
+
+def _mamba_cache_layout(shapes, specs, mesh):
+    """A mamba layer's decode cache: the conv buffer's channels packed as
+    ``conv_w``'s, the SSD state split by heads as `cache_specs_tree`
+    splits it; the model axis dropped from both where it does not divide
+    the heads."""
+    tp, m = tp_axis(mesh), model_size(mesh)
+    if set(shapes) != {"conv", "ssd"}:
+        return specs
+    h, ph = shapes["ssd"][-3], shapes["ssd"][-2]
+    conv = specs["conv"][:-1]
+    if h % m:
+        return {"conv": conv + (None,),
+                "ssd": tuple(None if ax == tp else ax for ax in specs["ssd"])}
+    di = h * ph
+    return {"conv": conv + (Packed(((di, tp), (shapes["conv"][-1] - di, None))),),
+            "ssd": specs["ssd"]}
+
+
+def layout_specs(params, mesh: Optional[MeshSpec]):
+    """The port's layout of a params tree (whole shapes; meta tensors will
+    do) over `mesh`: `param_specs`, but for each mamba layer's packed
+    leaves (`Packed`), or every leaf of the layer whole where the model
+    axis does not divide its heads. What a rank's slices are cut and
+    gathered by."""
+    return _relaid(params, mesh, param_specs(params, mesh), _mamba_params_layout)
+
+
+def cache_layout(cache_shapes, mesh: Optional[MeshSpec], batch_sharded: bool = True):
+    """`cache_specs_tree` with each mamba layer's conv buffer `Packed`
+    (or whole, as its layer, where the model axis does not divide the
+    heads): what `registry.init_cache(mesh=)` allocates."""
+    return _relaid(cache_shapes, mesh, cache_specs_tree(cache_shapes, mesh, batch_sharded),
+                   _mamba_cache_layout)
+
+
+def model_parts(spec, shape, mesh: Optional[MeshSpec]) -> tuple:
+    """How a rank's slice, of `shape`, of a leaf laid out by `spec` lies on
+    the model axis: (dim, ((local length, split), ...)), its blocks along
+    `dim` in order, each this rank's block of one split over the axis
+    (True) or whole on every rank (False). A leaf without a packed dim is
+    one block along dim 0. What `optim.global_norm` counts by."""
+    tp = tp_axis(mesh)
+    for dim, ax in enumerate(spec):
+        if isinstance(ax, Packed):
+            return dim, tuple((n // axis_size(a, mesh), a == tp) for n, a in ax.blocks)
+    return 0, ((shape[0], tp is not None and tp in spec),)
+
+
 def specs_by_path(whole, mesh: Optional[MeshSpec]) -> dict:
     """{tree path: spec} of the whole params `whole` (one device's shapes,
-    meta tensors will do) over `mesh`: what a rank's slices of them are
-    cut and gathered by, whatever order a tree's dicts hold their keys in
-    (`lay_over`)."""
-    flat = pytree.tree_flatten_with_path(param_specs(whole, mesh), is_leaf=_is_spec)[0]
+    meta tensors will do) over `mesh` under `layout_specs`: what a rank's
+    slices of them are cut and gathered by, whatever order a tree's dicts
+    hold their keys in (`lay_over`)."""
+    flat = pytree.tree_flatten_with_path(layout_specs(whole, mesh), is_leaf=_is_spec)[0]
     return {path_str(p): spec for p, spec in flat}
 
 
@@ -289,17 +439,40 @@ def local_shape(shape, spec, mesh: Optional[MeshSpec]) -> tuple:
     """The shape of one rank's slice of a leaf of `shape` under `spec`."""
     out = list(shape)
     for dim, ax in enumerate(spec):
-        out[dim] //= axis_size(ax, mesh)
+        out[dim] = ax.local_size(mesh) if isinstance(ax, Packed) else \
+            out[dim] // axis_size(ax, mesh)
     return tuple(out)
+
+
+def whole_shape(shape, spec, mesh: Optional[MeshSpec]) -> tuple:
+    """The shape a rank's slice of `shape` under `spec` was cut from."""
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    return tuple(ax.size if isinstance(ax, Packed) else n * axis_size(ax, mesh)
+                 for n, ax in zip(shape, spec))
+
+
+def _ranges(leaf, dim, ranges):
+    """`leaf` (a tensor or a numpy array) cut to `ranges` of `dim`,
+    concatenated in order."""
+    index = [slice(None)] * len(leaf.shape)
+    parts = []
+    for lo, hi in ranges:
+        index[dim] = slice(lo, hi)
+        parts.append(leaf[tuple(index)])
+    if len(parts) == 1:
+        return parts[0]
+    if isinstance(leaf, torch.Tensor):
+        return torch.cat(parts, dim)
+    return np.concatenate(parts, dim)
 
 
 def local_shards(tree, specs, mesh: Optional[MeshSpec]):
     """This rank's slices of a full tree of tensors or numpy arrays under
-    `specs` (`param_specs`, `cache_specs_tree`, ...): along each split dim
-    the rank keeps its block (`local_index`). A cut leaf is a contiguous
-    copy, so the full one can be freed; a whole one is returned as it
-    is. The mesh must know this rank's coordinates (bound, or
-    `MeshSpec.as_rank`)."""
+    `specs` (`layout_specs`, `cache_layout`, ...): along each split dim
+    the rank keeps its block (`local_index`), along a `Packed` one its
+    blocks of the dim's blocks. A cut leaf is a contiguous copy, so the
+    full one can be freed; a whole one is returned as it is. The mesh
+    must know this rank's coordinates (bound, or `MeshSpec.as_rank`)."""
     leaves, treedef = pytree.tree_flatten(tree)
     spec_leaves = pytree.tree_leaves(specs, is_leaf=_is_spec)
     if len(spec_leaves) != len(leaves):
@@ -308,6 +481,9 @@ def local_shards(tree, specs, mesh: Optional[MeshSpec]):
     for leaf, spec in zip(leaves, spec_leaves):
         cut = leaf
         for dim, ax in enumerate(spec):
+            if isinstance(ax, Packed):
+                cut = _ranges(cut, dim, ax.ranges(mesh))
+                continue
             n = axis_size(ax, mesh)
             if n == 1:
                 continue
@@ -315,9 +491,7 @@ def local_shards(tree, specs, mesh: Optional[MeshSpec]):
             if i is None:
                 raise ValueError("local_shards needs this rank's coordinates: a bound mesh "
                                  "or MeshSpec.as_rank")
-            index = [slice(None)] * len(leaf.shape)
-            index[dim] = slice(i * size, (i + 1) * size)
-            cut = cut[tuple(index)]
+            cut = _ranges(cut, dim, [(i * size, (i + 1) * size)])
         if cut is not leaf:
             cut = cut.clone() if hasattr(cut, "clone") else cut.copy()
         out.append(cut)
@@ -378,8 +552,7 @@ def batch_specs_tree(batch_shapes, mesh: Optional[MeshSpec]):
 
 def shard_bytes(leaf, spec, mesh: Optional[MeshSpec]) -> int:
     """Bytes of `leaf` that one device of `mesh` holds under `spec`."""
-    n = math.prod(leaf.shape) * leaf.element_size()
-    return n // math.prod(axis_size(ax, mesh) for ax in spec) if spec else n
+    return math.prod(local_shape(leaf.shape, spec, mesh)) * leaf.element_size()
 
 
 # ------------------------------------------------------------ fleet mesh

@@ -97,12 +97,6 @@ def _with_specs(tree, specs):
     return [(tree, specs)]
 
 
-def _whole_shape(leaf, spec, mesh):
-    """The shape `leaf`, a rank's slice under `spec`, was cut from."""
-    return tuple(n * sharding.axis_size(ax, mesh) for n, ax in
-                 zip(leaf.shape, tuple(spec) + (None,) * (leaf.dim() - len(spec))))
-
-
 def save(path: str, tree, mesh=None, specs=None) -> None:
     """Write `tree`, leaf by leaf; with `mesh` and `specs`, each leaf
     gathered whole from the ranks' slices as it is written, by the rank at
@@ -154,7 +148,7 @@ def load(path: str, template, mesh=None, specs=None):
                 on = want.device if isinstance(want, torch.Tensor) else "cpu"
                 got = _decode(unpacker.unpack(), on if spec is None else "cpu")
                 shape = (tuple(np.shape(want)) if spec is None
-                         else _whole_shape(want, spec, mesh))
+                         else sharding.whole_shape(want.shape, spec, mesh))
                 if tuple(got.shape) != shape:
                     raise ValueError(f"shape mismatch: {tuple(got.shape)} vs {shape}")
                 if spec is not None:

@@ -39,9 +39,9 @@ replicated leaf's is the whole of it, the same on every model rank.
 Gradients and metrics are averaged over the data axis only (as above),
 the global norm adds the split leaves over the model axis and counts
 the replicated ones once (`optim.global_norm`), and each rank updates
-its blocks: the reference's one-device step, cut. Only the attention
-families run so (`sharding.check_mesh` raises for the others). The
-eval step over such a mesh returns whole-vocab logits
+its blocks: the reference's one-device step, cut. Every decoder-only
+family runs so (`sharding.check_mesh` raises for the encoder-decoder).
+The eval step over such a mesh returns whole-vocab logits
 (`transformer.gather_vocab`) of the whole batch on every rank, as
 calibration reads them.
 """
@@ -105,9 +105,9 @@ def _mean_over(tensors, group, world: int):
 
 
 def whole_specs(cfg: ModelConfig, mesh):
-    """{tree path: spec} of `cfg`'s whole params over `mesh`
-    (`sharding.specs_by_path`); None without a model axis above one
-    rank."""
+    """{tree path: spec} of `cfg`'s whole params over `mesh` under the
+    port's layout (`sharding.specs_by_path`); None without a model axis
+    above one rank."""
     if sharding.model_size(mesh) == 1:
         return None
     return sharding.specs_by_path(registry.param_specs_shapes(cfg), mesh)
@@ -162,10 +162,10 @@ def make_train_step(cfg: ModelConfig, opt_cfg: optim.AdamWConfig, remat: bool = 
     def train_step(params, opt_state, batch):
         metrics, grads, params = grad_fn(params, batch)
         split = None
-        if by_path is not None:  # which of the grads' leaves the model axis splits
+        if by_path is not None:  # how the model axis splits each of the grads' leaves
             flat = pytree.tree_flatten_with_path(grads)[0]
-            split = (["model" in by_path[sharding.path_str(p)] for p, _ in flat],
-                     mesh.group("model"))
+            split = ([sharding.model_parts(by_path[sharding.path_str(p)], g.shape, mesh)
+                      for p, g in flat], mesh.group("model"))
         params, opt_state, opt_metrics = optim.update(opt_cfg, params, grads, opt_state,
                                                       inplace=inplace, split=split)
         metrics.update(opt_metrics)

@@ -17,12 +17,13 @@ the parameters' device, so an update never waits on the host.
 `state_specs` lays out the moments over a described mesh (ZeRO-1), for
 `launch.dryrun`'s per-card bytes.
 
-Over a model axis (``split``: which gradient leaves are this rank's block
-of a split leaf, and the axis's process group) the global norm adds the
-split leaves' squares over the ranks, one all-reduce of the per-leaf
-sums, and counts each replicated leaf once: every rank gets the one
-device's norm, so the clip scale and the update are the same on every
-rank, and each rank updates its own blocks.
+Over a model axis (``split``: which gradient leaves, or which blocks of
+a packed leaf's dim, are this rank's block of a split leaf, and the
+axis's process group) the global norm adds the split elements' squares
+over the ranks, one all-reduce of the per-leaf sums, and counts each
+replicated element once: every rank gets the one device's norm, so the
+clip scale and the update are the same on every rank, and each rank
+updates its own blocks.
 """
 from __future__ import annotations
 
@@ -47,6 +48,11 @@ class AdamWConfig:
     warmup_steps: int = 100
     total_steps: int = 10_000
     min_lr_frac: float = 0.1
+
+
+# the in-place update takes a leaf a slice of its first dim at a time, each
+# slice of at most this many elements (one float32 temporary 256 MB)
+INPLACE_SLICE = 1 << 26
 
 
 class OptState(NamedTuple):
@@ -76,19 +82,31 @@ def init(params) -> OptState:
                     pytree.tree_map(torch.clone, zeros))
 
 
+def _square_sums(x, parts):
+    """(the sum of squares of `x`'s elements split over the model axis,
+    that of its whole ones), float32, for a leaf whose blocks are `parts`
+    (`global_norm`)."""
+    dim, blocks = parts
+    sums = [torch.zeros((), device=x.device)] * 2
+    for part, (_, split) in zip(torch.split(x, [n for n, _ in blocks], dim=dim), blocks):
+        sums[not split] = sums[not split] + torch.sum(torch.square(part.to(torch.float32)))
+    return tuple(sums)
+
+
 def global_norm(tree, split=None):
-    """sqrt of the sum of every leaf's squares (float32). `split`: (a list
-    of flags, one a leaf in `tree_leaves` order, True where the leaf is
-    this rank's block of a leaf split over the model axis; the axis's
-    group): the split leaves' sums are added over the ranks first."""
-    sums = [torch.sum(torch.square(x.to(torch.float32))) for x in pytree.tree_leaves(tree)]
-    if split is not None and any(split[0]):
-        flags, group = split
-        vec = torch.stack(sums)
-        mask = torch.tensor(flags, device=vec.device)
-        reduced = all_sum(torch.where(mask, vec, 0.0), group)
-        sums = torch.where(mask, reduced, vec).unbind()
-    return torch.sqrt(sum(sums))
+    """sqrt of the sum of every leaf's squares (float32). `split`: (each
+    leaf's blocks in `tree_leaves` order, as `sharding.model_parts` gives
+    them, each this rank's block of one split over the model axis or
+    whole; the axis's group): the split elements' sums are added over the
+    ranks first (one all-reduce of a sum a leaf), the whole ones counted
+    once."""
+    leaves = pytree.tree_leaves(tree)
+    if split is None or not any(s for _, blocks in split[0] for _, s in blocks):
+        return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32))) for x in leaves))
+    flags, group = split
+    pairs = [_square_sums(x, f) for x, f in zip(leaves, flags)]
+    reduced = all_sum(torch.stack([p[0] for p in pairs]), group)
+    return torch.sqrt(sum((reduced + torch.stack([p[1] for p in pairs])).unbind()))
 
 
 @torch.no_grad()
@@ -96,11 +114,13 @@ def update(cfg: AdamWConfig, params, grads, state: OptState, inplace: bool = Fal
            split=None):
     """Returns (new_params, new_state, metrics). The inputs are not
     modified, unless `inplace`: then each parameter and moment is
-    overwritten with its new value, leaf by leaf, and the returned trees
-    hold the same tensors: the memory of one copy of the parameters and
-    float32 moments, where the functional update holds two. The
-    arithmetic is the same either way. `split` as in `global_norm`, for
-    the leaves of `grads`."""
+    overwritten with its new value, leaf by leaf and a slice of
+    `INPLACE_SLICE` elements of its first dim at a time, and the returned
+    trees hold the same tensors: the memory of one copy of the parameters
+    and float32 moments and a slice's temporaries, where the functional
+    update holds two copies and a leaf's temporaries. The arithmetic is
+    the same either way, element by element. `split` as in
+    `global_norm`, for the leaves of `grads`."""
     gnorm = global_norm(grads, split)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     step = state.step + 1
@@ -108,22 +128,29 @@ def update(cfg: AdamWConfig, params, grads, state: OptState, inplace: bool = Fal
     b1c = 1 - torch.pow(cfg.b1, step.to(torch.float32))
     b2c = 1 - torch.pow(cfg.b2, step.to(torch.float32))
 
-    def upd(p, g, mu, nu):
+    def adamw(p, g, mu, nu, decay):
         g = g.to(torch.float32) * scale
         new_mu = cfg.b1 * mu + (1 - cfg.b1) * g
         new_nu = cfg.b2 * nu + (1 - cfg.b2) * torch.square(g)
         mhat = new_mu / b1c
         nhat = new_nu / b2c
         delta = mhat / (torch.sqrt(nhat) + cfg.eps)
-        if p.dim() >= 2:  # decoupled weight decay on matrices only
+        if decay:  # decoupled weight decay on matrices only
             delta = delta + cfg.weight_decay * p.to(torch.float32)
-        new_p = (p.to(torch.float32) - lr * delta).to(p.dtype)
-        if inplace:
-            p.copy_(new_p)
-            mu.copy_(new_mu)
-            nu.copy_(new_nu)
-            return p, mu, nu
-        return new_p, new_mu, new_nu
+        return (p.to(torch.float32) - lr * delta).to(p.dtype), new_mu, new_nu
+
+    def upd(p, g, mu, nu):
+        if not inplace:
+            return adamw(p, g, mu, nu, p.dim() >= 2)
+        # a slice of the first dim at a time: the same elementwise
+        # arithmetic, with float32 temporaries of a slice, not of the leaf
+        rows = max(1, INPLACE_SLICE // max(1, p[0].numel())) if p.dim() else 1
+        for i in range(0, p.shape[0] if p.dim() else 1, rows):
+            sl = slice(i, i + rows) if p.dim() else ...
+            new = adamw(p[sl], g[sl], mu[sl], nu[sl], p.dim() >= 2)
+            for dst, src in zip((p[sl], mu[sl], nu[sl]), new):
+                dst.copy_(src)
+        return p, mu, nu
 
     # leaves are matched by key, whatever each dict's insertion order
     out = pytree.tree_map(upd, params, grads, state.mu, state.nu)

@@ -169,6 +169,14 @@ ck = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'tp.msgpack')
 run = train.main(['--arch', 'qwen3-8b', '--smoke', '--model', '2', '--steps', '2', '--batch', '2',
                   '--seq', '16', '--device', 'cpu', '--ckpt', ck])
 assert len(run['step_s']) == 2 and run['params']['embed']['w'].shape[0] == 256
+cfg = get_smoke('mamba2-130m')
+lm = registry.init_params(torch.Generator().manual_seed(0), cfg, device='cpu', mesh=tp)
+assert lm['segments'][0]['mamba']['A_log'].shape[-1] == cfg.ssm_heads // 2
+out = make_prefill_step(cfg, mesh=tp)(lm, {'tokens': np.ones((2, 16), np.int32)})
+assert tuple(out['logits'].shape) == (2, 1, cfg.vocab_size)
+run = train.main(['--arch', 'mamba2-130m', '--smoke', '--model', '2', '--steps', '2',
+                  '--batch', '2', '--seq', '16', '--device', 'cpu'])
+assert len(run['step_s']) == 2
 assert 'jax' not in sys.modules, 'jax was imported'
 bad = [m for m in sys.modules if m == 'repro' or m.startswith('repro.')]
 assert not bad, bad
@@ -190,9 +198,10 @@ def test_running_the_fleet_and_orchestration_loads_neither_jax_nor_repro(tmp_pat
     that each train the moe smoke data-parallel through `launch.train`,
     run a 2-cell compiled fleet sharded over cells, a tensor-parallel
     prefill of the qwen2 smoke over a model axis of two and
-    `launch.train --model 2` on the qwen3 smoke with a checkpoint, all on
-    the CPU -- and only then are the loaded modules checked, in every
-    process."""
+    `launch.train --model 2` on the qwen3 smoke with a checkpoint, then
+    the same prefill and two `launch.train --model 2` steps on the mamba2
+    smoke, all on the CPU -- and only then are the loaded modules
+    checked, in every process."""
     rank_script = tmp_path / "rank_run.py"
     rank_script.write_text(RANK_RUN)
     code = (

@@ -587,9 +587,10 @@ def test_dryrun_collectives_on_a_model_axis(mesh, shape):
 
 def test_dryrun_train_on_a_model_axis_is_null_with_its_reason():
     """A train pair on a model axis is traced as rank 0 with its backward's
-    and its recompute's all-reduces; a family that does not run
-    tensor-parallel keeps null collectives and its note there; a data
-    mesh counts the gradients' bucket all-reduce."""
+    and its recompute's all-reduces; the family that does not run
+    tensor-parallel (the encoder-decoder, whisper) keeps null collectives
+    and its note there; a data mesh counts the gradients' bucket
+    all-reduce."""
     r = dryrun.run_one("qwen2-72b", "train_4k", None, mesh="1x2", device="cpu", smoke=True)
     assert r["traced_as"] == "rank 0" and r["ok"] and "collectives_note" not in r
     cfg = get_smoke("qwen2-72b")
@@ -606,10 +607,10 @@ def test_dryrun_train_on_a_model_axis_is_null_with_its_reason():
     assert r["collective_bytes"] == {"all-reduce": sum(
         p["bytes"]["all-reduce"] for p in passes.values())}
     assert r["memory"]["params_bytes"] == r["per_card_bytes"]["params"]
-    m = dryrun.run_one("mamba2-130m", "train_4k", None, mesh="1x2", device="cpu", smoke=True)
+    m = dryrun.run_one("whisper-base", "train_4k", None, mesh="1x2", device="cpu", smoke=True)
     assert m["collective_counts"] is None and m["collective_bytes"] is None
     assert m["collective_passes"] is None
-    assert "attention families" in m["collectives_note"]
+    assert "encoder-decoder" in m["collectives_note"]
     assert m["traced_as"] == "one card" and m["ok"]
     # on a data mesh the train step's bucket all-reduce is counted
     d = dryrun.run_one("qwen2-72b", "train_4k", None, mesh="2x1", device="cpu", smoke=True)

@@ -213,3 +213,32 @@ def test_eval_step_matches_reference():
                                rtol=1e-4, atol=1e-5)
     for a, w in zip(tout["exit_logits"], jout["exit_logits"]):
         np.testing.assert_allclose(a.numpy(), np.asarray(w), rtol=1e-4, atol=1e-5)
+
+
+def test_inplace_update_in_slices_is_the_functional_update(monkeypatch):
+    """The in-place AdamW update takes a leaf a slice of its first dim at a
+    time (`optim.INPLACE_SLICE` elements): bit for bit the functional
+    update's params and moments, for 3-d, 2-d, 1-d and 0-d leaves, bf16
+    and float32, with weight decay on the matrices only."""
+    import torch.utils._pytree as tpytree
+
+    from repro_torch.training import optim as topt
+
+    g = torch.Generator().manual_seed(0)
+    params = {"a": torch.randn(10, 7, 3, generator=g), "b": torch.randn(5, generator=g).bfloat16(),
+              "c": torch.randn((), generator=g),
+              "d": torch.randn(9, 4, generator=g).bfloat16()}
+    grads = tpytree.tree_map(lambda x: torch.randn(x.shape, generator=g).to(x.dtype), params)
+    cfg = topt.AdamWConfig(lr=1e-2, warmup_steps=1)
+    state = topt.init(params)
+    state = state._replace(mu=tpytree.tree_map(lambda x: torch.randn(x.shape, generator=g),
+                                               state.mu))
+    want = topt.update(cfg, params, grads, state)
+    monkeypatch.setattr(topt, "INPLACE_SLICE", 8)  # 10 x 21 in slices of one row
+    copy = tpytree.tree_map(torch.clone, (params, state.mu, state.nu))
+    got = topt.update(cfg, copy[0], grads, topt.OptState(state.step, copy[1], copy[2]),
+                      inplace=True)
+    assert got[0]["a"] is copy[0]["a"]  # in place
+    for a, b in zip(tpytree.tree_leaves((want[0], want[1].mu, want[1].nu)),
+                    tpytree.tree_leaves((got[0], got[1].mu, got[1].nu))):
+        assert a.dtype == b.dtype and torch.equal(a, b)
