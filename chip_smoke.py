@@ -190,8 +190,10 @@ Phases, each printing its own lines:
             each rank's peak GB; each rank's K1/K3/K4 launches worked out
             from the code and asserted, and summed under "ranks".
 15. tp      tensor parallelism: LM serving with the parameters split over
-            a model axis (`python -m torch.distributed.run --standalone
-            --nproc-per-node W` on this script with ``--tp DIR``, a (data
+            a model axis (W processes of this script with ``--tp DIR``,
+            each with the rank environment `python -m
+            torch.distributed.run --standalone --nproc-per-node W` sets:
+            `launch_ranks`, which spares the launcher's start; a (data
             1, model W) mesh; W as in phase 14: the card count where it is
             2 or more, NCCL, else 2 ranks sharing the one card over gloo),
             each rank's params from the sharded init (bit for bit its
@@ -274,16 +276,38 @@ Phases, each printing its own lines:
             `tools/tp_phase.py --ssm` runs it alone, and on four cards
             also serves jamba-v0.1-52b uncut (32 layers, over NCCL) beside
             the dry run's peak of its prefill as rank 0 of the mesh.
-18. result  one JSON line with every kernel's numbers, the nvidia-smi
-            line, and last {"ok": true, "device": {...}}.
+18. tp_enc_dec the encoder-decoder on the same kind of mesh (``--tp-enc-dec
+            DIR``): whisper-base's encoder, decoder and cross-attention
+            heads and d_ff split over the ranks (its vocabulary of 51 865
+            too where W divides it: neither 2 nor 4 does); the same runs
+            first on one rank in this process. (a) uncut, bf16, frames (4,
+            1500, 512): prefill 4 x 448, 8 tokens decoded from its caches,
+            held within the derived (2 Le + 3 Ld + 3) 2u of max|z|, the
+            exits' predictions and K1 decisions where one rank's margins
+            clear it; 3 remat steps at 4 x 128 held as phase 16 holds its
+            bf16 run; (b) its float32 twin, uncut: prefill 2 x 64 and 4
+            tokens at rtol / atol 2e-4, 3 steps at 2 x 64 held as phase 16
+            holds its twin (every gradient leaf at every step, the params,
+            every replicated element bit-equal over the ranks, the
+            checkpoint); (c) the twin calibrated over the mesh: each exit's
+            K2 fit on the eval step's gathered exit logits against one
+            rank's (T within rel 2e-4, or the NLL where it is flat), and a
+            plan served through make_prefill_step(plan=), its confidences
+            at 2e-4 and its predictions and decisions one rank's. ms a
+            step and a token, peak GB per rank, the all-reduces' share by
+            pass; each rank's K1 and K2 launches worked out and asserted.
+            `tools/tp_phase.py --enc-dec` runs it alone.
+19. result  the script's seconds, one JSON line with every kernel's
+            numbers, the nvidia-smi line, and last {"ok": true, "device":
+            {...}}.
 
-Phases 4-17 are the main path: each sets the launch counts to 0 just
+Phases 4-18 are the main path: each sets the launch counts to 0 just
 before it and reads them just after, and fails if a kernel of its path
 did not run (train: K1; serving: K1-K4; paper: K1, K2; bank: K1, K3,
 K4; runtime: K1, K3, K4; fleet and compiled: K1, K3, K4; lm and
 train_lm: K1-K4; dryrun: K1; ranks and tp: K1, K3, K4, tp_train and
-tp_ssm: K1-K4, counted in each rank from 0 over its runs, while this
-process launches none).
+tp_ssm: K1-K4, tp_enc_dec: K1, K2, counted in each rank from 0 over its
+runs, while this process launches none).
 Every line that prints a time names the card and its power limit.
 
 Any failure raises, so the process exits non-zero and prints no result;
@@ -339,7 +363,8 @@ PHASE_KERNELS = {"train": ("exit_gate",),
                  "ranks": ("exit_gate", "encode", "decode"),
                  "tp": ("exit_gate", "encode", "decode"),
                  "tp_train": ("exit_gate", "calib_nll", "encode", "decode"),
-                 "tp_ssm": ("exit_gate", "calib_nll", "encode", "decode")}
+                 "tp_ssm": ("exit_gate", "calib_nll", "encode", "decode"),
+                 "tp_enc_dec": ("exit_gate", "calib_nll")}
 # the log grid K2's LM temperature fit starts its Newton steps from
 K2_GRID = (0.25, 0.5, 1.0, 2.0, 4.0)
 # K1's boundary: the kernel's conf = 1/S and the plain max(exp(logp)) are
@@ -3208,7 +3233,20 @@ def tp_spec(full=True, uncut=False):
     return dict(device="cpu", runs=runs)
 
 
-def bf16_tp_bound(n_layers):
+def bf16_roundings(cfg):
+    """The bf16 results on a row's way to the logits that a model axis may
+    round otherwise than one rank (`bf16_tp_bound`): a decoder-only stack's
+    2L + 2, the attention and MLP outputs of each of its L layers, the
+    final norm and the head; an encoder-decoder's 2 Le + 3 Ld + 3, one for
+    each row-parallel reduce on the row's path (two an encoder layer:
+    attention, MLP; three a decoder layer: self-attention, cross-attention,
+    MLP), the encoder's final norm, the decoder's and the head."""
+    if cfg.is_encoder_decoder:
+        return 2 * cfg.encoder_layers + 3 * cfg.num_layers + 3
+    return 2 * cfg.num_layers + 2
+
+
+def bf16_tp_bound(cfg):
     """Relative bound, against max|z|, on the gap between a bf16 model's
     logits over a model axis and one rank's on the same params.
 
@@ -3217,13 +3255,14 @@ def bf16_tp_bound(n_layers):
     float32 sum; every other product runs on slices of one rank's
     operands (other GEMM shapes, so another float32 order). Each bf16
     result is then one rank's or its neighbour: at most 2u apart relative
-    (u = 2^-8). On the way to the logits the stack adds 2L + 2 such
-    results (the embedding is exact): the attention and MLP outputs of
-    each of its L layers, the final norm and the head. First order, each
-    layer's output no larger than the residual it joins: (2L + 2) 2u of
-    max|z|. A first-order bound, not a proof: the float32 twin is held to
-    rtol / atol 2e-4, the LM tests' tolerance."""
-    return (2 * n_layers + 2) * 2 * BF16_U
+    (u = 2^-8). On the way to the logits the model adds n such results
+    (`bf16_roundings`; the embedding is exact, the encoder's frames are
+    every rank's). First order, each layer's output no larger than the
+    residual it joins: n 2u of max|z|, (2L + 2) 2u for a decoder-only
+    stack, (2 Le + 3 Ld + 3) 2u for whisper. A first-order bound, not a
+    proof: the float32 twin is held to rtol / atol 2e-4, the LM tests'
+    tolerance."""
+    return bf16_roundings(cfg) * 2 * BF16_U
 
 
 def prefill_cost(cfg, b, s, model=1):
@@ -3244,22 +3283,27 @@ def prefill_cost(cfg, b, s, model=1):
         return hlo_cost.analyze(step, *args)
 
 
-def tp_runs(dev, spec, mesh, p_tars=None, names=("bf16", "f32", "moe")):
-    """The serving runs of phase 15 (and phase 17) on `dev` over `mesh`
+def tp_runs(dev, spec, mesh, p_tars=None, names=("bf16", "f32", "moe"), plans=None):
+    """The serving runs of phase 15 (and phases 17-18) on `dev` over `mesh`
     (None: one rank), one model at a time, each from `init_params(mesh=)`:
     a prefill step (timed three times, a MoE's routes and drops from the
-    first, then once more with every collective timed between two syncs),
+    first, then once more with every collective timed between two syncs;
+    an encoder-decoder's batch with its seeded frames, `enc_frames`),
     decode steps from the prefill's caches (one more timed token), the
     decode's last logits against a prefill over the same tokens, and
     `lm_engine` at the spec's levels (p_tar from `p_tars`, or the one-rank
-    prefill's middle exit-0 confidences). Returns numpy outputs, times,
-    peaks (the init's, then the serving's alone), the K1/K3/K4 launches
-    (each step's worked out and asserted) and the p_tars used."""
+    prefill's middle exit-0 confidences); with a run's ``calib`` sizes the
+    model is calibrated and a plan served (`calibrate_served`: on one rank
+    its plan is made, over a mesh the one in `plans` is served). Returns
+    numpy outputs, times, peaks (the init's, then the serving's alone), the
+    K1/K2/K3/K4 launches (each step's worked out and asserted), the p_tars
+    and the plans used."""
     import torch
     import torch.utils._pytree as pytree
 
     from repro_torch.core.calibration import TemperatureScaling
     from repro_torch.core.policy import OffloadPlan
+    from repro_torch.kernels import calib_nll
     from repro_torch.launch.mesh import record_collectives
     from repro_torch.launch.serve import make_prefill_step, make_serve_step
     from repro_torch.models import registry, transformer
@@ -3267,8 +3311,8 @@ def tp_runs(dev, spec, mesh, p_tars=None, names=("bf16", "f32", "moe")):
 
     card = dev.type == "cuda"
     log = LaunchLog(dev)
-    p_tars = dict(p_tars or {})
-    res = {"p_tar": p_tars, "runs": {}}
+    p_tars, plans = dict(p_tars or {}), dict(plans or {})
+    res = {"p_tar": p_tars, "plans": plans, "runs": {}}
 
     def fresh():
         _sync(dev)
@@ -3297,7 +3341,7 @@ def tp_runs(dev, spec, mesh, p_tars=None, names=("bf16", "f32", "moe")):
                 "gb": clog.bytes.get("all-reduce", 0) / 1e9,
                 "ar_ms": 1e3 * clog.seconds.get("all-reduce", 0.0)}
 
-    def run_model(name, cfg, serve, decode, levels):
+    def run_model(name, cfg, serve, decode, levels, calib=None):
         """One model's runs; every tensor it made is freed on return."""
         (b, s), n_ex = serve, len(cfg.exit_layers)
         fresh()
@@ -3313,7 +3357,8 @@ def tp_runs(dev, spec, mesh, p_tars=None, names=("bf16", "f32", "moe")):
         r = {"scalars": transformer.num_params(params), "init_ms": init_ms,
              "init_peak": init_peak, "ms": []}
         pre = make_prefill_step(cfg, plan=plan, device=dev, mesh=mesh)
-        batch = {"tokens": toks[:, :s]}
+        frames = {"encoder_frames": enc_frames(cfg, b, 2)} if cfg.is_encoder_decoder else {}
+        batch = {"tokens": toks[:, :s], **frames}
         tap = MoeTap() if cfg.moe_num_experts else contextlib.nullcontext()
         for i in range(3):
             before = log.now()
@@ -3331,8 +3376,8 @@ def tp_runs(dev, spec, mesh, p_tars=None, names=("bf16", "f32", "moe")):
         r["prefill"] = {k: host(o[k]) for k in ("logits", "exit_confidence", "exit_prediction")}
         if mesh is None:  # the exits' logits, whose top-2 gaps decide which rows must agree
             with torch.no_grad():
-                zs = transformer.forward_prefill(params, cfg, {"tokens": torch.as_tensor(
-                    batch["tokens"], device=dev)})["exit_logits"]
+                zs = registry.forward_prefill(params, cfg, {
+                    k: torch.as_tensor(v, device=dev) for k, v in batch.items()})["exit_logits"]
             r["prefill"]["exit_logits"] = [host(z[:, 0]) for z in zs]
             del zs
         assert np.isfinite(r["prefill"]["logits"]).all(), f"{name}: prefill logits not finite"
@@ -3365,7 +3410,7 @@ def tp_runs(dev, spec, mesh, p_tars=None, names=("bf16", "f32", "moe")):
             del caches
             # the decode's last logits against a prefill over the same tokens
             before = log.now()
-            full = host(pre(params, {"tokens": toks})["logits"][:, 0])
+            full = host(pre(params, {"tokens": toks, **frames})["logits"][:, 0])
             log.expect(f"{name} prefill over the decoded tokens", before, exit_gate=n_ex)
             last = r["decode"][-1]["logits"]
             lo = 0 if last.shape[-1] == full.shape[-1] else \
@@ -3389,6 +3434,8 @@ def tp_runs(dev, spec, mesh, p_tars=None, names=("bf16", "f32", "moe")):
                                       edge_ms=1e3 * eng.stats.edge_time_s,
                                       cloud_ms=1e3 * eng.stats.cloud_time_s,
                                       payload_bytes=eng.stats.payload_bytes, offloaded=n_off)
+        if calib is not None:
+            r["calib"] = calibrate_served(dev, name, cfg, params, calib, mesh, log, plans)
         r["peak"] = peak()
         return r
 
@@ -3396,15 +3443,15 @@ def tp_runs(dev, spec, mesh, p_tars=None, names=("bf16", "f32", "moe")):
         if name in spec["runs"]:
             run = spec["runs"][name]
             res["runs"][name] = run_model(name, run["cfg"], run["serve"], run["decode"],
-                                          run["levels"])
+                                          run["levels"], run.get("calib"))
     fresh()
-    res["launches"] = log.now()
+    res["launches"] = {**log.now(), "calib_nll": calib_nll.KERNEL.launches}
     res["steps"] = log.steps
     return res
 
 
 def tp_rank_main(out_dir) -> int:
-    """One rank of phase 15, under ``torch.distributed.run``: `tp_runs` over
+    """One rank of phase 15 (`launch_ranks`): `tp_runs` over
     the (data 1, model W) mesh, the kernels' launches counted from 0.
     Writes rank<r>.pkl to `out_dir`."""
     import pickle
@@ -3452,42 +3499,69 @@ def rank_world(dev):
     return world, backend
 
 
+def free_port() -> int:
+    """A TCP port of this host that nothing listens on now."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
 def launch_ranks(flag, out_dir, world, job, timeout, meanwhile=None):
-    """Run W = `world` ranks of this script under ``python -m
-    torch.distributed.run --standalone`` with ``flag out_dir``, `job`
-    pickled to out_dir/job.pkl for them, and `meanwhile` (if given) in this
+    """Run W = `world` ranks of this script with ``flag out_dir``, each a
+    process of its own with the environment ``python -m
+    torch.distributed.run --standalone --nproc-per-node W`` gives a rank
+    (RANK, LOCAL_RANK, WORLD_SIZE, LOCAL_WORLD_SIZE, MASTER_ADDR 127.0.0.1,
+    MASTER_PORT a free port, OMP_NUM_THREADS 1 unless set), which spares
+    the launcher's own start (8.5 s on the chip's host, mostly its import
+    of torch, before a rank starts its own); `job` pickled to
+    out_dir/job.pkl for them, and `meanwhile` (if given) run in this
     process while they run. Each rank writes rank<r>.pkl; their output goes
-    to ranks.log beside it, whose tail the failure shows. Returns (the
-    ranks' results in rank order, seconds from launch to exit, what
-    `meanwhile` returned)."""
+    to ranks.log beside it, whose tail the failure shows. A rank that fails
+    stops the others. Returns (the ranks' results in rank order, seconds
+    from launch to exit, what `meanwhile` returned)."""
     import pickle
 
     import torch
 
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "job.pkl"), "wb") as f:
-        pickle.dump(job, f)
+        pickle.dump(dict(job, launched=time.time()), f)
     for r in range(world):
         if os.path.exists(os.path.join(out_dir, f"rank{r}.pkl")):
             os.remove(os.path.join(out_dir, f"rank{r}.pkl"))
     if torch.cuda.is_available():
         torch.cuda.empty_cache()  # the ranks share the card(s) with this process
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
-           str(world), os.path.abspath(__file__), flag, out_dir]
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [os.path.join(ROOT, "src")] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+        [os.path.join(ROOT, "src")] + [p for p in [os.environ.get("PYTHONPATH")] if p]),
+        MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()), WORLD_SIZE=str(world),
+        LOCAL_WORLD_SIZE=str(world))
+    env.setdefault("OMP_NUM_THREADS", "1")
     log_path = os.path.join(out_dir, "ranks.log")
     t0 = time.perf_counter()
     with open(log_path, "w") as logf:
-        proc = subprocess.Popen(cmd, stdout=logf, stderr=subprocess.STDOUT, env=env, cwd=ROOT)
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), flag, out_dir],
+                                  stdout=logf, stderr=subprocess.STDOUT, cwd=ROOT,
+                                  env=dict(env, RANK=str(r), LOCAL_RANK=str(r)))
+                 for r in range(world)]
         try:
             extra = meanwhile() if meanwhile is not None else None
-            rc = proc.wait(timeout=timeout)
-        except subprocess.TimeoutExpired:
-            rc = "timeout"
+            while True:
+                rcs = [proc.poll() for proc in procs]
+                failed = [c for c in rcs if c not in (None, 0)]
+                if failed or all(c == 0 for c in rcs):
+                    rc = failed[0] if failed else 0
+                    break
+                if time.perf_counter() - t0 > timeout:
+                    rc = "timeout"
+                    break
+                time.sleep(0.05)
         finally:
-            if proc.poll() is None:  # torchrun stops its ranks on SIGTERM
-                proc.terminate()
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.terminate()
+            for proc in procs:
                 try:
                     proc.wait(timeout=60)
                 except subprocess.TimeoutExpired:
@@ -3678,8 +3752,8 @@ def uncut_serving_line(cfg, serve, r0, reps, world, flops, extra=""):
 
 def tp_phase(dev, spec, out_dir, timeout=900, say=print):
     """Phase 15: LM serving with the parameters split over a model axis of
-    W ranks (``python -m torch.distributed.run --standalone``, each rank
-    this script under ``--tp``, `tp_rank_main`; W and the backend as
+    W ranks (each a process of this script under ``--tp``, `tp_rank_main`,
+    with the rank environment of ``torch.distributed.run``, `launch_ranks`; W and the backend as
     `rank_world` picks them); the mesh is (data 1, model W). The same runs
     first on one rank in this process (`tp_runs`; its launches kept out of
     the phase's counts), which then frees its cache; each rank's outputs
@@ -3706,15 +3780,16 @@ def tp_phase(dev, spec, out_dir, timeout=900, say=print):
         "--tp", out_dir, world, {"spec": spec, "p_tar": one["p_tar"], "model": world}, timeout,
         meanwhile=lambda: {n: prefill_cost(r["cfg"], *r["serve"])["flops"]
                            for n, r in spec["runs"].items() if n in ("bf16", "uncut")})
-    say(f"{world} ranks over {backend}, mesh (data 1, model {world}) (python -m "
-        f"torch.distributed.run --standalone --nproc-per-node {world}), {wall:.2f} s from "
+    say(f"{world} ranks over {backend}, mesh (data 1, model {world}) (processes "
+        f"of this script with torch.distributed.run's rank environment, `launch_ranks`), "
+        f"{wall:.2f} s from "
         f"launch to exit: " + "; ".join(
             f"rank {p['rank']} on {p['device']} ({p['card']}, {p['backend']}), its runs "
             f"{p['seconds']:.2f} s" for p in reps), timed=True)
     check_reps(reps, world, backend)
 
     runs = spec["runs"]
-    bound = bf16_tp_bound(runs["bf16"]["cfg"].num_layers)
+    bound = bf16_tp_bound(runs["bf16"]["cfg"])
     gap, n, *_ = held_serving(one, reps, "bf16", bound)
     cfg, r0, w0 = runs["bf16"]["cfg"], reps[0]["runs"]["bf16"], one["runs"]["bf16"]
     agree = [float(np.mean(p["runs"]["bf16"]["prefill"]["exit_prediction"]
@@ -3755,7 +3830,7 @@ def tp_phase(dev, spec, out_dir, timeout=900, say=print):
         say("d. " + uncut_serving_line(runs["uncut"]["cfg"], runs["uncut"]["serve"],
                                        reps[0]["runs"]["uncut"], reps, world, flops["uncut"]),
             timed=True)
-    say("launches per rank (K1, K3, K4): " + "; ".join(
+    say("launches per rank (K1, K3, K4, K2): " + "; ".join(
         f"rank {p['rank']} {tuple(p['launches'].values())}" for p in reps))
     return summed_launches(reps)
 
@@ -3813,14 +3888,15 @@ def tp_train_spec(full=True, uncut=False):
     return dict(device="cpu", runs=runs, val=(4, 32), serve=(4, 32))
 
 
-def bf16_tp_train_bound(n_layers, zmax, loss):
+def bf16_tp_train_bound(cfg, zmax, loss):
     """Relative bound on the gap between a bf16 tensor-parallel train
     step's losses or grad_norm and one rank's on the same params and
     batch, for heads whose logits reach `zmax` in absolute value and
     losses of at least `loss`.
 
-    Forward: the logits differ from one rank's by at most b = (2L + 2) 2u
-    of max|z| (`bf16_tp_bound`, u = 2^-8), and a row's cross-entropy moves
+    Forward: the logits differ from one rank's by at most b = n 2u of
+    max|z| (`bf16_tp_bound`, u = 2^-8; n the bf16 roundings on a row's
+    path, `bf16_roundings`), and a row's cross-entropy moves
     by at most twice the largest logit change (its gradient in z sums to 2
     in absolute value): 2 b max|z| absolute, 2 b max|z| / loss relative.
     Backward: each gradient element passes the same layers in reverse,
@@ -3832,7 +3908,7 @@ def bf16_tp_train_bound(n_layers, zmax, loss):
     are held to the same bound, max|z| read before and after the steps. A
     first-order bound, not a proof: the float32 twin (run b) and the MoE
     (run c) are held to rtol / atol 2e-4."""
-    return (2 * n_layers + 2) * 2 * BF16_U * max(1.0, 2 * zmax / loss)
+    return bf16_tp_bound(cfg) * max(1.0, 2 * zmax / loss)
 
 
 def wide_mm_check(dev, cfg, rows, world, seed=3):
@@ -3912,16 +3988,39 @@ def model_grad_check(mesh, shape, seed=4):
     return gap
 
 
+def enc_frames(cfg, b, seed):
+    """An encoder-decoder's (b, encoder_seq, d_model) frame embeddings (the
+    stubbed frontend's output): seeded N(0, 1) draws on the host, in the
+    config's dtype, the same in every process."""
+    import torch
+
+    from repro_torch.models.layers import cdtype
+
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randn((b, cfg.encoder_seq, cfg.d_model), generator=gen).to(cdtype(cfg))
+
+
 def tp_train_batches(cfg, shape, n, seed):
     """`n` (batch, seq) windows of the seeded synthetic stream, as
-    `launch.train` reads it."""
+    `launch.train` reads it, an encoder-decoder's with seeded frames
+    (`enc_frames`)."""
     from repro_torch.data.pipeline import TokenIterator
     from repro_torch.data.synthetic import lm_sequences
 
     b, s = shape
     it = iter(TokenIterator(lm_sequences(max(50_000, 4 * b * (s + 1)), cfg.vocab_size,
                                          seed=seed), b, s, seed=seed))
-    return [next(it) for _ in range(n)]
+    out = [next(it) for _ in range(n)]
+    if cfg.is_encoder_decoder:
+        out = [dict(w, encoder_frames=enc_frames(cfg, b, seed + 1000 * i))
+               for i, w in enumerate(out)]
+    return out
+
+
+def model_inputs(batch):
+    """A training batch without its labels: what the serve and eval steps
+    read."""
+    return {k: v for k, v in batch.items() if k != "labels"}
 
 
 def local_path_tree(tree):
@@ -4035,11 +4134,17 @@ class OneRankStore:
             threading.Thread(target=self._client, args=(conn,), daemon=True).start()
 
     def _client(self, conn):
+        import socket
+
         import torch
 
         from repro_torch import sharding
         from repro_torch.launch.mesh import make_debug_mesh
 
+        # a leaf's header and bytes leave at once: with Nagle's algorithm the
+        # bytes would wait for the client's delayed ACK of the header (tens
+        # of ms a leaf, most of the fetch time of a tree of small leaves)
+        conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
         with conn:
             try:
                 if recv_msg(conn) != self.token:
@@ -4070,6 +4175,7 @@ class StoreClient:
         import socket
 
         self.sock = socket.create_connection(ticket["address"])
+        self.sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
         send_msg(self.sock, ticket["token"])
         self.seconds = 0.0
 
@@ -4222,7 +4328,7 @@ def tp_train_runs(dev, spec, mesh, out_dir, names=("bf16", "f32", "moe"), store=
 
     from repro_torch import sharding
     from repro_torch.kernels import calib_nll
-    from repro_torch.launch.mesh import gather_blocks, record_collectives
+    from repro_torch.launch.mesh import all_sum, record_collectives
     from repro_torch.models import registry, transformer
     from repro_torch.training import checkpoint, optim
     from repro_torch.training.loop import make_eval_step, make_grad_fn, make_train_step, whole_specs
@@ -4271,7 +4377,7 @@ def tp_train_runs(dev, spec, mesh, out_dir, names=("bf16", "f32", "moe"), store=
             ev = make_eval_step(cfg, device=dev)
 
             def zmax():
-                o = ev(params, {"tokens": batches[0]["tokens"]})
+                o = ev(params, model_inputs(batches[0]))
                 return max(float(z.abs().max()) for z in [o["logits"]] + o["exit_logits"])
 
             r["zmax"] = [zmax()]
@@ -4285,6 +4391,8 @@ def tp_train_runs(dev, spec, mesh, out_dir, names=("bf16", "f32", "moe"), store=
                 held = HeldToOneRank(by_path, mesh, dev, store["ticket"])
         tap = MoeTap() if cfg.moe_num_experts else contextlib.nullcontext()
         dropped, routes = [], []
+        t_held = time.perf_counter()
+        r["setup_s"] = t_held - t_run  # the init, the batches, the steps' specs, the moments
         for i, b in enumerate(batches):
             if grad_fn is not None:
                 _, grads, _ = grad_fn(params, b)
@@ -4307,6 +4415,7 @@ def tp_train_runs(dev, spec, mesh, out_dir, names=("bf16", "f32", "moe"), store=
                 slots = run["batch"][0] * run["batch"][1] * cfg.moe_top_k
                 dropped += [round(float(a["moe_dropped_frac"]) * slots) for a in tap.aux]
                 routes += tap.routes
+        r["steps_s"] = time.perf_counter() - t_held  # with each step's held gradients
         del m
         if zmax is not None:
             r["zmax"].append(zmax())
@@ -4327,18 +4436,24 @@ def tp_train_runs(dev, spec, mesh, out_dir, names=("bf16", "f32", "moe"), store=
         del state
         if mesh is not None:
             # every element held whole (a replicated leaf, a packed leaf's
-            # whole blocks), bit for bit the same on every model rank
-            group, w = mesh.group("model"), mesh.axis_size("model")
+            # whole blocks), bit for bit the same on every model rank: each
+            # rank's bytes, as int32 words, against model rank 0's, which
+            # one all-reduce of rank 0's words and the other ranks' zeros
+            # hands every rank exactly
+            t0 = time.perf_counter()
+            group = mesh.group("model")
             n_rep = 0
             for p, a in pytree.tree_flatten_with_path(params)[0]:
                 whole = whole_elements(a.detach(), by_path[sharding.path_str(p)], mesh)
                 if whole is not None:
-                    bits = whole.reshape(-1).view(torch.int16 if a.element_size() == 2
-                                                  else torch.int32).to(torch.float64)
-                    every = gather_blocks(bits, m_idx, w, group)
-                    assert bool((every == every[0]).all()), (name, sharding.path_str(p))
+                    raw = whole.reshape(-1).view(torch.uint8)
+                    words = torch.nn.functional.pad(raw, (0, -raw.numel() % 4)).view(torch.int32)
+                    first = words.clone() if m_idx == 0 else torch.zeros_like(words)
+                    all_sum(first, group)
+                    assert torch.equal(first, words), (name, sharding.path_str(p))
                     n_rep += whole.numel()
-            r["replicated_equal"] = n_rep
+                    del raw, words, first
+            r["replicated_equal"], r["replicated_s"] = n_rep, time.perf_counter() - t0
         if run.get("held"):
             if mesh is None:
                 r["params"] = local_path_tree(params)
@@ -4357,6 +4472,7 @@ def tp_train_runs(dev, spec, mesh, out_dir, names=("bf16", "f32", "moe"), store=
             r["ckpt_back"] = all(torch.equal(a, b) for a, b in zip(
                 pytree.tree_leaves(back), pytree.tree_leaves(params)))
             assert r["ckpt_back"], "the reloaded checkpoint differs from the rank's slices"
+            r["ckpt_s"] = time.perf_counter() - t0
             del back
         r["train_s"] = time.perf_counter() - t_run
         if "levels" in run:
@@ -4371,40 +4487,26 @@ def tp_train_runs(dev, spec, mesh, out_dir, names=("bf16", "f32", "moe"), store=
     return res
 
 
-def calibrate_and_serve(dev, spec, name, cfg, params, levels, mesh, log):
-    """Run (d) on a trained model over `mesh` (None: one rank): the eval
-    step's whole-vocab exit logits of a validation batch; each exit's K2
-    fit held to the plain fit (by T or NLL, as phase 12) and, on labels
-    planted at T* = 1.5, by T (as phase 11); two `OffloadPlan`s, of the
-    K2 temperatures and of the same with exit 0's planted-label fit, each
-    with p_tar at the widest ratio between two neighbouring exit-0
-    confidences of the serving batch; `lm_engine` at `levels` under each.
-    Over a mesh, rank 0 then serves the same weights gathered whole on one
-    rank (its launches kept out of the counts): the mesh's gate
-    confidences held to its within the bf16 bound, its decisions away from
-    p_tar +- 1e-6, payload_bytes per refused row equal. Returns the
-    numbers."""
+def fit_exits(dev, name, cfg, params, val, mesh, log):
+    """The eval step's whole-vocab exit logits of a seeded validation batch
+    of `val` (b, s) over `mesh` (None: one rank), gathered there; each exit's
+    temperature on them by K2 from the best point of `K2_GRID` and by the
+    plain fit, held to each other (by T or by NLL, as phase 12); then exit
+    0's on labels planted at T* = 1.5, by both (by T, as phase 11). The K2
+    launches are worked out and asserted. Returns {"eval_ms", "fits":
+    [(K2 T, plain T, K2 NLL, plain NLL)] by exit, "planted": (K2 T, plain T)}."""
     import torch
-    import torch.utils._pytree as pytree
 
-    from repro_torch import sharding
-    from repro_torch.core.calibration import TemperatureScaling, fit_temperature, nll
-    from repro_torch.core.policy import OffloadPlan
+    from repro_torch.core.calibration import fit_temperature, nll
     from repro_torch.kernels import calib_nll, ops
-    from repro_torch.launch.mesh import gather_whole
-    from repro_torch.launch.serve import make_prefill_step
-    from repro_torch.models import transformer
-    from repro_torch.offload.engine import lm_engine
-    from repro_torch.training.loop import make_eval_step, whole_specs
+    from repro_torch.training.loop import make_eval_step
 
-    V, n_ex = cfg.vocab_size, len(cfg.exit_layers)
-    k2 = calib_nll.KERNEL
-    out = {}
-    vb = tp_train_batches(cfg, spec["val"], 1, seed=5)[0]
+    V, k2 = cfg.vocab_size, calib_nll.KERNEL
+    vb = tp_train_batches(cfg, val, 1, seed=5)[0]
     t0 = time.perf_counter()
-    ev = make_eval_step(cfg, device=dev, mesh=mesh)(params, {"tokens": vb["tokens"]})
+    ev = make_eval_step(cfg, device=dev, mesh=mesh)(params, model_inputs(vb))
     _sync(dev)
-    out["eval_ms"] = 1e3 * (time.perf_counter() - t0)
+    eval_ms = 1e3 * (time.perf_counter() - t0)
     zs = [z.reshape(-1, V) for z in ev["exit_logits"]]
     del ev
     y = torch.as_tensor(vb["labels"], device=dev).reshape(-1).to(torch.int64)
@@ -4425,16 +4527,46 @@ def calibrate_and_serve(dev, spec, name, cfg, params, levels, mesh, log):
     tk_p = float(ops.fit_temperature_kernel(zp, yp)[0])
     tr_p = float(fit_temperature(zp.float(), yp)[0])
     assert abs(tk_p - tr_p) <= 1e-3 * tr_p and 1.2 < tr_p < 1.9, (name, tk_p, tr_p)
-    del zp, yp, zs
-    want_k2 = n_ex * (len(K2_GRID) + 25) + 25 if log.card else 0
+    del zp, yp
+    want_k2 = len(zs) * (len(K2_GRID) + 25) + 25 if log.card else 0
     assert k2.launches - before == want_k2, (name, k2.launches - before, want_k2)
     log.steps.append(f"{name} K2 fits ({want_k2} K2)")
-    out["fits"], out["planted"] = fits, (tk_p, tr_p)
+    return {"eval_ms": eval_ms, "fits": fits, "planted": (tk_p, tr_p)}
+
+
+def calibrate_and_serve(dev, spec, name, cfg, params, levels, mesh, log):
+    """Run (d) on a trained model over `mesh` (None: one rank): the eval
+    step's whole-vocab exit logits of a validation batch; each exit's K2
+    fit held to the plain fit (by T or NLL, as phase 12) and, on labels
+    planted at T* = 1.5, by T (as phase 11); two `OffloadPlan`s, of the
+    K2 temperatures and of the same with exit 0's planted-label fit, each
+    with p_tar at the widest ratio between two neighbouring exit-0
+    confidences of the serving batch; `lm_engine` at `levels` under each.
+    Over a mesh, rank 0 then serves the same weights gathered whole on one
+    rank (its launches kept out of the counts): the mesh's gate
+    confidences held to its within the bf16 bound, its decisions away from
+    p_tar +- 1e-6, payload_bytes per refused row equal. Returns the
+    numbers."""
+    import torch
+    import torch.utils._pytree as pytree
+
+    from repro_torch import sharding
+    from repro_torch.core.calibration import TemperatureScaling
+    from repro_torch.core.policy import OffloadPlan
+    from repro_torch.kernels import calib_nll
+    from repro_torch.launch.mesh import gather_whole
+    from repro_torch.launch.serve import make_prefill_step
+    from repro_torch.models import transformer
+    from repro_torch.offload.engine import lm_engine
+    from repro_torch.training.loop import whole_specs
+
+    n_ex, k2 = len(cfg.exit_layers), calib_nll.KERNEL
+    out = fit_exits(dev, name, cfg, params, spec["val"], mesh, log)
     # two plans: the K2 temperatures on the token labels (the pipeline's),
     # and the same with exit 0 at its planted-label fit, whose confidences
     # spread over (0, 1) where the first's sit near 1 / V
-    temps = [f[0] for f in fits]
-    plans = {"fit": temps, "planted": [tk_p] + temps[1:]}
+    temps = [f[0] for f in out["fits"]]
+    plans = {"fit": temps, "planted": [out["planted"][0]] + temps[1:]}
     batch = {"tokens": tp_train_batches(cfg, spec["serve"], 1, seed=6)[0]["tokens"]}
     out["plans"] = {}
 
@@ -4490,7 +4622,7 @@ def calibrate_and_serve(dev, spec, name, cfg, params, levels, mesh, log):
                 # the gate's confidences, one rank's against the mesh's,
                 # within the bf16 bound on the calibrated logits
                 c_one = torch.softmax(zc.float(), dim=-1).amax(-1).double().cpu()
-                delta = bf16_tp_bound(cfg.num_layers) * float(zc.float().abs().max())
+                delta = bf16_tp_bound(cfg) * float(zc.float().abs().max())
                 gap = float(((d["c_mesh"] - c_one).abs() / c_one).max())
                 assert gap <= np.expm1(2 * delta), (name, key, gap, delta)
                 ref = engines(one, None, plan)
@@ -4524,7 +4656,7 @@ def calibrate_and_serve(dev, spec, name, cfg, params, levels, mesh, log):
 
 
 def tp_train_rank_main(out_dir) -> int:
-    """One rank of phase 16, under ``torch.distributed.run``: `tp_train_runs`
+    """One rank of phase 16 (`launch_ranks`): `tp_train_runs`
     over the (data 1, model W) mesh, the kernels' launches counted from 0.
     Writes rank<r>.pkl to `out_dir`."""
     import pickle
@@ -4665,11 +4797,12 @@ def bf16_train_line(one, reps, name, spec):
     m0 = one["runs"][name]["metrics"]
     ce = min(v for m in m0 for k, v in m.items() if k.startswith("loss_"))
     zmax = one["runs"][name]["zmax"]
-    bound = bf16_tp_train_bound(cfg.num_layers, max(zmax), ce)
+    bound = bf16_tp_train_bound(cfg, max(zmax), ce)
     gap = same_metrics(one, reps, name, bound)
     return (f"{run['steps']} remat steps at {run['batch'][0]} x {run['batch'][1]}: losses "
             f"and grad_norm per step within rel {gap:.3g} of one rank (the derived bound "
-            f"(2L + 2) 2u max(1, 2 max|z| / loss) = {bound:.4g}, with max|z| of one rank's heads "
+            f"{bf16_roundings(cfg)} 2u max(1, 2 max|z| / loss) = {bound:.4g}, with max|z| of one "
+            f"rank's heads "
             f"{[round(z, 4) for z in zmax]} before and after the steps and its least head loss "
             f"{ce:.4f}); one rank's loss {[round(m['loss'], 4) for m in m0]}, grad_norm "
             f"{[round(m['grad_norm'], 4) for m in m0]}; " + train_line(one, reps, name) + "; "
@@ -4714,8 +4847,8 @@ def clear_files(out_dir):
 
 def tp_train_phase(dev, spec, out_dir, timeout=900, say=print, world=None):
     """Phase 16: LM training with the parameters split over a model axis of
-    W ranks (``python -m torch.distributed.run --standalone``, each rank
-    this script under ``--tp-train``, `tp_train_rank_main`; W and the
+    W ranks (each a process of this script under ``--tp-train``,
+    `tp_train_rank_main`, `launch_ranks`; W and the
     backend as `rank_world` picks them), then the trained model calibrated
     and served on the same mesh; the mesh is (data 1, model W). The same
     training runs first on one rank in this process (`tp_train_runs`; its
@@ -4757,8 +4890,9 @@ def tp_train_phase(dev, spec, out_dir, timeout=900, say=print, world=None):
     finally:
         store.close()
     clear_files(out_dir)
-    say(f"{world} ranks over {backend}, mesh (data 1, model {world}) (python -m "
-        f"torch.distributed.run --standalone --nproc-per-node {world}), {wall:.2f} s from "
+    say(f"{world} ranks over {backend}, mesh (data 1, model {world}) (processes "
+        f"of this script with torch.distributed.run's rank environment, `launch_ranks`), "
+        f"{wall:.2f} s from "
         f"launch to exit: " + "; ".join(
             f"rank {p['rank']} on {p['device']} ({p['card']}, {p['backend']}), its runs "
             f"{p['seconds']:.2f} s (" + ", ".join(
@@ -4905,10 +5039,11 @@ SSM_SERVE = ("ssm_bf16", "ssm_f32", "jamba", "jamba_f32")
 SSM_TRAIN = ("ssm_bf16", "ssm_f32", "jamba")
 
 
-def tp_ssm_rank_main(out_dir) -> int:
-    """One rank of phase 17, under ``torch.distributed.run``: `tp_runs` and
-    then `tp_train_runs` over the (data 1, model W) mesh, the kernels'
-    launches counted from 0. Writes rank<r>.pkl to `out_dir`."""
+def tp_model_rank_main(out_dir) -> int:
+    """One rank of phase 17 or 18 (`launch_ranks`): `tp_runs`
+    and then `tp_train_runs` of the job's runs (its ``names``, serving and
+    training) over the (data 1, model W) mesh, the kernels' launches
+    counted from 0. Writes rank<r>.pkl to `out_dir`."""
     import pickle
 
     import torch
@@ -4919,35 +5054,74 @@ def tp_ssm_rank_main(out_dir) -> int:
 
     with open(os.path.join(out_dir, "job.pkl"), "rb") as f:
         job = pickle.load(f)
+    entered = time.time() - job["launched"]
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     mesh, backend = join_ranks(job["spec"]["device"], model=job["model"])
     dev = mesh.device
     for k in list(LaunchLog(dev).counters.values()) + [calib_nll.KERNEL]:
         k.launches = 0
+    joined = time.time() - job["launched"]
     t0 = time.perf_counter()
-    serve = tp_runs(dev, job["spec"]["serve"], mesh, job["p_tar"],
-                    names=("uncut",) + SSM_SERVE)
+    serve_names, train_names = job["names"]
+    serve = tp_runs(dev, job["spec"]["serve"], mesh, job["p_tar"], names=serve_names,
+                    plans=job.get("plans"))
     t_serve = time.perf_counter() - t0
-    train = tp_train_runs(dev, job["spec"]["train"], mesh, out_dir, names=SSM_TRAIN,
+    train = tp_train_runs(dev, job["spec"]["train"], mesh, out_dir, names=train_names,
                           store=job["store"])
     res = dict(serve=serve, train=train, launches={**serve["launches"], **train["launches"]},
                rank=torch.distributed.get_rank(),
                coords=(mesh.coordinate("data"), mesh.coordinate("model")), mesh=mesh.shape,
                backend=backend, device=str(dev),
                card=torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
-               serve_s=t_serve, seconds=time.perf_counter() - t0)
+               serve_s=t_serve, seconds=time.perf_counter() - t0, started=(entered, joined))
     with open(os.path.join(out_dir, f"rank{res['rank']}.pkl"), "wb") as f:
         pickle.dump(res, f)
     torch.distributed.destroy_process_group()
     return 0
 
 
+def serving_line(one_s, sv, runs_s, flops, world, name, bound):
+    """Phase 17's and 18's line for serving run `name` over the ranks `sv`
+    against one rank `one_s` (`held_serving`; `bound` None holds it at rtol /
+    atol 2e-4), with its sizes, times, the all-reduces' share and peaks;
+    `flops` the dry run's FLOPs of the prefills it has them for."""
+    gap, n, unheld, carried = held_serving(one_s, sv, name, bound)
+    cfg, r0, w0 = runs_s[name]["cfg"], sv[0]["runs"][name], one_s["runs"][name]
+    b, s = runs_s[name]["serve"]
+    rate = (f" ({flops[name]:.4g} FLOPs, {flops[name] / (min(r0['ms']) * 1e-3) / 1e12:.1f} "
+            f"TFLOP/s over the {world} ranks)" if name in flops else "")
+    steps = 1 + len(w0.get("decode", []))
+    drops = ("" if "dropped" not in r0 else
+             f"; dropped (token, slot) pairs per layer {r0['dropped']} on rank 0, one rank "
+             f"{w0['dropped']}" + (
+                 "" if bound is None else
+                 f"; (row, step) pairs whose compared token a rank routed otherwise than "
+                 f"one rank (held to finite values only): {unheld} of {len(sv) * b * steps} "
+                 f"over the ranks; the worst gap held where only an earlier token of the "
+                 f"row was rerouted rel {carried:.3g} of max|z|"))
+    held = len(sv) * b * steps - unheld
+    tol = (f"within rel {gap:.3g} of max|z| of one rank on the {held} (row, step) pairs held "
+           f"(the derived bound {bf16_roundings(cfg)} 2u = {bound:.4g})" if bound else
+           f"within rel {gap:.3g} (rtol / atol 2e-4)")
+    return (f"serving, {r0['scalars']} scalars a rank of {w0['scalars']}: prefill {b} x {s}, "
+            f"{len(r0.get('decode', []))} decode steps from its caches"
+            + (f", lm_engine at levels {tuple(r0['engine'])}" if r0["engine"] else "")
+            + f": every rank {tol}; {n} predictions and decisions equal "
+            f"where one rank's margins clear it; the last token's logits against a prefill "
+            f"over the same tokens rel {r0['resume_gap']:.3g}{drops}; prefill ms one rank "
+            f"{ms3(w0['ms'])}, rank 0 {ms3(r0['ms'])}{rate}; decode ms a token one rank "
+            f"{ms3(w0['decode_ms'])}, rank 0 {ms3(r0['decode_ms'])}; {serve_shares(r0)}"
+            + (f"; lm_engine one rank {engine_line(w0)}; rank 0 {engine_line(r0)}"
+               if r0["engine"] else "")
+            + f"; peak per rank {[gb(p['runs'][name]['peak']) for p in sv]} (one rank "
+            f"{gb(w0['peak'])})")
+
+
 def tp_ssm_phase(dev, spec, out_dir, timeout=900, say=print):
     """Phase 17: the mamba and hybrid families with their parameters split
-    over a model axis of W ranks (``python -m torch.distributed.run
-    --standalone``, each rank this script under ``--tp-ssm``,
-    `tp_ssm_rank_main`; W and the backend as `rank_world` picks them); the
+    over a model axis of W ranks (each a process of this script under
+    ``--tp-ssm``, `tp_model_rank_main`, `launch_ranks`; W and the backend as `rank_world` picks them); the
     mesh is (data 1, model W), each mamba layer on its block of SSD heads
     with B and C whole (`sharding.layout_specs`). The same runs first on
     one rank in this process (their launches kept out of the phase's
@@ -5004,13 +5178,16 @@ def tp_ssm_phase(dev, spec, out_dir, timeout=900, say=print):
     try:
         reps, wall, flops = launch_ranks(
             "--tp-ssm", out_dir, world, {"spec": spec, "p_tar": one_s["p_tar"],
-                                         "store": store.job, "model": world}, timeout,
+                                         "store": store.job, "model": world,
+                                         "names": (("uncut",) + SSM_SERVE, SSM_TRAIN)},
+            timeout,
             meanwhile=costs)
     finally:
         store.close()
     clear_files(out_dir)
-    say(f"{world} ranks over {backend}, mesh (data 1, model {world}) (python -m "
-        f"torch.distributed.run --standalone --nproc-per-node {world}), {wall:.2f} s from "
+    say(f"{world} ranks over {backend}, mesh (data 1, model {world}) (processes "
+        f"of this script with torch.distributed.run's rank environment, `launch_ranks`), "
+        f"{wall:.2f} s from "
         f"launch to exit: " + "; ".join(
             f"rank {p['rank']} on {p['device']} ({p['card']}, {p['backend']}), its runs "
             f"{p['seconds']:.2f} s ({p['serve_s']:.1f} s serving)" for p in reps), timed=True)
@@ -5019,40 +5196,12 @@ def tp_ssm_phase(dev, spec, out_dir, timeout=900, say=print):
     tr = [dict(p["train"], rank=p["rank"], coords=p["coords"]) for p in reps]
 
     def serving(name, bound):
-        gap, n, unheld, carried = held_serving(one_s, sv, name, bound)
-        cfg, r0, w0 = runs_s[name]["cfg"], sv[0]["runs"][name], one_s["runs"][name]
-        b, s = runs_s[name]["serve"]
-        rate = (f" ({flops[name]:.4g} FLOPs, {flops[name] / (min(r0['ms']) * 1e-3) / 1e12:.1f} "
-                f"TFLOP/s over the {world} ranks)" if name in flops else "")
-        steps = 1 + len(w0.get("decode", []))
-        drops = ("" if "dropped" not in r0 else
-                 f"; dropped (token, slot) pairs per layer {r0['dropped']} on rank 0, one rank "
-                 f"{w0['dropped']}" + (
-                     "" if bound is None else
-                     f"; (row, step) pairs whose compared token a rank routed otherwise than "
-                     f"one rank (held to finite values only): {unheld} of {len(sv) * b * steps} "
-                     f"over the ranks; the worst gap held where only an earlier token of the "
-                     f"row was rerouted rel {carried:.3g} of max|z|"))
-        held = len(sv) * b * steps - unheld
-        tol = (f"within rel {gap:.3g} of max|z| of one rank on the {held} (row, step) pairs held "
-               f"(the derived bound (2L + 2) 2u = {bound:.4g})" if bound else
-               f"within rel {gap:.3g} (rtol / atol 2e-4)")
-        return (f"serving, {r0['scalars']} scalars a rank of {w0['scalars']}: prefill {b} x {s}, "
-                f"{len(r0.get('decode', []))} decode steps from its caches, lm_engine at levels "
-                f"{tuple(r0['engine'])}: every rank {tol}; {n} predictions and decisions equal "
-                f"where one rank's margins clear it; the last token's logits against a prefill "
-                f"over the same tokens rel {r0['resume_gap']:.3g}{drops}; prefill ms one rank "
-                f"{ms3(w0['ms'])}, rank 0 {ms3(r0['ms'])}{rate}; decode ms a token one rank "
-                f"{ms3(w0['decode_ms'])}, rank 0 {ms3(r0['decode_ms'])}; {serve_shares(r0)}"
-                + (f"; lm_engine one rank {engine_line(w0)}; rank 0 {engine_line(r0)}"
-                   if r0["engine"] else "")
-                + f"; peak per rank {[gb(p['runs'][name]['peak']) for p in sv]} (one rank "
-                f"{gb(w0['peak'])})")
+        return serving_line(one_s, sv, runs_s, flops, world, name, bound)
 
     cfg = runs_s["ssm_bf16"]["cfg"]
     say(f"a. {cfg.name} uncut ({cfg.num_layers} layers, d {cfg.d_model}, {cfg.ssm_heads} SSD "
         f"heads, {cfg.ssm_heads // world} a rank, state {cfg.ssm_state}, vocab "
-        f"{cfg.vocab_size}), bf16: " + serving("ssm_bf16", bf16_tp_bound(cfg.num_layers)),
+        f"{cfg.vocab_size}), bf16: " + serving("ssm_bf16", bf16_tp_bound(cfg)),
         timed=True)
     say(f"a. {cfg.name} training: " + bf16_train_line(one_t, tr, "ssm_bf16", spec["train"]),
         timed=True)
@@ -5074,7 +5223,7 @@ def tp_ssm_phase(dev, spec, out_dir, timeout=900, say=print):
     say(f"c. {cfg.name} widths (d {cfg.d_model}, {cfg.ssm_heads} SSD heads, {cfg.num_heads} "
         f"heads, kv {cfg.num_kv_heads}, {cfg.moe_num_experts} experts top-{cfg.moe_top_k}) "
         f"reduced to {cfg.num_layers} layers, exits {cfg.exit_layers}, bf16: "
-        + serving("jamba", bf16_tp_bound(cfg.num_layers)), timed=True)
+        + serving("jamba", bf16_tp_bound(cfg)), timed=True)
     cfg = runs_s["jamba_f32"]["cfg"]
     say(f"c. {cfg.name} widths reduced to {cfg.num_layers} layers ({cfg.layer_plan()}), exits "
         f"{cfg.exit_layers}, float32: " + serving("jamba_f32", None), timed=True)
@@ -5103,9 +5252,252 @@ def tp_ssm_phase(dev, spec, out_dir, timeout=900, say=print):
     return summed_launches(reps)
 
 
+# ------------------------------------------------------------ tp_enc_dec (18)
+ENC_DEC = ("enc_bf16", "enc_f32")
+
+
+def tp_enc_dec_spec(full=True):
+    """Phase 18's runs: serving runs (`tp_runs`) and training runs
+    (`tp_train_runs`) of whisper-base uncut, bf16 and its float32 twin, at
+    its published widths (`full`), or a CPU rehearsal of the same runs on
+    its smoke widths. The twin's serving run is also calibrated and served
+    under its plan (``calib``: the validation and serving batches)."""
+    from repro_torch.configs import get_config, get_smoke
+
+    w = get_config("whisper-base") if full else get_smoke("whisper-base")
+    f32 = w.replace(dtype="float32")
+    if full:
+        # reduced for the script's time (PERF.md §4): the bf16 run's batch 8
+        # -> 4 (frames (4, 1500, 512)) and its decode 16 -> 8 tokens; the
+        # twin's batches 4 -> 2 and its serving 8 -> 4
+        serve = {"enc_bf16": dict(cfg=w, serve=(4, 448), decode=8, levels=()),
+                 "enc_f32": dict(cfg=f32, serve=(2, 64), decode=4, levels=(),
+                                 calib=dict(val=(2, 64), serve=(4, 64)))}
+        train = {"enc_bf16": dict(cfg=w, batch=(4, 128), steps=3, **BF16_RUN),
+                 "enc_f32": dict(cfg=f32, batch=(2, 64), steps=3, **F32_RUN)}
+        return dict(device=None, serve=dict(device=None, runs=serve),
+                    train=dict(device=None, runs=train))
+    serve = {"enc_bf16": dict(cfg=w, serve=(4, 32), decode=4, levels=()),
+             "enc_f32": dict(cfg=f32, serve=(2, 16), decode=2, levels=(),
+                             calib=dict(val=(4, 16), serve=(8, 16)))}
+    train = {"enc_bf16": dict(cfg=w, batch=(4, 32), steps=3, **BF16_RUN),
+             "enc_f32": dict(cfg=f32, batch=(4, 16), steps=3, **F32_RUN)}
+    return dict(device="cpu", serve=dict(device="cpu", runs=serve),
+                train=dict(device="cpu", runs=train))
+
+
+def calibrate_served(dev, name, cfg, params, calib, mesh, log, plans):
+    """Phase 18's run (c) on a served model over `mesh` (None: one rank):
+    the eval step's whole-vocab exit logits of a seeded validation batch
+    (``calib["val"]`` (b, s), its frames `enc_frames`), gathered over the
+    mesh; each exit's temperature fit by K2 on them (from the best point of
+    `K2_GRID`) and by the plain fit, held to each other (by T or by NLL, as
+    phase 12), and exit 0's on labels planted at T* = 1.5 (by T, as phase
+    11); then an `OffloadPlan` served through ``make_prefill_step(plan=)``
+    on a seeded batch (``calib["serve"]``): on one rank the plan of its K2
+    temperatures, exit 0's the planted fit (its confidences spread over
+    (0, 1)), stored in `plans`; over a mesh the plan `plans` holds, one
+    rank's, so the served confidences are held to one rank's. Returns the
+    fits and the served confidences and predictions (and, on one rank, the
+    exits' logits, whose margins decide which rows must agree)."""
+    import torch
+
+    from repro_torch.core.calibration import TemperatureScaling
+    from repro_torch.core.policy import OffloadPlan
+    from repro_torch.launch.serve import make_prefill_step
+    from repro_torch.models import registry
+
+    n_ex = len(cfg.exit_layers)
+    out = fit_exits(dev, name, cfg, params, calib["val"], mesh, log)
+    if mesh is None:
+        plans[name] = [out["planted"][0]] + [f[0] for f in out["fits"][1:]]
+    plan = OffloadPlan(p_tar=0.5, calibrators=[TemperatureScaling.from_temperature(t)
+                                               for t in plans[name]])
+    batch = model_inputs(tp_train_batches(cfg, calib["serve"], 1, seed=6)[0])
+    before = log.now()
+    t0 = time.perf_counter()
+    pre = make_prefill_step(cfg, plan=plan, device=dev, mesh=mesh)(params, batch)
+    _sync(dev)
+    out["serve_ms"] = 1e3 * (time.perf_counter() - t0)
+    log.expect(f"{name} prefill under the calibrated plan", before, exit_gate=n_ex)
+    out["conf"] = pre["exit_confidence"].double().cpu().numpy()
+    out["pred"] = pre["exit_prediction"].cpu().numpy()
+    del pre
+    if mesh is None:
+        with torch.no_grad():
+            zs = registry.forward_prefill(params, cfg, {
+                k: torch.as_tensor(v, device=dev) for k, v in batch.items()})["exit_logits"]
+        out["exit_logits"] = [z[:, 0].float().cpu().numpy() for z in zs]
+    return out
+
+
+def held_calibration(one, reps, name):
+    """Run (c) over the ranks against one rank (`calibrate_served`): each
+    exit's K2 temperature on the token labels within rel 2e-4 of one rank's
+    (ROADMAP caveat c) or, where the NLL is flat (caveat j), its NLL within
+    rel 1e-6; the planted fit within rel 1e-3 (K2 against the plain fit's
+    own tolerance); the served plan's confidences at rtol / atol 2e-4, its
+    predictions equal where one rank's margins clear 2 (2e-4 (1 + max|z|))
+    and its decisions equal away from p_tar +- (the gap + 1e-6), p_tar at
+    the widest ratio between two neighbouring exit-0 confidences of one
+    rank. Returns (the worst T gap, the worst NLL gap, the worst confidence
+    gap, the rows held, p_tar)."""
+    want = one["runs"][name]["calib"]
+    c0 = np.sort(want["conf"][0])
+    i = int(np.argmax(np.log(c0[1:]) - np.log(c0[:-1])))
+    p_tar = float(np.sqrt(c0[i] * c0[i + 1]))
+    t_gap = n_gap = c_gap = 0.0
+    held = 0
+    for p in reps:
+        got = p["runs"][name]["calib"]
+        for g, w in zip(got["fits"], want["fits"]):
+            dt, dn = abs(g[0] - w[0]) / w[0], abs(g[2] - w[2]) / abs(w[2])
+            assert dt <= 2e-4 or dn <= 1e-6, (name, g, w)
+            t_gap, n_gap = max(t_gap, dt), max(n_gap, dn)
+        assert abs(got["planted"][0] - want["planted"][0]) <= 1e-3 * want["planted"][0], (
+            name, got["planted"], want["planted"])
+        np.testing.assert_allclose(got["conf"], want["conf"], rtol=2e-4, atol=2e-4, err_msg=name)
+        gap = np.abs(got["conf"] - want["conf"])
+        c_gap = max(c_gap, float((gap / want["conf"]).max()))
+        for e, z in enumerate(want["exit_logits"]):
+            clear = _top2_clear(z, 4e-4 * (1 + float(np.abs(z).max())))
+            np.testing.assert_array_equal(got["pred"][e][clear], want["pred"][e][clear])
+            held += int(clear.sum())
+        clear = np.abs(want["conf"][0] - p_tar) > gap[0] + BOUNDARY
+        np.testing.assert_array_equal((got["conf"][0] >= p_tar)[clear],
+                                      (want["conf"][0] >= p_tar)[clear], err_msg=name)
+        held += int(clear.sum())
+    return t_gap, n_gap, c_gap, held, p_tar
+
+
+def tp_enc_dec_phase(dev, spec, out_dir, timeout=900, say=print):
+    """Phase 18: the encoder-decoder (whisper-base) with its parameters
+    split over a model axis of W ranks (each a process of this script under
+    ``--tp-enc-dec``, `tp_model_rank_main`, `launch_ranks`; W and the backend as `rank_world` picks them); the
+    mesh is (data 1, model W): the encoder's, the decoder's and the
+    cross-attention's heads and ``d_ff`` split, the vocabulary too where W
+    divides it (51 865 it does not: the embedding and heads whole). The same
+    runs first on one rank in this process (their launches kept out of the
+    phase's counts, their memory freed before the ranks start), and each
+    rank is held to them: (a) uncut, bf16, frames (4, 1500, 512): prefill 4
+    x 448 and 8 tokens decoded from its caches within `bf16_tp_bound`
+    ((2 Le + 3 Ld + 3) 2u of max|z|, `held_serving`: the logits, and the
+    exits' predictions and K1 decisions where one rank's margins clear
+    it), 3 remat steps at 4 x 128 whose losses and grad_norm stay within
+    `bf16_tp_train_bound`; (b) its float32 twin, uncut: prefill and decode
+    at rtol / atol 2e-4, 3 steps with every gradient leaf at every step and
+    the params after them against the one-rank run's (`HeldToOneRank`),
+    every replicated element bit-equal over the ranks, the ranks'
+    checkpoint one device's file; (c) the twin calibrated over the mesh and
+    a plan served (`calibrate_served`, `held_calibration`). Returns the
+    K1-K4 launches summed over the ranks."""
+    from repro_torch.kernels import calib_nll
+
+    world, backend = rank_world(dev)
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    counters = list(LaunchLog(dev).counters.values()) + [calib_nll.KERNEL]
+    before = [k.launches for k in counters]
+    one_s = tp_runs(dev, spec["serve"], None, names=ENC_DEC)
+    t_serve = time.perf_counter() - t0
+    one_t = tp_train_runs(dev, spec["train"], None, out_dir, names=ENC_DEC)
+    for k, n in zip(counters, before):
+        k.launches = n
+    say(f"one rank in this process, {t_serve:.2f} s serving: " + "; ".join(
+        f"{n} {r['scalars']} scalars, prefill {ms3(r['ms'])} ms, peak {gb(r['peak'])}"
+        for n, r in one_s["runs"].items()) + f"; {time.perf_counter() - t0 - t_serve:.2f} s "
+        f"training: " + "; ".join(
+        f"{n} steps {ms3(r['ms'])} ms, peak {gb(r['peak'])}"
+        for n, r in one_t["runs"].items()), timed=True)
+    store = one_rank_store(one_t, spec["train"], world)
+    runs_s, runs_t = spec["serve"]["runs"], spec["train"]["runs"]
+    try:
+        reps, wall, flops = launch_ranks(
+            "--tp-enc-dec", out_dir, world, {
+                "spec": spec, "p_tar": one_s["p_tar"], "plans": one_s["plans"],
+                "store": store.job, "model": world, "names": (ENC_DEC, ENC_DEC)}, timeout,
+            meanwhile=lambda: {"enc_bf16": prefill_cost(runs_s["enc_bf16"]["cfg"],
+                                                        *runs_s["enc_bf16"]["serve"])["flops"]})
+    finally:
+        store.close()
+    clear_files(out_dir)
+    say(f"{world} ranks over {backend}, mesh (data 1, model {world}) (processes "
+        f"of this script with torch.distributed.run's rank environment, `launch_ranks`), "
+        f"{wall:.2f} s from "
+        f"launch to exit: " + "; ".join(
+            f"rank {p['rank']} on {p['device']} ({p['card']}, {p['backend']}) in this script "
+            f"{p['started'][0]:.1f} s after the launch, joined at {p['started'][1]:.1f} s, its "
+            f"runs {p['seconds']:.2f} s ({p['serve_s']:.1f} s serving; " + ", ".join(
+                f"{n} {r['train_s']:.1f} s training: set-up {r['setup_s']:.1f} s (the sharded "
+                f"init {r['init_ms'] / 1e3:.1f} s), steps with the held gradients "
+                f"{r['steps_s']:.1f} s, the replicated check {r['replicated_s']:.1f} s"
+                + (f", the gradients and params fetched {r['fetch_s']:.1f} s" if "fetch_s" in r
+                   else "")
+                + (f", the checkpoint {r['ckpt_s']:.1f} s" if "ckpt_s" in r else "")
+                for n, r in p["train"]["runs"].items()) + ")" for p in reps), timed=True)
+    check_reps(reps, world, backend)
+    sv = [dict(p["serve"], rank=p["rank"], coords=p["coords"]) for p in reps]
+    tr = [dict(p["train"], rank=p["rank"], coords=p["coords"]) for p in reps]
+
+    cfg = runs_s["enc_bf16"]["cfg"]
+    split = [n for n, width in (("heads", cfg.num_heads), ("d_ff", cfg.d_ff),
+                                ("vocab", cfg.vocab_size)) if width % world == 0]
+    say(f"a. {cfg.name} uncut ({cfg.encoder_layers} + {cfg.num_layers} layers, d "
+        f"{cfg.d_model}, {cfg.num_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; split "
+        f"over {world}: {', '.join(split)}), bf16, frames ({runs_s['enc_bf16']['serve'][0]}, "
+        f"{cfg.encoder_seq}, {cfg.d_model}): "
+        + serving_line(one_s, sv, runs_s, flops, world, "enc_bf16", bf16_tp_bound(cfg)),
+        timed=True)
+    w0, p_tar = one_s["runs"]["enc_bf16"], one_s["p_tar"]["enc_bf16"]
+    agree = [(float(np.mean(p["runs"]["enc_bf16"]["prefill"]["exit_prediction"]
+                            == w0["prefill"]["exit_prediction"])),
+              float(np.mean((p["runs"]["enc_bf16"]["prefill"]["exit_confidence"] >= p_tar)
+                            == (w0["prefill"]["exit_confidence"] >= p_tar)))) for p in sv]
+    say(f"a. the prefill's exit predictions and K1 decisions (p_tar {p_tar:.6g}) equal to one "
+        f"rank's on {min(a for a, _ in agree):.0%} and {min(d for _, d in agree):.0%} of rows "
+        f"(held above only where one rank's margins clear the bound)", timed=True)
+    say(f"a. {cfg.name} training: " + bf16_train_line(one_t, tr, "enc_bf16", spec["train"]),
+        timed=True)
+    cfg = runs_s["enc_f32"]["cfg"]
+    say(f"b. {cfg.name} float32 twin, uncut: "
+        + serving_line(one_s, sv, runs_s, flops, world, "enc_f32", None), timed=True)
+    run = runs_t["enc_f32"]
+    gap = same_metrics(one_t, tr, "enc_f32")
+    r0 = tr[0]["runs"]["enc_f32"]
+    assert all(p["runs"]["enc_f32"]["ckpt_back"] for p in tr)
+    say(f"b. float32 twin training, {run['steps']} steps at {run['batch'][0]} x "
+        f"{run['batch'][1]}: losses and grad_norm within rel {gap:.3g}; "
+        + held_line(one_t, tr, "enc_f32", run["steps"])
+        + f"; {r0['replicated_equal']} replicated elements (the norms, the position "
+        f"embeddings" + (", the embedding and heads, whose vocabulary the ranks do not divide"
+                         if cfg.vocab_size % world else "") + ") bit-equal over the ranks; "
+        f"the ranks' checkpoint, one device's layout, written in {r0['ckpt_save_s']:.2f} s and "
+        f"reloaded bit for bit on every rank; " + train_line(one_t, tr, "enc_f32"), timed=True)
+    t_gap, n_gap, c_gap, held, p_tar = held_calibration(one_s, sv, "enc_f32")
+    w0, c0 = one_s["runs"]["enc_f32"]["calib"], sv[0]["runs"]["enc_f32"]["calib"]
+    calib = runs_s["enc_f32"]["calib"]
+    say(f"c. the twin calibrated over the mesh: the eval step's whole-vocab exit logits of "
+        f"{calib['val'][0]} x {calib['val'][1]} validation tokens in {c0['eval_ms']:.1f} ms "
+        f"(one rank {w0['eval_ms']:.1f}); K2 fit per exit (T, plain T, NLLs) rank 0 "
+        f"{[tuple(round(v, 6) for v in f) for f in c0['fits']]}, one rank "
+        f"{[tuple(round(v, 6) for v in f) for f in w0['fits']]}: T within rel {t_gap:.3g} "
+        f"(2e-4), NLL within rel {n_gap:.3g}; planted T* = 1.5: rank 0 K2 "
+        f"{c0['planted'][0]:.6f} (plain {c0['planted'][1]:.6f}), one rank "
+        f"{w0['planted'][0]:.6f}; the plan of one rank's temperatures "
+        f"{[round(t, 6) for t in one_s['plans']['enc_f32']]} served through "
+        f"make_prefill_step(plan=) on {calib['serve'][0]} x {calib['serve'][1]}: confidences "
+        f"within rel {c_gap:.3g} (rtol / atol 2e-4), {held} predictions and decisions (p_tar "
+        f"{p_tar:.6g}) equal where one rank's margins clear it; ms one rank "
+        f"{w0['serve_ms']:.1f}, rank 0 {c0['serve_ms']:.1f}", timed=True)
+    say("launches per rank (K1, K3, K4, K2): " + "; ".join(
+        f"rank {p['rank']} {tuple(p['launches'].values())}" for p in reps))
+    return summed_launches(reps)
+
+
 def main() -> int:
     import torch
 
+    script_t0 = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; nothing was run", file=sys.stderr)
         return 2
@@ -5694,6 +6086,11 @@ def main() -> int:
         cuda, tp_ssm_spec(), os.path.join(ckpt_dir, "tp_ssm"), say=say), in_ranks=True)
 
     # ---------------------------------------------------------------- 18
+    run_phase("tp_enc_dec", lambda say: tp_enc_dec_phase(
+        cuda, tp_enc_dec_spec(), os.path.join(ckpt_dir, "tp_enc_dec"), say=say), in_ranks=True)
+
+    # ---------------------------------------------------------------- 19
+    print(f"[result] the script in {time.perf_counter() - script_t0:.2f} s {card}")
     launches = {n: sum(c[n] for c in phase_launches.values()) for n in kernels}
     table = []
     for n in kernels:
@@ -5718,6 +6115,6 @@ if __name__ == "__main__":
         sys.exit(tp_rank_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--tp-train":
         sys.exit(tp_train_rank_main(sys.argv[2]))
-    if len(sys.argv) == 3 and sys.argv[1] == "--tp-ssm":
-        sys.exit(tp_ssm_rank_main(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] in ("--tp-ssm", "--tp-enc-dec"):
+        sys.exit(tp_model_rank_main(sys.argv[2]))
     sys.exit(main())

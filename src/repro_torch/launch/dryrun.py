@@ -37,12 +37,9 @@ one card's, as the reference's are one device's (``traced_as``:
 ``"rank 0"``). A train step's schedule holds its backward's all-reduces
 and, with remat, the ones its checkpointed layers issue again while they
 recompute; ``collective_passes`` splits the counts and bytes by pass
-(forward, backward, recompute). The encoder-decoder family (whisper),
-which does not run tensor-parallel yet, is traced on a model axis above
-one rank as the whole step on one card instead (``traced_as``: ``"one
-card"``), its collectives ``null`` with the reason in
-``collectives_note``. On one card (``1x1``) the step issues no
-collective and both are empty.
+(forward, backward, recompute). Every LM family is traced so, the
+encoder-decoder (whisper) too. On one card (``1x1``, ``traced_as``:
+``"one card"``) the step issues no collective and both are empty.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-8b --shape train_4k
@@ -71,7 +68,6 @@ from repro_torch.launch import hlo_cost
 from repro_torch.launch.mesh import MeshSpec, make_debug_mesh
 from repro_torch.launch.serve import make_prefill_step, make_serve_step
 from repro_torch.models import registry
-from repro_torch.sharding import check_mesh
 from repro_torch.training import optim
 from repro_torch.training.loop import make_train_step
 
@@ -170,18 +166,6 @@ def build_step(cfg: ModelConfig, shape: ShapeConfig, device, remat: bool = True,
             {"params": params, "cache": caches, "batch": batch})
 
 
-def untraceable(cfg: ModelConfig, shape: ShapeConfig, mesh: MeshSpec):
-    """Why a pair's step cannot be traced as a rank of `mesh` (None when
-    it can)."""
-    if sharding.model_size(mesh) == 1:
-        return None
-    try:
-        check_mesh(cfg, mesh)
-    except NotImplementedError as e:
-        return str(e)
-    return None
-
-
 def run_one(arch: str, shape_name: str, outdir: str = os.path.join("build", "dryrun"),
             mesh: str = "1x1", zero1: bool = False, variant: str = "baseline", device=None,
             smoke: bool = False):
@@ -194,8 +178,7 @@ def run_one(arch: str, shape_name: str, outdir: str = os.path.join("build", "dry
     shape = INPUT_SHAPES[shape_name]
     cfg = shape_adapted_config((get_smoke if smoke else get_config)(arch), shape).replace(
         **VARIANTS[variant])
-    note = untraceable(cfg, shape, mesh_spec)
-    rank = mesh_spec.as_rank() if mesh_spec.size > 1 and note is None else None
+    rank = mesh_spec.as_rank() if mesh_spec.size > 1 else None
     t0 = time.perf_counter()
     with FakeTensorMode(allow_fallback_kernels=False):
         step, args, parts = build_step(cfg, shape, dev, mesh=rank)
@@ -203,8 +186,6 @@ def run_one(arch: str, shape_name: str, outdir: str = os.path.join("build", "dry
         # the whole state's shapes, which the described mesh's specs lay out
         whole = parts if rank is None else build_step(cfg, shape, dev)[2]
     trace_s = time.perf_counter() - t0
-    if note is not None:
-        cost = dict(cost, collective_bytes=None, collective_counts=None, collective_passes=None)
 
     # specs over the described mesh, from the whole parts' shapes
     pspecs = sharding.layout_specs(whole["params"], mesh_spec)
@@ -243,7 +224,6 @@ def run_one(arch: str, shape_name: str, outdir: str = os.path.join("build", "dry
         "collective_bytes": cost["collective_bytes"],
         "collective_counts": cost["collective_counts"],
         "collective_passes": cost["collective_passes"],
-        **({} if note is None else {"collectives_note": note}),
         "roofline_s": {"compute": cost["flops"] / H100_BF16_FLOP_PER_S,
                        "memory": cost["bytes"] / H100_HBM_BYTES_PER_S},
         "memory": memory,

@@ -30,8 +30,8 @@ exit's gate (one K1) runs on the rank's rows of whole-vocab exit logits,
 and the outputs are gathered over the data axis at the step's end, so
 every rank returns what one device returns, but for the decode step's
 ``logits``, which stay this rank's vocab shard (the next token is the
-global argmax, `transformer.vocab_argmax`). Every decoder-only family
-runs over a model axis above one rank; the encoder-decoder does not yet.
+global argmax, `transformer.vocab_argmax`). Every LM family runs over a
+model axis above one rank, the encoder-decoder (whisper) too.
 """
 from __future__ import annotations
 
@@ -42,7 +42,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.exits import gate_statistics
 from repro_torch.core.policy import OffloadPlan
 from repro_torch.models import registry, transformer
-from repro_torch.sharding import check_mesh, mesh_device, mesh_scope, rows_of
+from repro_torch.sharding import mesh_device, mesh_scope, rows_of
 
 
 def _make_exit_gater(cfg: ModelConfig, plan, temperatures):
@@ -91,7 +91,6 @@ def make_prefill_step(cfg: ModelConfig, plan: OffloadPlan = None,
     the caches are this rank's (its rows and kv heads)."""
     gater = _make_exit_gater(cfg, plan, temperatures)
     device = mesh_device(mesh, device)
-    check_mesh(cfg, mesh)
 
     def prefill_step(params, batch):
         require_device(params["embed"]["w"].device, device, "the params")
@@ -120,7 +119,6 @@ def make_serve_step(cfg: ModelConfig, plan: OffloadPlan = None,
     this rank's vocab shard."""
     gater = _make_exit_gater(cfg, plan, temperatures)
     device = mesh_device(mesh, device)
-    check_mesh(cfg, mesh)
 
     def serve_step(params, token, caches, pos):
         require_device(params["embed"]["w"].device, device, "the params")

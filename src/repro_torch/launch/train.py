@@ -28,8 +28,8 @@ With ``--model M`` the W ranks form a (data = W / M, model = M) mesh
 reference's (data, model) production mesh: each rank draws the seeded
 init and keeps its slices (`init_params(mesh=)`), the data ranks that
 share a model coordinate are checked equal, and the step is
-tensor-parallel over the model axis (`training.loop`; the attention
-families only). ``--ckpt`` gathers the slices and rank 0 writes one
+tensor-parallel over the model axis (`training.loop`; every LM
+family, whisper too). ``--ckpt`` gathers the slices and rank 0 writes one
 device's file (`training.checkpoint`).
 
   python -m torch.distributed.run --standalone --nproc-per-node 2 \

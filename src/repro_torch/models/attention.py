@@ -32,7 +32,11 @@ Under autograd (the tensor-parallel train step) the input of a split
 projection goes through `layers.enter_split`, as do ``q_norm`` and
 ``k_norm`` where they scale this rank's heads only; where the kv heads
 are whole, k and v go through it after their projection instead, since
-each rank's attention reads only the kv heads its q heads use.
+each rank's attention reads only the kv heads its q heads use. An
+attention to a memory (cross-attention, the encoder's bidirectional
+self-attention) splits the same way, its memory entering the kv heads'
+split as x does, a cross-attention's where its caller puts it
+(`attention_prefill`).
 """
 from __future__ import annotations
 
@@ -158,20 +162,34 @@ def _softmax_out(scores, v):
     return _gqa_out(torch.softmax(scores, dim=-1), v)
 
 
+def _memory_q(p, cfg, xq):
+    """The queries of an attention to a memory, from `xq` (x as it enters
+    the q heads' split): no rope and no qk-norm, as the reference's."""
+    q = einsum("bsd,dhk->bshk", xq, p["wq"])
+    return _add(q, p["bq"]) if cfg.qkv_bias else q
+
+
 def attention_prefill(p, cfg, x, positions, q_chunk=1024, memory=None):
     """Causal (optionally sliding-window) self-attention over a full sequence.
 
     x: (b, s, d); positions: (b, s) int. Returns (out (b,s,d), cache).
     ``memory``: if given (cross-attention), attend to it instead (no mask).
+    Under a model axis ``memory is x`` (the encoder's bidirectional
+    self-attention) enters the split once for q, k and v; any other
+    memory is projected as it comes: its caller enters it into the kv
+    heads' split, once for every layer that reads it
+    (`whisper._enter_memory`).
     """
     b, s, d = x.shape
     if memory is not None:
-        q = einsum("bsd,dhk->bshk", x, p["wq"])
-        if cfg.qkv_bias:
-            q = _add(q, p["bq"])
+        xq = enter_split(x, split_width(p["wq"].shape[-2], cfg.num_heads))
+        if memory is x and split_width(p["wk"].shape[-2], cfg.num_kv_heads) is not None:
+            memory = xq  # whole kv heads: k and v enter in `_rank_kv` instead
+        q = _memory_q(p, cfg, xq)
         k = einsum("bsd,dhk->bshk", memory, p["wk"])
         v = einsum("bsd,dhk->bshk", memory, p["wv"])
-        o = _softmax_out(_gqa_scores(q, k), v)
+        ka, va = _rank_kv(cfg, q, k, v)
+        o = _softmax_out(_gqa_scores(q, ka), va)
         return _out_proj(p, cfg, o), {"k": k, "v": v}
 
     q, k, v = _project_qkv(p, cfg, x, positions)
@@ -251,10 +269,9 @@ def attention_decode(p, cfg, x, cache, pos, memory_cache=None):
     mask and does not update any cache.
     """
     if memory_cache is not None:
-        q = einsum("bsd,dhk->bshk", x, p["wq"])
-        if cfg.qkv_bias:
-            q = _add(q, p["bq"])
-        o = _softmax_out(_gqa_scores(q, memory_cache["k"]), memory_cache["v"])
+        q = _memory_q(p, cfg, enter_split(x, split_width(p["wq"].shape[-2], cfg.num_heads)))
+        k, v = _rank_kv(cfg, q, memory_cache["k"], memory_cache["v"])
+        o = _softmax_out(_gqa_scores(q, k), v)
         return _out_proj(p, cfg, o), cache
 
     pos = int(pos)

@@ -33,15 +33,12 @@ def _mod(cfg: ModelConfig):
 def init_params(generator, cfg: ModelConfig, device=None, mesh=None):
     """Seeded params on `device` (``cuda`` by default) from `generator`
     (on that device; None seeds a fresh one with 0). With `mesh`, this
-    rank's slices (`transformer.init_params`); only the decoder-only
-    stack splits over a model axis above one rank."""
-    if _mod(cfg) is transformer and cfg.family != "convnet":
-        return transformer.init_params(generator, cfg, device=device, mesh=mesh)
-    if sharding.model_size(mesh) > 1:
-        raise NotImplementedError(f"{cfg.name}: no tensor-parallel init")
+    rank's slices (`transformer.init_params`, `whisper.init_params`); the
+    convnet's layout keeps every leaf whole, so its params are one
+    device's on every rank."""
     if cfg.family == "convnet":
         return convnet.init_params(generator, device=device, cfg=cfg)
-    return _mod(cfg).init_params(generator, cfg, device=device)
+    return _mod(cfg).init_params(generator, cfg, device=device, mesh=mesh)
 
 
 def forward_train(params, cfg: ModelConfig, batch, remat: bool = True):

@@ -15,7 +15,7 @@ cfg.exit_layers, an exit head (norm + unembed) produces side-branch
 logits. The stack returns them all; gating/calibration live in
 `repro_torch.core`.
 
-Every family but the encoder-decoder (`models.whisper`): layer kinds
+The decoder-only families (the encoder-decoder is `models.whisper`): layer kinds
 ``(mixer, ffn)`` with an ``"attn"`` or ``"mamba"`` mixer and a
 ``"dense"``, ``"moe"`` or ``"none"`` ffn. `forward_train` is
 differentiable: with ``remat`` each single-layer segment and each layer
@@ -263,7 +263,7 @@ def num_params(params) -> int:
     return sum(a.numel() for a in pytree.tree_leaves(params))
 
 
-def _lm_logits(params, cfg, x):
+def lm_logits(params, cfg, x):
     """The final head's logits: this rank's vocab shard under a model axis
     (column-parallel; the tied embedding's rows are its vocab)."""
     h = apply_norm(params["final_norm"], cfg, x)
@@ -365,7 +365,7 @@ def forward_train(params, cfg: ModelConfig, batch, remat: bool = True):
     x, exit_hiddens, aux_sum, _ = _run_segments_seq(params, cfg, x, positions,
                                                     keep_cache=False, remat=remat)
     return {
-        "logits": _lm_logits(params, cfg, x),
+        "logits": lm_logits(params, cfg, x),
         "exit_logits": [exit_logits_fn(params, cfg, i, h) for i, h in enumerate(exit_hiddens)],
         "moe_aux_loss": aux_sum,
     }
@@ -376,7 +376,7 @@ def forward_prefill(params, cfg: ModelConfig, batch):
     x, positions = _embed(params, cfg, batch["tokens"])
     x, exit_hiddens, _, caches = _run_segments_seq(params, cfg, x, positions, keep_cache=True)
     return {
-        "logits": gather_vocab(_lm_logits(params, cfg, x[:, -1:, :]), cfg),
+        "logits": gather_vocab(lm_logits(params, cfg, x[:, -1:, :]), cfg),
         "exit_logits": [gather_vocab(exit_logits_fn(params, cfg, i, h[:, -1:, :]), cfg)
                         for i, h in enumerate(exit_hiddens)],
         "caches": caches,
@@ -422,7 +422,7 @@ def decode_step(params, cfg: ModelConfig, token, caches, pos):
                 x, _ = apply_block_decode(lp, cfg, kind, x, lc, pos)
         if exit_after:
             exit_hiddens.append(x)
-    logits = _lm_logits(params, cfg, x)
+    logits = lm_logits(params, cfg, x)
     ex_logits = [gather_vocab(exit_logits_fn(params, cfg, i, h), cfg)
                  for i, h in enumerate(exit_hiddens)]
     return {"logits": logits, "exit_logits": ex_logits}, caches
@@ -467,4 +467,4 @@ def cloud_forward(params, cfg: ModelConfig, hidden, exit_index: int = 0):
             if n_exits_seen == exit_index:
                 started = True
             n_exits_seen += 1
-    return {"logits": gather_vocab(_lm_logits(params, cfg, x[:, -1:, :]), cfg)}
+    return {"logits": gather_vocab(lm_logits(params, cfg, x[:, -1:, :]), cfg)}

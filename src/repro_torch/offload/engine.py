@@ -31,7 +31,7 @@ from repro_torch._device import as_tensor, require_device, resolve_device, to_nu
 from repro_torch.core.policy import OffloadPlan
 from repro_torch.kernels import compress
 from repro_torch.models import convnet, transformer
-from repro_torch.sharding import check_mesh, mesh_device, mesh_scope, rows_of
+from repro_torch.sharding import mesh_device, mesh_scope, rows_of
 
 
 @dataclass
@@ -212,7 +212,6 @@ def lm_engine(params, cfg, plan: OffloadPlan, exit_index: int = 0,
     one device's on every rank: `payload_bytes` counts the payload once.
     """
     device = mesh_device(mesh, device)
-    check_mesh(cfg, mesh)
     require_device(params["embed"]["w"].device, device, "the params")
 
     def edge(batch):

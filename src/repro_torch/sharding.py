@@ -121,19 +121,6 @@ def data_split(mesh: Optional[MeshSpec]):
 
 
 # ------------------------------------------------ the steps over a mesh
-def check_mesh(cfg, mesh) -> None:
-    """Raise NotImplementedError when `cfg` cannot run over `mesh`'s model
-    axis: every decoder-only family runs tensor-parallel (attention,
-    mamba and the hybrids), the encoder-decoder does not yet."""
-    if model_size(mesh) == 1:
-        return
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            f"{cfg.name} over a model axis of {mesh.axis_size('model')} ranks: the "
-            "encoder-decoder family does not run tensor-parallel yet (whisper waits for "
-            "its own slice)")
-
-
 def mesh_device(mesh, device):
     """A step's device: `device` if named, else a bound mesh's, else
     `resolve_device`'s."""

@@ -39,8 +39,8 @@ replicated leaf's is the whole of it, the same on every model rank.
 Gradients and metrics are averaged over the data axis only (as above),
 the global norm adds the split leaves over the model axis and counts
 the replicated ones once (`optim.global_norm`), and each rank updates
-its blocks: the reference's one-device step, cut. Every decoder-only
-family runs so (`sharding.check_mesh` raises for the encoder-decoder).
+its blocks: the reference's one-device step, cut. Every LM family runs
+so, the encoder-decoder (whisper, a tree of per-layer blocks) too.
 The eval step over such a mesh returns whole-vocab logits
 (`transformer.gather_vocab`) of the whole batch on every rank, as
 calibration reads them.
@@ -58,7 +58,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.data.pipeline import Shard, shard_batch
 from repro_torch.launch.mesh import all_sum
 from repro_torch.models import moe, registry, transformer
-from repro_torch.sharding import check_mesh, data_split, mesh_device, mesh_scope, rows_of
+from repro_torch.sharding import data_split, mesh_device, mesh_scope, rows_of
 from repro_torch.training import optim
 from repro_torch.training.losses import multi_exit_loss, softmax_xent
 
@@ -120,7 +120,6 @@ def make_grad_fn(cfg: ModelConfig, remat: bool = True, device=None, mesh=None):
     `mesh` as `make_train_step` describes; the grads are a tree shaped
     like `params`, a split leaf's this rank's block, averaged over the
     data axis; the metrics are detached, the global batch's."""
-    check_mesh(cfg, mesh)
     split = None if mesh is None else data_split(mesh)
     world = 1 if split is None else split[2]
     if device is None and mesh is not None:
@@ -178,7 +177,6 @@ def make_eval_step(cfg: ModelConfig, device=None, mesh=None):
     """Returns per-sample (exit_logits list, final logits) for calibration.
     Over `mesh` every rank is called with the same global batch and
     returns one device's whole-vocab logits of all of it."""
-    check_mesh(cfg, mesh)
 
     def eval_step(params, batch):
         params, batch = _on(mesh_device(mesh, device), params, batch)

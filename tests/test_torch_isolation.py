@@ -177,6 +177,16 @@ assert tuple(out['logits'].shape) == (2, 1, cfg.vocab_size)
 run = train.main(['--arch', 'mamba2-130m', '--smoke', '--model', '2', '--steps', '2',
                   '--batch', '2', '--seq', '16', '--device', 'cpu'])
 assert len(run['step_s']) == 2
+cfg = get_smoke('whisper-base')
+lm = registry.init_params(torch.Generator().manual_seed(0), cfg, device='cpu', mesh=tp)
+assert lm['dec_blocks'][0]['cross_attn']['wk'].shape[1] == cfg.num_kv_heads // 2
+frames = np.zeros((2, cfg.encoder_seq, cfg.d_model), np.float32)
+out = make_prefill_step(cfg, mesh=tp)(lm, {'tokens': np.ones((2, 8), np.int32),
+                                           'encoder_frames': frames})
+assert tuple(out['logits'].shape) == (2, 1, cfg.vocab_size)
+run = train.main(['--arch', 'whisper-base', '--smoke', '--model', '2', '--steps', '2',
+                  '--batch', '2', '--seq', '16', '--device', 'cpu'])
+assert len(run['step_s']) == 2
 assert 'jax' not in sys.modules, 'jax was imported'
 bad = [m for m in sys.modules if m == 'repro' or m.startswith('repro.')]
 assert not bad, bad
@@ -200,8 +210,8 @@ def test_running_the_fleet_and_orchestration_loads_neither_jax_nor_repro(tmp_pat
     prefill of the qwen2 smoke over a model axis of two and
     `launch.train --model 2` on the qwen3 smoke with a checkpoint, then
     the same prefill and two `launch.train --model 2` steps on the mamba2
-    smoke, all on the CPU -- and only then are the loaded modules
-    checked, in every process."""
+    smoke and on the whisper smoke, all on the CPU -- and only then are
+    the loaded modules checked, in every process."""
     rank_script = tmp_path / "rank_run.py"
     rank_script.write_text(RANK_RUN)
     code = (

@@ -587,10 +587,9 @@ def test_dryrun_collectives_on_a_model_axis(mesh, shape):
 
 def test_dryrun_train_on_a_model_axis_is_null_with_its_reason():
     """A train pair on a model axis is traced as rank 0 with its backward's
-    and its recompute's all-reduces; the family that does not run
-    tensor-parallel (the encoder-decoder, whisper) keeps null collectives
-    and its note there; a data mesh counts the gradients' bucket
-    all-reduce."""
+    and its recompute's all-reduces, the encoder-decoder (whisper) too,
+    none of them null and none with a note; a data mesh counts the
+    gradients' bucket all-reduce."""
     r = dryrun.run_one("qwen2-72b", "train_4k", None, mesh="1x2", device="cpu", smoke=True)
     assert r["traced_as"] == "rank 0" and r["ok"] and "collectives_note" not in r
     cfg = get_smoke("qwen2-72b")
@@ -608,10 +607,21 @@ def test_dryrun_train_on_a_model_axis_is_null_with_its_reason():
         p["bytes"]["all-reduce"] for p in passes.values())}
     assert r["memory"]["params_bytes"] == r["per_card_bytes"]["params"]
     m = dryrun.run_one("whisper-base", "train_4k", None, mesh="1x2", device="cpu", smoke=True)
-    assert m["collective_counts"] is None and m["collective_bytes"] is None
-    assert m["collective_passes"] is None
-    assert "encoder-decoder" in m["collectives_note"]
-    assert m["traced_as"] == "one card" and m["ok"]
+    assert m["traced_as"] == "rank 0" and m["ok"] and "collectives_note" not in m
+    w = get_smoke("whisper-base")
+    Le, Ld, heads = w.encoder_layers, w.num_layers, 1 + len(w.exit_layers)
+    passes = m["collective_passes"]
+    # the embedding, two row-parallel reduces an encoder layer, three a
+    # decoder layer (self-attention, cross-attention, MLP), two a head for
+    # the loss, the global norm's
+    assert passes["forward"]["counts"] == {"all-reduce": 1 + 2 * Le + 3 * Ld + 2 * heads + 1}
+    # the inputs entering the split: two an encoder layer, three a decoder
+    # layer, the encoder output once for every cross-attention, each head's
+    assert passes["backward"]["counts"] == {"all-reduce": 2 * Le + 3 * Ld + 1 + heads}
+    assert passes["recompute"]["counts"] == {"all-reduce": 2 * Ld}
+    assert m["collective_counts"] == {"all-reduce": sum(
+        p["counts"]["all-reduce"] for p in passes.values())}
+    assert m["memory"]["params_bytes"] == m["per_card_bytes"]["params"]
     # on a data mesh the train step's bucket all-reduce is counted
     d = dryrun.run_one("qwen2-72b", "train_4k", None, mesh="2x1", device="cpu", smoke=True)
     params = d["memory"]["params_bytes"]

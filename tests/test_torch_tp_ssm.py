@@ -786,11 +786,24 @@ def test_layout_is_the_reference_specs_but_the_packed_leaves():
 
 
 def test_checks_admit_the_ssm_and_hybrid_families():
-    """`check_mesh` admits mamba2-130m and jamba-v0.1-52b (and their smokes)
-    at a model axis above one and refuses whisper-base."""
-    mesh = make_debug_mesh(1, 4)
-    for arch in ("mamba2-130m", "jamba-v0.1-52b"):
-        sharding.check_mesh(get_config(arch), mesh)
-        sharding.check_mesh(get_smoke(arch), mesh)
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        sharding.check_mesh(get_config("whisper-base"), mesh)
+    """The entry points admit mamba2-130m, jamba-v0.1-52b and whisper-base
+    (and their smokes) at a model axis above one: the serve, train and
+    eval steps build, and each smoke's sharded init gives rank 0 of the
+    mesh its slices (whisper's heads split, its 512-token vocabulary
+    too)."""
+    from repro_torch.launch.serve import make_prefill_step, make_serve_step
+
+    mesh = make_debug_mesh(1, 4).as_rank()
+    for arch in ("mamba2-130m", "jamba-v0.1-52b", "whisper-base"):
+        for cfg in (get_config(arch), get_smoke(arch)):
+            for make in (make_prefill_step, make_serve_step, loop.make_eval_step):
+                assert callable(make(cfg, device="cpu", mesh=mesh)), (cfg.name, make)
+            assert callable(loop.make_train_step(cfg, optim.AdamWConfig(), device="cpu",
+                                                 mesh=mesh))
+        p = registry.init_params(torch.Generator().manual_seed(0), get_smoke(arch), "cpu",
+                                 mesh=mesh)
+        whole = registry.init_params(torch.Generator().manual_seed(0), get_smoke(arch), "cpu")
+        assert transformer.num_params(p) < transformer.num_params(whole), arch
+    w = get_smoke("whisper-base")
+    assert p["dec_blocks"][0]["cross_attn"]["wq"].shape[1] == w.num_heads // 4
+    assert p["lm_head"]["w"].shape[1] == w.vocab_size // 4

@@ -452,14 +452,28 @@ def test_collectives_of_a_step_by_pass(ranks):
 
 
 def test_train_step_refuses_the_other_families_on_a_model_axis():
-    """The encoder-decoder (whisper) is refused on a model axis; mamba and
-    the hybrids build there (tests/test_torch_tp_ssm.py runs them)."""
+    """No family is refused on a model axis: the encoder-decoder (whisper)
+    takes a gradient pass as rank 0 of a (1, 2) mesh, its collectives
+    logged, its gradients shaped as its slices; mamba and the hybrids
+    build there (tests/test_torch_tp_ssm.py and
+    tests/test_torch_tp_enc_dec.py run them)."""
+    from repro_torch.launch.mesh import record_collectives
+    from repro_torch.models import registry
+
     mesh = make_debug_mesh(1, 2).as_rank()
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        loop.make_train_step(get_smoke("whisper-base"), optim.AdamWConfig(), device="cpu",
-                             mesh=mesh)
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        loop.make_eval_step(get_smoke("whisper-base"), device="cpu", mesh=mesh)
+    w = get_smoke("whisper-base").replace(dtype="float32")
+    params = registry.init_params(torch.Generator().manual_seed(0), w, "cpu", mesh=mesh)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, w.vocab_size, (2, 8)).astype(np.int32),
+             "labels": rng.integers(0, w.vocab_size, (2, 8)).astype(np.int32),
+             "encoder_frames": rng.normal(0, 1, (2, w.encoder_seq, w.d_model)).astype(
+                 np.float32)}
+    with record_collectives() as log:
+        metrics, grads, _ = loop.make_grad_fn(w, device="cpu", mesh=mesh)(params, batch)
+    assert np.isfinite(float(metrics["loss"])) and log.counts["all-reduce"] > 0
+    assert all(g.shape == p.shape for g, p in zip(pytree.tree_leaves(grads),
+                                                  pytree.tree_leaves(params)))
+    assert callable(loop.make_eval_step(w, device="cpu", mesh=mesh))
     for arch in ("mamba2-130m", "jamba-v0.1-52b"):
         assert callable(loop.make_train_step(get_smoke(arch), optim.AdamWConfig(),
                                              device="cpu", mesh=mesh))

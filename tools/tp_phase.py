@@ -1,17 +1,18 @@
 #!/usr/bin/env python3
-"""Phases 15, 16 and 17 of `chip_smoke.py` (tensor-parallel serving,
-tensor-parallel training, and the mamba and hybrid families, on a model
-axis) alone, on the cards of this machine.
+"""Phases 15, 16, 17 and 18 of `chip_smoke.py` (tensor-parallel serving,
+tensor-parallel training, the mamba and hybrid families, and the
+encoder-decoder, on a model axis) alone, on the cards of this machine.
 
     python3 tools/tp_phase.py                # from the repo root: phases 15 and 16
     python3 tools/tp_phase.py --train        # phase 16 only
     python3 tools/tp_phase.py --ssm          # phase 17 only
+    python3 tools/tp_phase.py --enc-dec      # phase 18 only
     python3 tools/tp_phase.py --train --ssm  # phases 16 and 17
 
 It builds the kernels and runs the phases (`tp_phase`, `tp_train_phase`,
-`tp_ssm_phase`): the same runs on one rank in this process, then over W
-ranks of ``python -m torch.distributed.run`` as a (data 1, model W) mesh,
-each held to the one-rank run. W is the card count where it is 2 or more
+`tp_ssm_phase`, `tp_enc_dec_phase`): the same runs on one rank in this
+process, then over W ranks of ``python -m torch.distributed.run`` as a
+(data 1, model W) mesh, each held to the one-rank run. W is the card count where it is 2 or more
 (NCCL, a card a rank), else 2 ranks sharing the one card (gloo). With
 four cards or more phase 15 also serves Qwen2-72B uncut (80 layers, about
 37.6 GB of bf16 parameters a card at W = 4), phase 16 trains Qwen3-8B
@@ -20,8 +21,9 @@ moments take about 113 GB on one card, 28 GB a card at W = 4) for 3 steps
 at 8 x 512, then calibrates it and serves it at codec levels 0, 1 and 2,
 and phase 17 serves jamba-v0.1-52b uncut (32 layers, about 104 GB of bf16
 parameters, 26 GB a card at W = 4) at 8 x 512, 32 tokens and codec
-levels 0, 1 and 2; none of the three fits one card. Exits non-zero if a
-rank or a comparison fails.
+levels 0, 1 and 2; none of the three fits one card. Phase 18 runs
+whisper-base uncut at any W (it fits one card). Exits non-zero if a rank
+or a comparison fails.
 """
 import os
 import subprocess
@@ -61,9 +63,11 @@ def main() -> int:
     args, uncut = sys.argv[1:], n_cards >= 4
     phases = [("tp", cs.tp_phase, cs.tp_spec(uncut=uncut)),
               ("tp_train", cs.tp_train_phase, cs.tp_train_spec(uncut=uncut)),
-              ("tp_ssm", cs.tp_ssm_phase, cs.tp_ssm_spec(uncut=uncut))]
-    chosen = {name for flag, name in (("--train", "tp_train"), ("--ssm", "tp_ssm"))
-              if flag in args} or {"tp", "tp_train"}
+              ("tp_ssm", cs.tp_ssm_phase, cs.tp_ssm_spec(uncut=uncut)),
+              ("tp_enc_dec", cs.tp_enc_dec_phase, cs.tp_enc_dec_spec())]
+    chosen = {name for flag, name in (("--train", "tp_train"), ("--ssm", "tp_ssm"),
+                                      ("--enc-dec", "tp_enc_dec")) if flag in args} or {
+        "tp", "tp_train"}
     phases = [ph for ph in phases if ph[0] in chosen]
     for name, phase, spec in phases:
         t1 = time.perf_counter()
