@@ -43,6 +43,13 @@ shards. `forward_train` returns every head's logits as this rank's vocab
 shard (the loss is vocab-parallel, `training.losses.softmax_xent`); the
 heads' input enters the split through `layers.enter_split`, and
 `gather_vocab` is differentiable (`launch.mesh.model_gather`).
+
+Under a `torch.profiler.profile` the full-sequence blocks carry the spans
+``lm.mixer`` (the mixer's norm and attention or mamba) and ``lm.ffn``
+(the residual, the ffn's norm, MLP or MoE, and its residual), and
+`edge_forward` and `cloud_forward` carry ``lm.head`` around their head
+and its vocabulary gather (`repro_torch.obs.span`: none is entered with
+no profiler on).
 """
 from __future__ import annotations
 
@@ -75,6 +82,7 @@ from repro_torch.models.layers import (
     split_width,
 )
 from repro_torch.models.moe import apply_moe, init_moe
+from repro_torch.obs import span
 
 
 # ---------------------------------------------------------------- segmentation
@@ -140,12 +148,14 @@ def _ffn(p, cfg, ffn, x):
 def apply_block_seq(p, cfg, kind, x, positions):
     """Full-sequence (train/prefill) block. Returns (x, cache, aux)."""
     mixer, ffn = kind
-    h = apply_norm(p["mixer_norm"], cfg, x)
-    if mixer == "attn":
-        h, cache = attn.attention_prefill(p["attn"], cfg, h, positions)
-    else:
-        h, cache = mb.mamba_prefill(p["mamba"], cfg, h)
-    x, aux = _ffn(p, cfg, ffn, x + h)
+    with span("lm.mixer"):
+        h = apply_norm(p["mixer_norm"], cfg, x)
+        if mixer == "attn":
+            h, cache = attn.attention_prefill(p["attn"], cfg, h, positions)
+        else:
+            h, cache = mb.mamba_prefill(p["mamba"], cfg, h)
+    with span("lm.ffn"):
+        x, aux = _ffn(p, cfg, ffn, x + h)
     return x, cache, aux
 
 
@@ -444,8 +454,9 @@ def edge_forward(params, cfg: ModelConfig, batch, exit_index: int = 0):
         caches.append(cache)
         if exit_after:
             if n_exits_seen == exit_index:
-                logits = gather_vocab(exit_logits_fn(params, cfg, n_exits_seen, x[:, -1:, :]),
-                                      cfg)
+                with span("lm.head"):
+                    logits = gather_vocab(exit_logits_fn(params, cfg, n_exits_seen,
+                                                         x[:, -1:, :]), cfg)
                 return {"exit_logits": logits, "hidden": x, "caches": caches}
             n_exits_seen += 1
     raise ValueError(f"exit_index {exit_index} not found in {cfg.name}")
@@ -467,4 +478,5 @@ def cloud_forward(params, cfg: ModelConfig, hidden, exit_index: int = 0):
             if n_exits_seen == exit_index:
                 started = True
             n_exits_seen += 1
-    return {"logits": gather_vocab(lm_logits(params, cfg, x[:, -1:, :]), cfg)}
+    with span("lm.head"):
+        return {"logits": gather_vocab(lm_logits(params, cfg, x[:, -1:, :]), cfg)}

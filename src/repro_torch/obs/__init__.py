@@ -16,6 +16,10 @@ bit-exactly -- `tests/test_torch_obs.py` pins that parity. The artifacts the
 sinks collect are cross-examined by `repro_torch.obs.check` (span
 telescoping, request conservation, gate/offload consistency, audit
 causal chains).
+
+`span` (`obs.spans`) names the served path's phases on the card's
+timeline for `torch.profiler`. It too is zero-perturbation: with no
+profiler on it reads one flag and enters no span.
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ from .audit import AuditLog
 from .calibration import ReliabilitySketch
 from .export import export_calibration, fleet_metrics, serving_metrics
 from .metrics import DEFAULT_BUCKETS_MS, MetricsRegistry
+from .spans import span
 from .trace import (
     SPAN_NAMES,
     JsonlTraceSink,
@@ -53,6 +58,7 @@ __all__ = [
     "read_jsonl",
     "request_record",
     "serving_metrics",
+    "span",
 ]
 
 

@@ -31,6 +31,7 @@ from repro_torch._device import as_tensor, require_device, resolve_device, to_nu
 from repro_torch.core.policy import OffloadPlan
 from repro_torch.kernels import compress
 from repro_torch.models import convnet, transformer
+from repro_torch.obs import span
 from repro_torch.sharding import mesh_device, mesh_scope, rows_of
 
 
@@ -73,6 +74,20 @@ class OffloadEngine:
     `edge_step` and `cloud_step` block until the device is done and
     accumulate wall-clock in EngineStats; `timing_hook(tier, seconds,
     batch_size)` observes every call (tier is "edge" or "cloud").
+
+    Under a `torch.profiler.profile` every call carries named spans
+    (`repro_torch.obs.span`; none is entered with no profiler on):
+    ``engine.infer``, whose children tile it in this order:
+    ``engine.edge`` (`edge_step`: `edge_fn` and its sync), ``engine.gate``
+    (the gate and its two clones), ``engine.select`` (``nonzero``, the
+    refused count's sync, the statistics, ``index_select``),
+    ``engine.codec`` (K3 and K4, codec level not 0), ``engine.cloud``
+    (`cloud_step`: `cloud_fn` and its sync), ``engine.merge`` (the
+    cloud's softmax and its scatter into the answers) and
+    ``engine.fetch`` (the three copies to the host). The codec, cloud
+    and merge spans run only when the gate refuses rows. `edge_step` and
+    `cloud_step` carry their spans themselves, so callers that drive them
+    directly (the serving runtime's `EngineCore`) get them too.
     """
 
     def __init__(
@@ -106,9 +121,10 @@ class OffloadEngine:
     # ------------------------------------------------------- timed steps
     def edge_step(self, batch) -> Dict[str, Any]:
         """Run the edge partition on one request batch (timed, blocking)."""
-        t0 = time.perf_counter()
-        out = _block_until_ready(self.edge_fn(batch))
-        dt = time.perf_counter() - t0
+        with span("engine.edge"):
+            t0 = time.perf_counter()
+            out = _block_until_ready(self.edge_fn(batch))
+            dt = time.perf_counter() - t0
         b = int(out["exit_logits"].shape[0])
         self.stats.edge_calls += 1
         self.stats.edge_time_s += dt
@@ -118,9 +134,10 @@ class OffloadEngine:
 
     def cloud_step(self, payload) -> Dict[str, Any]:
         """Run the cloud partition on a refused-sample payload (timed)."""
-        t0 = time.perf_counter()
-        out = _block_until_ready(self.cloud_fn(payload))
-        dt = time.perf_counter() - t0
+        with span("engine.cloud"):
+            t0 = time.perf_counter()
+            out = _block_until_ready(self.cloud_fn(payload))
+            dt = time.perf_counter() - t0
         m = int(out["logits"].shape[0])
         self.stats.cloud_calls += 1
         self.stats.cloud_time_s += dt
@@ -129,44 +146,51 @@ class OffloadEngine:
         return out
 
     def infer(self, batch) -> Dict[str, np.ndarray]:
-        edge_out = self.edge_step(batch)
-        gate = self.plan.gate(edge_out["exit_logits"], branch=self.branch,
-                              use_kernel=self.use_kernel)
-        mask = gate.exit_mask
-        pred = gate.prediction.clone()
-        conf = gate.confidence.clone()
-        refused = torch.nonzero(~mask).reshape(-1)  # stays on the device
-        n_refused = int(refused.numel())
+        with span("engine.infer"):
+            edge_out = self.edge_step(batch)
+            with span("engine.gate"):
+                gate = self.plan.gate(edge_out["exit_logits"], branch=self.branch,
+                                      use_kernel=self.use_kernel)
+                mask = gate.exit_mask
+                pred = gate.prediction.clone()
+                conf = gate.confidence.clone()
+            with span("engine.select"):
+                refused = torch.nonzero(~mask).reshape(-1)  # stays on the device
+                n_refused = int(refused.numel())
+                self.stats.requests += int(mask.shape[0])
+                self.stats.on_device += int(mask.shape[0]) - n_refused
+                if n_refused:
+                    payload = pytree.tree_map(lambda x: x.index_select(0, refused),
+                                              edge_out["payload"])
+                    self.stats.offloaded += n_refused
 
-        self.stats.requests += int(mask.shape[0])
-        self.stats.on_device += int(mask.shape[0]) - n_refused
-
-        if n_refused:
-            payload = pytree.tree_map(lambda x: x.index_select(0, refused), edge_out["payload"])
-            self.stats.offloaded += n_refused
-            level = int(getattr(self.plan, "compression_level", 0))
-            if level != 0:
-                # the plan priced this deployment at the codec's wire bytes;
-                # ship the ACTUAL encoded payload (K3 on the card) and charge
-                # its analytic size
-                leaves, spec = pytree.tree_flatten(payload)
-                encs = [compress.encode(x, level) for x in leaves]
-                self.stats.payload_bytes += sum(e.nbytes for e in encs)
-                payload = pytree.tree_unflatten([compress.decode(e) for e in encs], spec)
-            else:
-                self.stats.payload_bytes += self.payload_nbytes(payload)
-            cloud_out = self.cloud_step(payload)
-            cloud_logits = as_tensor(cloud_out["logits"], pred.device).to(pred.device,
-                                                                          torch.float32)
-            z = cloud_logits - torch.amax(cloud_logits, dim=-1, keepdim=True)
-            p = torch.exp(z) / torch.sum(torch.exp(z), dim=-1, keepdim=True)
-            pred[refused] = torch.argmax(cloud_logits, dim=-1).to(pred.dtype)
-            conf[refused] = torch.amax(p, dim=-1)
-        return {
-            "prediction": to_numpy(pred),
-            "confidence": to_numpy(conf),
-            "on_device": to_numpy(mask),
-        }
+            if n_refused:
+                level = int(getattr(self.plan, "compression_level", 0))
+                if level != 0:
+                    # the plan priced this deployment at the codec's wire bytes;
+                    # ship the ACTUAL encoded payload (K3 on the card) and charge
+                    # its analytic size
+                    with span("engine.codec"):
+                        leaves, spec = pytree.tree_flatten(payload)
+                        encs = [compress.encode(x, level) for x in leaves]
+                        self.stats.payload_bytes += sum(e.nbytes for e in encs)
+                        payload = pytree.tree_unflatten([compress.decode(e) for e in encs], spec)
+                else:
+                    self.stats.payload_bytes += self.payload_nbytes(payload)
+                cloud_out = self.cloud_step(payload)
+                with span("engine.merge"):
+                    cloud_logits = as_tensor(cloud_out["logits"], pred.device).to(pred.device,
+                                                                                  torch.float32)
+                    z = cloud_logits - torch.amax(cloud_logits, dim=-1, keepdim=True)
+                    p = torch.exp(z) / torch.sum(torch.exp(z), dim=-1, keepdim=True)
+                    pred[refused] = torch.argmax(cloud_logits, dim=-1).to(pred.dtype)
+                    conf[refused] = torch.amax(p, dim=-1)
+            with span("engine.fetch"):
+                return {
+                    "prediction": to_numpy(pred),
+                    "confidence": to_numpy(conf),
+                    "on_device": to_numpy(mask),
+                }
 
 
 # ------------------------------------------------------- concrete bindings

@@ -91,6 +91,7 @@ PORTED = [
     "repro_torch.obs.check",
     "repro_torch.obs.export",
     "repro_torch.obs.metrics",
+    "repro_torch.obs.spans",
     "repro_torch.obs.trace",
     "repro_torch.offload.engine",
     "repro_torch.offload.latency",
