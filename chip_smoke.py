@@ -35,7 +35,15 @@ Phases, each printing its own lines:
             K3/K4 at the runtime's one-request payloads, (1, 16, 16, 64)
             and (1, 8, 8, 96) at levels 1 and 2, L2-warm beside the launch
             floor; K3 also on division ties in each of its five layouts
-            and on base pointers off 16 bytes, bit-exact.
+            and on base pointers off 16 bytes, bit-exact. K5 (qk-norm and
+            RoPE, `qk_rope_checks`) against its plain chain at the
+            benchmark's Qwen3-8B shapes (64 x 64 and 8 x 512 tokens at the
+            edge, 32 x 64 and 4 x 512 at the cloud, 32 + 8 heads of 128), a
+            decode step, one rank's heads under a model axis of 2,
+            Qwen2-72B's RoPE alone and granite's head_dim 64, in bf16 and
+            float32: every element within one bf16 ulp, the share that
+            differs printed; timed L2-cold beside its bound and the plain
+            chain in bf16.
 4. train    B-AlexNet at full width trained with the BranchyNet joint
             loss on cifar_like(seed=0) (45 000 / 3 000 / 7 000), the twin
             of benchmarks/paper_common.train_and_collect: 6 epochs at
@@ -130,7 +138,13 @@ Phases, each printing its own lines:
             decode step by step against forward_train at 4 layers (rtol /
             atol 2e-4), and the card against the CPU port at 2 layers
             (derived atol). ms per prefill, per decoded token and per
-            lm_engine batch (edge, cloud).
+            lm_engine batch (edge, cloud). K5's launches are worked out
+            and asserted at every step (one an attention layer: 36 a
+            whole-model step, 9 + 27 an engine batch with refused rows);
+            then the edge and cloud partitions at 8 x 512 and 64 x 64
+            tokens under torch.no_grad() inside
+            torch.cuda.set_sync_debug_mode("error"): no call in either
+            may synchronise (`qk_rope_sync_check`).
 12. train_lm LM training and the rest of the model zoo from seeded bf16
             inits: (a) mamba2-130m at full width and depth trained as
             examples/train_lm.py --preset 100m trains it (200 AdamW steps
@@ -305,7 +319,7 @@ Phases 4-18 are the main path: each sets the launch counts to 0 just
 before it and reads them just after, and fails if a kernel of its path
 did not run (train: K1; serving: K1-K4; paper: K1, K2; bank: K1, K3,
 K4; runtime: K1, K3, K4; fleet and compiled: K1, K3, K4; lm and
-train_lm: K1-K4; dryrun: K1; ranks and tp: K1, K3, K4, tp_train and
+train_lm: K1-K5; dryrun: K1; ranks and tp: K1, K3, K4, tp_train and
 tp_ssm: K1-K4, tp_enc_dec: K1, K2, counted in each rank from 0 over its
 runs, while this process launches none).
 Every line that prints a time names the card and its power limit.
@@ -357,8 +371,8 @@ PHASE_KERNELS = {"train": ("exit_gate",),
                  "runtime": ("exit_gate", "encode", "decode"),
                  "fleet": ("exit_gate", "encode", "decode"),
                  "compiled": ("exit_gate", "encode", "decode"),
-                 "lm": ("exit_gate", "calib_nll", "encode", "decode"),
-                 "train_lm": ("exit_gate", "calib_nll", "encode", "decode"),
+                 "lm": ("exit_gate", "calib_nll", "encode", "decode", "qk_norm_rope"),
+                 "train_lm": ("exit_gate", "calib_nll", "encode", "decode", "qk_norm_rope"),
                  "dryrun": ("exit_gate",),
                  "ranks": ("exit_gate", "encode", "decode"),
                  "tp": ("exit_gate", "encode", "decode"),
@@ -376,6 +390,8 @@ KERNEL_ROWS = {
     "calib_nll": ("src/repro_torch/csrc/calib_nll.cu", "src/repro/kernels/calib_nll.py:81"),
     "encode": ("src/repro_torch/csrc/codec.cu", "src/repro/kernels/compress.py:122"),
     "decode": ("src/repro_torch/csrc/codec.cu", "src/repro/kernels/compress.py:158"),
+    "qk_norm_rope": ("src/repro_torch/csrc/qk_rope.cu",
+                     "none: the reference's qk-norm and RoPE are XLA (repro/models/layers.py)"),
 }
 
 
@@ -391,6 +407,201 @@ def _sync(dev):
 
     if dev.type == "cuda":
         torch.cuda.synchronize()
+
+
+def device_ms(fn, calls=20, reps=5, keep=False):
+    """Median device ms of one call: `calls` calls, fn(0) .. fn(calls-1),
+    captured in a CUDA graph and replayed `reps` times between CUDA
+    events. With keep=True every call's outputs stay allocated, so no
+    two calls share an output buffer."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for i in range(2):
+            fn(i)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    held = []
+    with torch.cuda.graph(graph):
+        for i in range(calls):
+            if keep:
+                held.append(fn(i))
+            else:
+                fn(i)
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    del graph, held
+    torch.cuda.synchronize()
+    return float(np.median(times))
+
+
+def calls_for(nbytes):
+    return 20 if nbytes < 64e6 else 3
+
+
+def cold_plan(nbytes):
+    """(input sets, calls) for an L2-cold timing: inputs rotate over
+    enough sets that a call's inputs were last touched more than
+    COLD_BYTES of traffic ago, and each call writes fresh outputs."""
+    sets = max(2, -(-int(COLD_BYTES) // int(nbytes)) + 1)
+    calls = -(-max(calls_for(nbytes), sets) // sets) * sets
+    return sets, calls
+
+
+def k5_launches(cfg, lo, hi):
+    """K5's launches in one forward call of layers lo .. hi-1 on the card
+    without autograd: one a RoPE attention layer, where K5 takes the
+    head_dim (`qk_rope.HEAD_DIMS`; the config's bf16 or the cloud's
+    float32 it always reads)."""
+    from repro_torch.kernels import qk_rope
+
+    if not (cfg.use_rope and cfg.head_dim in qk_rope.HEAD_DIMS):
+        return 0
+    return sum(1 for mixer, _ in cfg.layer_plan()[lo:hi] if mixer == "attn")
+
+
+def ordered_bits(t):
+    """bf16 or float32 values as integers in the order of the values (-0 and
+    +0 both 0), so that a difference of two is their distance in ulps."""
+    import torch
+
+    if t.dtype == torch.bfloat16:
+        i = t.view(torch.int16).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    i = t.view(torch.int32).to(torch.int64)
+    return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+
+def bf16_ulps(got, want):
+    """|got - want| in units of one bf16 ulp of `want` (float32 values: the
+    bf16 spacing at |want|, 2^-7 of its binade; bf16: the ulp distance)."""
+    import torch
+
+    if want.dtype == torch.bfloat16:
+        return (ordered_bits(got) - ordered_bits(want)).abs()
+    w = want.double().abs().clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(w)) - 7)
+    return (got.double() - want.double()).abs() / ulp
+
+
+# K5's checks: (b, s, q heads, kv heads, head_dim, qk-norm, theta, what). The
+# benchmark's Qwen3-8B cells' edge and cloud calls (cell 4: 64 x 64 tokens,
+# the cloud at m = 32 of 64 rows; cell 2: 8 x 512, m = 4 of 8), a decode
+# step, one rank's heads under a model axis of 2, Qwen2-72B (RoPE alone) and
+# granite-moe (head_dim 64)
+K5_CASES = (
+    (64, 64, 32, 8, 128, True, 1e6, "cell 4 edge"),
+    (32, 64, 32, 8, 128, True, 1e6, "cell 4 cloud"),
+    (8, 512, 32, 8, 128, True, 1e6, "cell 2 edge"),
+    (4, 512, 32, 8, 128, True, 1e6, "cell 2 cloud"),
+    (8, 1, 32, 8, 128, True, 1e6, "decode at position 511"),
+    (8, 512, 16, 4, 128, True, 1e6, "model axis of 2"),
+    (8, 512, 64, 8, 128, False, 1e6, "qwen2-72b, RoPE alone"),
+    (8, 512, 24, 8, 64, False, 1e4, "granite, head_dim 64"),
+)
+
+
+def qk_rope_checks(dev, record, say=print):
+    """Phase 3's K5 part: the kernel against its plain chain on the card at
+    `K5_CASES` in bf16 and float32, each output element within one bf16
+    ulp (the sum of squares runs in another order; the share off by one is
+    printed), then timed L2-cold beside its bound and the plain chain's
+    time where it is bf16 (`record(kernel, case, err, ms, plain_ms, nbytes,
+    flops, path=...)`). Positions: the partitions' expanded int32 arange,
+    int64 contiguous at the model-axis case, a decode step's (b, 1)."""
+    import torch
+
+    from repro_torch.kernels import qk_rope
+
+    gen = torch.Generator(device=dev).manual_seed(31)
+    share = {}
+    for b, s, qh, kvh, hd, norm, theta, what in K5_CASES:
+        if s == 1:
+            pos = torch.full((b, 1), 511, dtype=torch.int32, device=dev)
+        elif what == "model axis of 2":
+            pos = torch.arange(s, dtype=torch.int64, device=dev).repeat(b, 1)
+        else:
+            pos = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s)
+        scales = ((1 + 0.1 * torch.randn(hd, generator=gen, device=dev),
+                   1 + 0.1 * torch.randn(hd, generator=gen, device=dev)) if norm
+                  else (None, None))
+        for dtype in (torch.bfloat16, torch.float32):
+            case = f"{what} ({b} x {s}, {qh} + {kvh} heads of {hd}, {str(dtype)[6:]})"
+            q = (2 * torch.randn(b, s, qh, hd, generator=gen, device=dev)).to(dtype)
+            k = (2 * torch.randn(b, s, kvh, hd, generator=gen, device=dev)).to(dtype)
+            got = qk_rope.qk_norm_rope(q, k, *scales, pos, theta)
+            want = qk_rope.qk_norm_rope_ref(q, k, *scales, pos, theta, 1e-6)
+            torch.cuda.synchronize()
+            ulps = torch.cat([bf16_ulps(g, w).flatten() for g, w in zip(got, want)])
+            off = torch.cat([(g != w).flatten() for g, w in zip(got, want)])
+            assert float(ulps.max()) <= 1.0, f"K5 more than one bf16 ulp off: {case}"
+            share[case] = float(off.double().mean())
+            err = max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want))
+            nbytes = 2 * (q.numel() + k.numel()) * q.element_size() + (4 * hd if norm else 0)
+            say(f"K5 {case}: max {float(ulps.max()):.3g} bf16 ulp, {share[case]:.3%} of the "
+                f"elements differ from the plain chain (max |diff| {err:.3g})")
+            if dtype != torch.bfloat16:
+                continue
+            sets, calls = cold_plan(nbytes)
+            qs = [q] + [q.clone() for _ in range(sets - 1)]
+            ks = [k] + [k.clone() for _ in range(sets - 1)]
+            ms = device_ms(lambda i: qk_rope.qk_norm_rope(qs[i % sets], ks[i % sets], *scales,
+                                                          pos, theta), calls, keep=True)
+            pms = device_ms(lambda i: qk_rope.qk_norm_rope_ref(qs[i % sets], ks[i % sets],
+                                                               *scales, pos, theta, 1e-6),
+                            calls, keep=True)
+            record("qk_norm_rope", case, err, ms, pms, nbytes,
+                   15.0 * (q.numel() + k.numel()), path=(what == "cell 4 edge"))
+            del qs, ks
+    return share
+
+
+def qk_rope_sync_check(dev, cfg, params, batches, say=print):
+    """Qwen3's edge partition (layers up to exit 0) and cloud partition (the
+    rest, on the first half of the rows) under `torch.no_grad()` inside
+    `torch.cuda.set_sync_debug_mode("error")`, as the offload engine calls
+    them: no call in either may synchronise with the card. K5's launches in
+    each worked out (`k5_launches`) and asserted."""
+    import torch
+
+    from repro_torch.kernels import qk_rope
+    from repro_torch.models import transformer
+
+    k5 = qk_rope.KERNEL
+    cut = cfg.exit_layers[0] + 1
+    want = (k5_launches(cfg, 0, cut), k5_launches(cfg, cut, cfg.num_layers))
+    for tokens in batches:
+        torch.cuda.synchronize()
+        before = k5.launches
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with torch.no_grad():
+                edge = transformer.edge_forward(params, cfg, {"tokens": tokens}, exit_index=0)
+                mid = k5.launches
+                cloud = transformer.cloud_forward(params, cfg,
+                                                  edge["hidden"][:tokens.shape[0] // 2],
+                                                  exit_index=0)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        got = (mid - before, k5.launches - mid)
+        assert got == want, f"K5 launches (edge, cloud) {got}, worked out {want}"
+        assert torch.isfinite(cloud["logits"].float()).all()
+        say(f"{tuple(tokens.shape)} tokens: edge_forward and cloud_forward on "
+            f"{tokens.shape[0] // 2} rows under no_grad ran with no synchronising call "
+            f"(set_sync_debug_mode 'error'); K5 launches (edge, cloud) {got}")
+        del edge, cloud
 
 
 def train_phase(dev, data, epochs, batch, seed=0, say=print):
@@ -1042,23 +1253,25 @@ def same_record(a, b, key=""):
 
 
 class LaunchLog:
-    """The K1/K3/K4 launches of a phase's steps: each step's count worked
-    out from the code beforehand and asserted (none off the card)."""
+    """The K1/K3/K4 (and K5) launches of a phase's steps: each step's count
+    worked out from the code beforehand and asserted (none off the card).
+    K5 (``qk_norm_rope``) is held only at steps that give its count."""
 
     def __init__(self, dev):
-        from repro_torch.kernels import compress, exit_gate
+        from repro_torch.kernels import compress, exit_gate, qk_rope
 
         self.card = dev.type == "cuda"
         self.counters = {"exit_gate": exit_gate.KERNEL, "encode": compress.ENCODE,
-                         "decode": compress.DECODE}
+                         "decode": compress.DECODE, "qk_norm_rope": qk_rope.KERNEL}
         self.steps = []
 
     def now(self):
         return {n: k.launches for n, k in self.counters.items()}
 
     def expect(self, step, before, **want):
-        got = {n: v - before[n] for n, v in self.now().items()}
-        want = {n: want.get(n, 0) if self.card else 0 for n in self.counters}
+        got = {n: v - before[n] for n, v in self.now().items()
+               if n != "qk_norm_rope" or n in want}
+        want = {n: want.get(n, 0) if self.card else 0 for n in got}
         assert got == want, f"{step}: launches {got}, worked out {want}"
         self.steps.append(f"{step} {tuple(got.values())}")
 
@@ -1634,6 +1847,7 @@ def lm_profile(dev, cfg, params, plan, tokens, decode, log, say):
     prefill = make_prefill_step(cfg, plan=plan, device=dev)
     serve_step = make_serve_step(cfg, plan=plan, device=dev)
     n_dec = 4
+    k5 = k5_launches(cfg, 0, cfg.num_layers)
     saved = attention.attention_prefill, attention.attention_decode
     attention.attention_prefill, attention.attention_decode = timed(saved[0]), timed(saved[1])
     try:
@@ -1642,7 +1856,7 @@ def lm_profile(dev, cfg, params, plan, tokens, decode, log, say):
         whole[0][0].record()
         prefill(params, {"tokens": tokens})
         whole[0][1].record()
-        log.expect("profiled prefill", before, exit_gate=len(cfg.exit_layers))
+        log.expect("profiled prefill", before, exit_gate=len(cfg.exit_layers), qk_norm_rope=k5)
         pre_ms, pre_attn = span_ms(whole), span_ms(spans)
         spans.clear()
         caches = registry.init_cache(cfg, tokens.shape[0], decode, device=dev)
@@ -1655,7 +1869,8 @@ def lm_profile(dev, cfg, params, plan, tokens, decode, log, say):
             whole[-1][0].record()
             o, caches = serve_step(params, tok, caches, t)
             whole[-1][1].record()
-            log.expect("profiled decode", before, exit_gate=len(cfg.exit_layers))
+            log.expect("profiled decode", before, exit_gate=len(cfg.exit_layers),
+                       qk_norm_rope=k5)
             tok = o["token"][:, None]
         dec_ms, dec_attn = span_ms(whole) / n_dec, span_ms(spans) / n_dec
     finally:
@@ -1669,7 +1884,8 @@ def lm_profile(dev, cfg, params, plan, tokens, decode, log, say):
         for t in range(n_dec, 2 * n_dec):
             before = log.now()
             o, caches = serve_step(params, tok, caches, t)
-            log.expect("profiled decode", before, exit_gate=len(cfg.exit_layers))
+            log.expect("profiled decode", before, exit_gate=len(cfg.exit_layers),
+                       qk_norm_rope=k5)
             tok = o["token"][:, None]
         torch.cuda.synchronize()
     host_ms = 1e3 * (time.perf_counter() - t0) / n_dec
@@ -1714,6 +1930,10 @@ def lm_phase(dev, cfg, val=(128, 256), serve=(8, 512), n_serve=3, decode=32, eq=
     log = LaunchLog(dev)
     out = {}
     n_exits = len(cfg.exit_layers)
+    # K5's launches: every layer in a whole-model step, the layers up to
+    # exit 0 in the engine's edge call and the rest in its cloud call
+    k5_all = k5_launches(cfg, 0, cfg.num_layers)
+    k5_edge = k5_launches(cfg, 0, cfg.exit_layers[0] + 1)
 
     def mem():
         if not card:
@@ -1831,7 +2051,7 @@ def lm_phase(dev, cfg, val=(128, 256), serve=(8, 512), n_serve=3, decode=32, eq=
         before = log.now()
         prefill(params, {"tokens": batches[0]})  # warm-up
         _sync(dev)
-        log.expect(f"{tag} prefill warm-up", before, exit_gate=n_exits)
+        log.expect(f"{tag} prefill warm-up", before, exit_gate=n_exits, qk_norm_rope=k5_all)
         times = []
         for b in batches:
             before = log.now()
@@ -1839,14 +2059,15 @@ def lm_phase(dev, cfg, val=(128, 256), serve=(8, 512), n_serve=3, decode=32, eq=
             o = prefill(params, {"tokens": b})
             _sync(dev)
             times.append(time.perf_counter() - t0)
-            log.expect(f"{tag} prefill", before, exit_gate=n_exits)
+            log.expect(f"{tag} prefill", before, exit_gate=n_exits, qk_norm_rope=k5_all)
             with torch.no_grad():
                 again = registry.forward_prefill(params, cfg, {"tokens": b})
             hold(o["exit_confidence"], o["exit_prediction"],
                  [z[:, 0] for z in again["exit_logits"]], plan, f"{tag} prefill")
             before = log.now()
             ot = prefill_t(params, {"tokens": b})
-            log.expect(f"{tag} prefill, temperatures=", before, exit_gate=n_exits)
+            log.expect(f"{tag} prefill, temperatures=", before, exit_gate=n_exits,
+                       qk_norm_rope=k5_all)
             gaps["plan_vs_temps"] = max(gaps["plan_vs_temps"], float(
                 (ot["exit_confidence"] - o["exit_confidence"]).abs().max()))
             assert torch.equal(ot["exit_prediction"], o["exit_prediction"])
@@ -1869,7 +2090,7 @@ def lm_phase(dev, cfg, val=(128, 256), serve=(8, 512), n_serve=3, decode=32, eq=
             o, caches = serve_step(params, tok, caches, t)
             _sync(dev)
             times.append(time.perf_counter() - t0)
-            log.expect(f"{tag} decode", before, exit_gate=n_exits)
+            log.expect(f"{tag} decode", before, exit_gate=n_exits, qk_norm_rope=k5_all)
             with torch.no_grad():
                 d, twin = registry.decode_step(params, cfg, tok, twin, t)
             assert torch.equal(d["logits"][:, 0], o["logits"]), "two decodes differ"
@@ -1908,7 +2129,8 @@ def lm_phase(dev, cfg, val=(128, 256), serve=(8, 512), n_serve=3, decode=32, eq=
             res = eng.infer({"tokens": b})
             m = int((~res["on_device"]).sum())
             log.expect(f"lm_engine level {level}", before, exit_gate=1,
-                       encode=int(level != 0 and m > 0), decode=int(level != 0 and m > 0))
+                       encode=int(level != 0 and m > 0), decode=int(level != 0 and m > 0),
+                       qk_norm_rope=k5_edge if m == 0 else k5_all)
             assert np.isfinite(res["confidence"]).all() and res["prediction"].shape == (len(b),)
             ons.append(res["on_device"])
             if level == 0 and m:
@@ -1934,7 +2156,8 @@ def lm_phase(dev, cfg, val=(128, 256), serve=(8, 512), n_serve=3, decode=32, eq=
             eng.plan = eng.plan.with_p_tar(2.0)
             before = log.now()
             res = eng.infer({"tokens": batches[0]})
-            log.expect("lm_engine level 0, all refused", before, exit_gate=1)
+            log.expect("lm_engine level 0, all refused", before, exit_gate=1,
+                       qk_norm_rope=k5_all)
             assert not res["on_device"].any()
             with torch.no_grad():
                 full = registry.forward_prefill(params, cfg, {"tokens": batches[0]})["logits"]
@@ -1949,6 +2172,12 @@ def lm_phase(dev, cfg, val=(128, 256), serve=(8, 512), n_serve=3, decode=32, eq=
     assert np.array_equal(decisions[0], decisions[1]) and np.array_equal(decisions[0],
                                                                         decisions[2])
     assert 0 < (~decisions[0]).sum() < len(decisions[0]), decisions[0]
+    if card:
+        # the benchmark's two shapes: 8 x 512 and 64 x 64 tokens
+        short = torch.randint(0, cfg.vocab_size, (64, 64), device=dev,
+                              generator=torch.Generator(device=dev).manual_seed(5))
+        qk_rope_sync_check(dev, cfg, params, [batches[0], short], say=say)
+        del short
     del params, batches
     if card:
         torch.cuda.empty_cache()
@@ -2004,7 +2233,7 @@ def lm_phase(dev, cfg, val=(128, 256), serve=(8, 512), n_serve=3, decode=32, eq=
     del p2, cpu_p2, got, want
     if card:
         torch.cuda.empty_cache()
-    say(f"{len(log.steps)} steps' launches (K1, K3, K4) asserted, e.g. "
+    say(f"{len(log.steps)} steps' launches (K1, K3, K4; K5 where given) asserted, e.g. "
         + "; ".join(log.steps[:3] + log.steps[-5:]))
     return out
 
@@ -2373,6 +2602,8 @@ def train_lm_phase(dev, spec, ckpt_dir, say=print):
     # ---------------------------------------------------------------- c
     cfg = spec["granite"]
     n_exits = len(cfg.exit_layers)
+    k5_all = k5_launches(cfg, 0, cfg.num_layers)
+    k5_edge = k5_launches(cfg, 0, cfg.exit_layers[0] + 1)
     t0 = time.perf_counter()
     params = seeded(cfg)
     _sync(dev)
@@ -2391,14 +2622,14 @@ def train_lm_phase(dev, spec, ckpt_dir, say=print):
         before = log.now()
         prefill(params, {"tokens": batches[0]})  # warm-up
         _sync(dev)
-        log.expect("c. prefill warm-up", before, exit_gate=n_exits)
+        log.expect("c. prefill warm-up", before, exit_gate=n_exits, qk_norm_rope=k5_all)
         tap.summary()
         before = log.now()
         t0 = time.perf_counter()
         o = prefill(params, {"tokens": batches[1]})
         _sync(dev)
         pre_ms = 1e3 * (time.perf_counter() - t0)
-        log.expect("c. prefill", before, exit_gate=n_exits)
+        log.expect("c. prefill", before, exit_gate=n_exits, qk_norm_rope=k5_all)
         drop, aux, calls = tap.summary()
         bsz, seq = spec["g_serve"]
         caches = grow_caches(cfg, o["caches"], bsz, seq + spec["g_decode"], dev)
@@ -2410,7 +2641,8 @@ def train_lm_phase(dev, spec, ckpt_dir, say=print):
         prof_pre = busy(lambda: prefill(params, {"tokens": batches[1]}), 1, "granite prefill")
         prof_dec = busy(lambda: serve(params, batches[1][:, :1], caches, last), 2,
                         "granite decode step")
-        log.expect("c. profiled prefill and decode", before, exit_gate=3 * n_exits)
+        log.expect("c. profiled prefill and decode", before, exit_gate=3 * n_exits,
+                   qk_norm_rope=3 * k5_all)
         tap.aux.clear()
     say(f"prefill {bsz} x {seq}: {pre_ms:.3f} ms; MoE over its {calls} layers: dropped share "
         f"{drop:.6f}, aux loss {aux:.6f} (means); {spec['g_decode']} decode steps from the "
@@ -2465,7 +2697,8 @@ def train_lm_phase(dev, spec, ckpt_dir, say=print):
             res = eng.infer({"tokens": b})
             m = int((~res["on_device"]).sum())
             log.expect(f"c. lm_engine level {level}", before, exit_gate=1,
-                       encode=int(level != 0 and m > 0), decode=int(level != 0 and m > 0))
+                       encode=int(level != 0 and m > 0), decode=int(level != 0 and m > 0),
+                       qk_norm_rope=k5_edge if m == 0 else k5_all)
             assert np.isfinite(res["confidence"]).all()
             ons.append(res["on_device"])
         st = eng.stats
@@ -2502,7 +2735,7 @@ def train_lm_phase(dev, spec, ckpt_dir, say=print):
         o = make_prefill_step(cfg, device=dev)(params, {"tokens": toks})
         _sync(dev)
         pre_ms = 1e3 * (time.perf_counter() - t0)
-        log.expect("d. prefill", before, exit_gate=n_exits)
+        log.expect("d. prefill", before, exit_gate=n_exits, qk_norm_rope=0)  # no RoPE
         drop, aux, calls = tap.summary()
         caches = grow_caches(cfg, o["caches"], bsz, seq + spec["j_decode"], dev)
         dec_ms, _, _ = decode_tokens(cfg, params, make_serve_step(cfg, device=dev),
@@ -2557,7 +2790,7 @@ def train_lm_phase(dev, spec, ckpt_dir, say=print):
     o = make_prefill_step(wcfg, device=dev)(params, {"tokens": toks, "encoder_frames": frames})
     _sync(dev)
     pre_ms = 1e3 * (time.perf_counter() - t0)
-    log.expect("e. prefill", before, exit_gate=n_exits)
+    log.expect("e. prefill", before, exit_gate=n_exits, qk_norm_rope=0)  # no RoPE
     caches = grow_caches(wcfg, o["caches"], bsz, seq + spec["w_decode"], dev)
     dec_ms, _, _ = decode_tokens(wcfg, params, make_serve_step(wcfg, device=dev),
                                  o["logits"][:, 0].argmax(-1)[:, None], caches, seq,
@@ -2592,7 +2825,7 @@ def train_lm_phase(dev, spec, ckpt_dir, say=print):
     out["whisper"]["f32_err"] = max(errs.values())
     del pw, full, steps_, wc
     reset_peak()
-    say(f"{len(log.steps)} steps' launches (K1, K3, K4) asserted, e.g. "
+    say(f"{len(log.steps)} steps' launches (K1, K3, K4; K5 where given) asserted, e.g. "
         + "; ".join(log.steps[:2] + log.steps[-3:]))
     return out
 
@@ -2614,11 +2847,12 @@ def dryrun_worker(job):
     import torch
 
     sys.path.insert(0, os.path.join(ROOT, "src"))
-    from repro_torch.kernels import calib_nll, compress, exit_gate
+    from repro_torch.kernels import calib_nll, compress, exit_gate, qk_rope
     from repro_torch.launch import dryrun
 
     arch, shape, device = job
-    kernels = (exit_gate.KERNEL, calib_nll.KERNEL, compress.ENCODE, compress.DECODE)
+    kernels = (exit_gate.KERNEL, calib_nll.KERNEL, compress.ENCODE, compress.DECODE,
+               qk_rope.KERNEL)
     cuda = device == "cuda"
     before = torch.cuda.memory_allocated() if cuda else 0
     rec = dryrun.run_one(arch, shape, outdir=None, device=device)
@@ -5509,13 +5743,14 @@ def main() -> int:
     from repro_torch.core.partition import select_partition
     from repro_torch.core.policy import OffloadPlan, make_plan
     from repro_torch.data.synthetic import cifar_like
-    from repro_torch.kernels import _build, calib_nll, compress, exit_gate, ops, ref
+    from repro_torch.kernels import _build, calib_nll, compress, exit_gate, ops, qk_rope, ref
     from repro_torch.models import convnet
     from repro_torch.offload import latency
     from repro_torch.offload.engine import EngineStats, convnet_engine
 
     kernels = {"exit_gate": exit_gate.KERNEL, "calib_nll": calib_nll.KERNEL,
-               "encode": compress.ENCODE, "decode": compress.DECODE}
+               "encode": compress.ENCODE, "decode": compress.DECODE,
+               "qk_norm_rope": qk_rope.KERNEL}
     cuda = torch.device("cuda")
 
     # ---------------------------------------------------------------- 1
@@ -5547,51 +5782,6 @@ def main() -> int:
             print("[build] " + line.strip())
 
     # ---------------------------------------------------------------- 3
-    def device_ms(fn, calls=20, reps=5, keep=False):
-        """Median device ms of one call: `calls` calls, fn(0) .. fn(calls-1),
-        captured in a CUDA graph and replayed `reps` times between CUDA
-        events. With keep=True every call's outputs stay allocated, so no
-        two calls share an output buffer."""
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            for i in range(2):
-                fn(i)
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        held = []
-        with torch.cuda.graph(graph):
-            for i in range(calls):
-                if keep:
-                    held.append(fn(i))
-                else:
-                    fn(i)
-        graph.replay()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(reps):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            graph.replay()
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b) / calls)
-        del graph, held
-        torch.cuda.synchronize()
-        return float(np.median(times))
-
-    def calls_for(nbytes):
-        return 20 if nbytes < 64e6 else 3
-
-    def cold_plan(nbytes):
-        """(input sets, calls) for an L2-cold timing: inputs rotate over
-        enough sets that a call's inputs were last touched more than
-        COLD_BYTES of traffic ago, and each call writes fresh outputs."""
-        sets = max(2, -(-int(COLD_BYTES) // int(nbytes)) + 1)
-        calls = -(-max(calls_for(nbytes), sets) // sets) * sets
-        return sets, calls
-
     rng = np.random.default_rng(0)
     rows_out = {k: {"cases": []} for k in kernels}
 
@@ -5859,6 +6049,9 @@ def main() -> int:
                            for shape in ((1, 16_384), (1, 6144), (3000, 10), (5, 301),
                                          (512, 16_384), (4, 786_432)))))
     print(f"[kernels] codec bit-exact on {len(codec_cases) + 4} cases (words, scales, floats)")
+
+    # K5 -- qk-norm and RoPE, within one bf16 ulp of the plain chain
+    qk_rope_checks(cuda, record, say=lambda m, timed=False: print(f"[kernels] {m}"))
 
     # ---------------------------------------------------------------- 4
     phase_launches = {}

@@ -10,6 +10,13 @@ reference's attention is XLA, not a Pallas kernel): scores are the
 einsum of q and k in their own dtype, cast to float32 after the product
 and scaled; masked scores are ``NEG_INF``; the softmax runs in float32
 and the probabilities are cast back to v's dtype before the PV product.
+qk-norm and RoPE are the exception at inference: with autograd off and q,
+k on the card in a dtype and head_dim K5 takes, they are K5's one launch
+(`kernels.qk_rope`, the same arithmetic; 44 launches and a host sync
+fewer in a Qwen3 layer). Under autograd (the train step), on the CPU,
+without RoPE (jamba, whisper) and at other head_dims or dtypes they run
+as the plain chain of `layers.rms_norm_headwise`, `rope_freqs` and
+`apply_rope`.
 
 Prefill walks the query chunks in a Python loop with an O(chunk x seq)
 working set. Decode writes the new token's K/V into the cache IN PLACE
@@ -42,6 +49,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import qk_rope
 from repro_torch.models.layers import (
     apply_rope,
     cdtype,
@@ -88,7 +96,10 @@ def _add(x, b):
 
 
 def _project_qkv(p, cfg, x, positions, rope=True):
-    """x: (b, s, d) -> q (b,s,qh,hd), k/v (b,s,kvh,hd)."""
+    """x: (b, s, d) -> q (b,s,qh,hd), k/v (b,s,kvh,hd). With RoPE on,
+    without autograd and on tensors K5 takes (`qk_rope.takes`: the card, a
+    dtype and head_dim it reads), qk-norm and RoPE are K5's one launch;
+    otherwise the plain chain."""
     qs = split_width(p["wq"].shape[-2], cfg.num_heads)
     kvs = split_width(p["wk"].shape[-2], cfg.num_kv_heads)
     xq = enter_split(x, qs)
@@ -98,10 +109,15 @@ def _project_qkv(p, cfg, x, positions, rope=True):
     v = einsum("bsd,dhk->bshk", xkv, p["wv"])
     if cfg.qkv_bias:
         q, k, v = _add(q, p["bq"]), _add(k, p["bk"]), _add(v, p["bv"])
+    rope = rope and cfg.use_rope
+    if rope and not torch.is_grad_enabled() and qk_rope.takes(q, k, positions):
+        scales = (p["q_norm"], p["k_norm"]) if cfg.qk_norm else (None, None)
+        q, k = qk_rope.qk_norm_rope(q, k, *scales, positions, cfg.rope_theta)
+        return q, k, v
     if cfg.qk_norm:
         q = rms_norm_headwise(q, enter_split(p["q_norm"], qs))
         k = rms_norm_headwise(k, enter_split(p["k_norm"], kvs))
-    if rope and cfg.use_rope:
+    if rope:
         cos, sin = rope_freqs(cfg, positions)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)

@@ -231,10 +231,19 @@ def apply_unembed(p, x):
 # ----------------------------------------------------------------- rotary
 def rope_freqs(cfg, positions):
     """positions: int (...,). Returns cos/sin of shape (..., head_dim//2)."""
-    hd = cfg.head_dim
-    exps = torch.arange(0, hd, 2, dtype=torch.float32, device=positions.device) / hd
-    inv = 1.0 / torch.pow(torch.tensor(cfg.rope_theta, dtype=torch.float32,
-                                       device=positions.device), exps)
+    return rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+
+
+def rope_tables(positions, head_dim, theta):
+    """cos/sin (..., head_dim//2) in float32 of positions (...,) at the
+    frequencies theta^(-2i / head_dim). theta is made on the positions'
+    device (`torch.full`, a fill), not copied there: a copy from the
+    host's pageable memory makes the host wait for the card to drain, and
+    this runs in every attention layer. The tables are the same, bit for
+    bit, as a theta copied from the host."""
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=positions.device) / head_dim
+    base = torch.full((), theta, dtype=torch.float32, device=positions.device)
+    inv = 1.0 / torch.pow(base, exps)
     ang = positions.to(torch.float32)[..., None] * inv
     return torch.cos(ang), torch.sin(ang)
 

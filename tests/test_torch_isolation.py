@@ -21,7 +21,7 @@ from repro_torch.core.bank import fit_bank
 from repro_torch.core.calibration import TemperatureScaling
 from repro_torch.core.gatepath import NumpyGateBackend, get_gate_backend
 from repro_torch.core.policy import OffloadPlan, make_plan
-from repro_torch.kernels import calib_nll, compress, exit_gate, ops, ref
+from repro_torch.kernels import calib_nll, compress, exit_gate, ops, qk_rope, ref
 from repro_torch.models import convnet
 from repro_torch.offload.engine import convnet_engine
 from repro_torch.training import optim
@@ -69,6 +69,7 @@ PORTED = [
     "repro_torch.kernels.compress",
     "repro_torch.kernels.exit_gate",
     "repro_torch.kernels.ops",
+    "repro_torch.kernels.qk_rope",
     "repro_torch.kernels.ref",
     "repro_torch.launch",
     "repro_torch.launch.dryrun",
@@ -116,7 +117,7 @@ PORTED = [
     "repro_torch.training.losses",
     "repro_torch.training.optim",
 ]
-KERNELS = [exit_gate.KERNEL, calib_nll.KERNEL, compress.ENCODE, compress.DECODE]
+KERNELS = [exit_gate.KERNEL, calib_nll.KERNEL, compress.ENCODE, compress.DECODE, qk_rope.KERNEL]
 
 
 def test_port_imports_neither_jax_nor_repro():
@@ -328,7 +329,7 @@ def test_fleet_and_orchestration_refuse_without_gpu(monkeypatch):
     # named host paths need no device and launch nothing
     run_fleet(plan.with_compression(2), scn, with_controller=True, backend="numpy")
     fifo_done_maxplus(t, t, device="cpu")
-    assert [k.launches for k in KERNELS] == [0, 0, 0, 0]
+    assert [k.launches for k in KERNELS] == [0, 0, 0, 0, 0]
 
 
 def test_entry_points_refuse_without_gpu(monkeypatch):
@@ -370,7 +371,7 @@ def test_training_bank_and_gates_refuse_without_gpu(monkeypatch):
     # the host backend is the host path: it needs no device and finds none
     conf, _ = NumpyGateBackend().plan_gate_block(plan, z)
     assert conf.shape == (4,)
-    assert [k.launches for k in KERNELS] == [0, 0, 0, 0]
+    assert [k.launches for k in KERNELS] == [0, 0, 0, 0, 0]
 
 
 def test_serving_cores_and_controller_refuse_without_gpu(monkeypatch):
@@ -408,7 +409,7 @@ def test_serving_cores_and_controller_refuse_without_gpu(monkeypatch):
     OnlineController(plan, latency.paper_2020(), exits, final_logits=final, labels=y,
                      backend="numpy")
     EngineCore({1: engine}, images, device="cpu")
-    assert [k.launches for k in KERNELS] == [0, 0, 0, 0]
+    assert [k.launches for k in KERNELS] == [0, 0, 0, 0, 0]
 
 
 def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
@@ -428,7 +429,7 @@ def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
     words, scales = ref.encode_codec_ref(x, 2)
     assert torch.equal(enc.words.view(torch.int32), words.view(torch.int32))
     assert torch.equal(compress.decode(enc), ref.decode_codec_ref(words, scales, x.shape, 2))
-    assert [k.launches for k in KERNELS] == before == [0, 0, 0, 0]
+    assert [k.launches for k in KERNELS] == before == [0, 0, 0, 0, 0]
 
 
 def test_cuda_launchers_refuse_cpu_tensors():
@@ -437,7 +438,11 @@ def test_cuda_launchers_refuse_cpu_tensors():
         compress.encode_kernel(z, 8)
     with pytest.raises(ValueError, match="CUDA tensor"):
         compress.decode_kernel(torch.zeros(4, 32, dtype=torch.uint32), torch.zeros(4, 1), 128, 8)
-    assert [k.launches for k in KERNELS] == [0, 0, 0, 0]
+    q = torch.zeros(2, 3, 4, 128)
+    with pytest.raises(ValueError, match="takes CUDA"):
+        qk_rope._qk_norm_rope_cuda(q, q, None, None, torch.zeros(2, 3, dtype=torch.int32), 1e4,
+                                   1e-6)
+    assert [k.launches for k in KERNELS] == [0, 0, 0, 0, 0]
 
 
 def test_lm_serving_refuses_without_gpu(monkeypatch):
@@ -467,7 +472,7 @@ def test_lm_serving_refuses_without_gpu(monkeypatch):
     toks = np.ones((2, 8), np.int32)
     make_prefill_step(cfg, plan=plan, device="cpu")(params, {"tokens": toks})
     lm_engine(params, cfg, plan, device="cpu").infer({"tokens": toks})
-    assert [k.launches for k in KERNELS] == [0, 0, 0, 0]
+    assert [k.launches for k in KERNELS] == [0, 0, 0, 0, 0]
 
 
 def test_lm_training_refuses_without_gpu(monkeypatch):
@@ -494,7 +499,7 @@ def test_lm_training_refuses_without_gpu(monkeypatch):
     _, _, m = make_train_step(cfg, optim.AdamWConfig(), device="cpu")(
         params, optim.init(params), batch)
     assert torch.isfinite(m["loss"])
-    assert [k.launches for k in KERNELS] == [0, 0, 0, 0]
+    assert [k.launches for k in KERNELS] == [0, 0, 0, 0, 0]
 
 
 def test_lm_path_refuses_params_on_another_device(monkeypatch):
@@ -522,4 +527,4 @@ def test_lm_path_refuses_params_on_another_device(monkeypatch):
     ):
         with pytest.raises(ValueError, match="live on cpu, not on cuda"):
             call()
-    assert [k.launches for k in KERNELS] == [0, 0, 0, 0]
+    assert [k.launches for k in KERNELS] == [0, 0, 0, 0, 0]

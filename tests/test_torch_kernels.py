@@ -7,7 +7,8 @@ Tolerances: K1 conf rtol 2e-5 / atol 1e-6, entropy rtol 2e-5 / atol
 2e-5, argmax exact (as `test_kernels.py`); K2 NLL rtol 1e-5 / atol 1e-6,
 dNLL/dT rtol 5e-3 / atol 1e-5, d2NLL/dT2 rtol 5e-3 / atol 1e-3, the
 kernel Newton fit within 0.05; the codec bit-exact on words, scales and
-decoded floats.
+decoded floats. K5 (qk-norm and RoPE) has no Pallas kernel: its plain
+version is held bit for bit to the port's chain as it stood before K5.
 """
 import ctypes
 import re
@@ -26,7 +27,9 @@ from repro_torch.kernels import calib_nll as tcalib_nll
 from repro_torch.kernels import compress as tcompress
 from repro_torch.kernels import exit_gate as texit_gate
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import qk_rope as tqk_rope
 from repro_torch.kernels import ref as tref
+from repro_torch.models import layers as tlayers
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -168,7 +171,7 @@ _C_TYPES = {"int": ctypes.c_int, "float": ctypes.c_float}
 
 
 @pytest.mark.parametrize("kernel", [texit_gate.KERNEL, tcalib_nll.KERNEL, tcompress.ENCODE,
-                                    tcompress.DECODE], ids=lambda k: k.name)
+                                    tcompress.DECODE, tqk_rope.KERNEL], ids=lambda k: k.name)
 def test_launcher_argtypes_match_c_interface(kernel):
     """Each ctypes binding lists the exported C function's parameters, in
     order: a pointer as c_void_p, an int as c_int, a float as c_float."""
@@ -389,3 +392,90 @@ def test_encode_layout_covers_every_pair_once(rows, cols, aligned):
     assert counts.shape == (rows * groups,) and (counts == 1).all()
     if rows == 1 and cols > 32:
         assert lay.blocks > -(-groups // 8)
+
+
+# ------------------------------------------------------------------- K5
+def _chain_before_k5(q, k, q_scale, k_scale, positions, theta):
+    """qk-norm and RoPE as `_project_qkv` ran them before K5, theta copied
+    from the host into a tensor as `rope_freqs` then made it."""
+    hd = q.shape[-1]
+    if q_scale is not None:
+        q, k = tlayers.rms_norm_headwise(q, q_scale), tlayers.rms_norm_headwise(k, k_scale)
+    exps = torch.arange(0, hd, 2, dtype=torch.float32) / hd
+    inv = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32), exps)
+    ang = positions.to(torch.float32)[..., None] * inv
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    return tlayers.apply_rope(q, cos, sin), tlayers.apply_rope(k, cos, sin)
+
+
+def _positions(kind, b, s):
+    if kind == "expanded":  # the partitions' arange, batch stride 0
+        return torch.arange(s, dtype=torch.int32).expand(b, s)
+    if kind == "contiguous":
+        return (7 + 3 * torch.arange(b * s, dtype=torch.int64)).reshape(b, s)
+    return torch.full((b, 1), 511, dtype=torch.int32)  # a decode step
+
+
+@pytest.mark.parametrize("heads", [(32, 8, 128), (8, 2, 128), (2, 8, 64)],
+                         ids=["one-device", "model-4", "model-16-kv-whole"])
+@pytest.mark.parametrize("positions", ["expanded", "contiguous", "decode"])
+@pytest.mark.parametrize("norm", [True, False], ids=["qk-norm", "rope-only"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_qk_norm_rope_plain_equals_chain_before_k5(heads, positions, norm, dtype):
+    """The op's CPU implementation is the plain chain of `_project_qkv`, bit
+    for bit, at a model axis's local head counts too (q heads split, kv
+    heads split or whole)."""
+    qh, kvh, hd = heads
+    g = torch.Generator().manual_seed(qh * 31 + hd)
+    pos = _positions(positions, 2, 5)
+    b, s = pos.shape
+    q = (2 * torch.randn(b, s, qh, hd, generator=g)).to(dtype)
+    k = (2 * torch.randn(b, s, kvh, hd, generator=g)).to(dtype)
+    scales = (1 + 0.1 * torch.randn(hd, generator=g), 1 + 0.1 * torch.randn(hd, generator=g))
+    scales = scales if norm else (None, None)
+    got = tqk_rope.qk_norm_rope(q, k, *scales, pos, 1e6)
+    want = _chain_before_k5(q, k, *scales, pos, 1e6)
+    for a, w in zip(got, want):
+        assert a.dtype == dtype and a.shape == w.shape
+        assert torch.equal(a, w)
+
+
+@pytest.mark.parametrize("theta", [10_000.0, 1_000_000.0])
+@pytest.mark.parametrize("hd", [64, 128, 80])
+def test_rope_tables_equal_theta_copied_from_the_host(theta, hd):
+    """`rope_tables` makes theta on the positions' device and gives the
+    tables of a theta copied from the host, bit for bit."""
+    pos = torch.stack([torch.arange(0, 4096, 64), torch.arange(7, 4103, 64)]).to(torch.int32)
+    exps = torch.arange(0, hd, 2, dtype=torch.float32) / hd
+    ang = pos.to(torch.float32)[..., None] * (1.0 / torch.pow(torch.tensor(
+        theta, dtype=torch.float32), exps))
+    cos, sin = tlayers.rope_tables(pos, hd, theta)
+    assert torch.equal(cos, torch.cos(ang)) and torch.equal(sin, torch.sin(ang))
+
+
+def test_qk_norm_rope_fake_and_takes():
+    """On fake ``cuda`` tensors K5's op gives outputs of the inputs' shapes
+    and dtype, and `takes` accepts what the partitions pass; it refuses the
+    CPU, float16, a head_dim outside `HEAD_DIMS`, positions of another
+    shape and q and k of two dtypes."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    cpu = torch.zeros(2, 3, 4, 128, dtype=torch.bfloat16)
+    assert not tqk_rope.takes(cpu, cpu, torch.zeros(2, 3, dtype=torch.int32))
+    with FakeTensorMode():
+        def t(*shape, dtype=torch.bfloat16):
+            return torch.empty(shape, dtype=dtype, device="cuda")
+
+        q, k, pos = t(2, 3, 32, 128), t(2, 3, 8, 128), t(2, 3, dtype=torch.int32)
+        assert tqk_rope.takes(q, k, pos)
+        assert tqk_rope.takes(t(2, 3, 24, 64, dtype=torch.float32),
+                              t(2, 3, 8, 64, dtype=torch.float32), t(2, 3, dtype=torch.int64))
+        assert not tqk_rope.takes(t(2, 3, 4, 128, dtype=torch.float16),
+                                  t(2, 3, 4, 128, dtype=torch.float16), pos)
+        assert not tqk_rope.takes(t(2, 3, 4, 48), t(2, 3, 4, 48), pos)
+        assert not tqk_rope.takes(q, k, t(1, 3, dtype=torch.int32))
+        assert not tqk_rope.takes(q, k.float(), pos)
+        for scales in ((None, None), (t(128, dtype=torch.float32), t(128, dtype=torch.float32))):
+            oq, ok = tqk_rope.qk_norm_rope(q, k, *scales, pos, 1e6)
+            assert (oq.shape, oq.dtype, oq.device.type) == (q.shape, q.dtype, "cuda")
+            assert (ok.shape, ok.dtype, ok.device.type) == (k.shape, k.dtype, "cuda")

@@ -229,6 +229,63 @@ def test_ring_buffer_age_is_a_floor_modulo():
     assert tattn._valid(cfg, 2, 2, 8, "cpu").tolist() == [True] * 3 + [False] * 5
 
 
+def _k5_route_open(monkeypatch):
+    """`qk_rope.takes` made true for the CPU tensors here, so that the
+    route to K5's op opens (the op then runs its CPU implementation, the
+    plain chain); returns the list its calls are counted in."""
+    calls = []
+    op = tattn.qk_rope.qk_norm_rope
+    monkeypatch.setattr(tattn.qk_rope, "takes", lambda q, k, positions: True)
+    monkeypatch.setattr(tattn.qk_rope, "qk_norm_rope",
+                        lambda *a, **kw: calls.append(tuple(a[0].shape)) or op(*a, **kw))
+    return calls
+
+
+@pytest.mark.parametrize("kw", [{}, {"qk_norm": False}, {"use_rope": False}],
+                         ids=["qk-norm", "rope-only", "no-rope"])
+def test_project_qkv_calls_k5_only_without_autograd(monkeypatch, kw):
+    """Where K5 takes the tensors, `_project_qkv` calls its op under
+    `torch.no_grad()` (once for q and k, and only with RoPE on) and never
+    under autograd; both give the plain chain's q, k and v."""
+    cfg, _, tp = _attn_setup(seed=3, **kw)
+    x = torch.randn(2, 5, cfg.d_model, generator=torch.Generator().manual_seed(0))
+    pos = torch.arange(5, dtype=torch.int32).expand(2, 5)
+    plain = tattn._project_qkv(tp, cfg, x, pos)
+    calls = _k5_route_open(monkeypatch)
+    with torch.no_grad():
+        routed = tattn._project_qkv(tp, cfg, x, pos)
+    n = 1 if cfg.use_rope else 0
+    assert calls == [tuple(plain[0].shape)] * n
+    trained = tattn._project_qkv(tp, cfg, x.clone().requires_grad_(True), pos)
+    assert len(calls) == n and trained[0].requires_grad
+    for a, b, c in zip(routed, trained, plain):
+        assert torch.equal(a, c) and torch.equal(b.detach(), c)
+
+
+def test_forward_train_gradients_keep_the_plain_chain(monkeypatch):
+    """A train step's forward runs under autograd, so an open route to K5
+    changes nothing: no call to its op, the same loss and gradients bit for
+    bit."""
+    cfg = tconfigs.get_smoke("qwen3-8b")
+    params = registry.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    leaves = [t for t in torch.utils._pytree.tree_leaves(params) if t.is_floating_point()]
+    tokens = torch.randint(0, cfg.vocab_size, (2, 8), generator=torch.Generator().manual_seed(1))
+
+    def grads():
+        for t in leaves:
+            t.requires_grad_(True)
+        out = transformer.forward_train(params, cfg, {"tokens": tokens})
+        loss = out["logits"].float().square().mean() + sum(
+            z.float().square().mean() for z in out["exit_logits"])
+        return [loss.detach()] + list(torch.autograd.grad(loss, leaves))
+
+    want = grads()
+    calls = _k5_route_open(monkeypatch)
+    got = grads()
+    assert calls == []
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
 # ----------------------------------------------------------------- pipeline
 def test_token_and_batch_iterators_equal_reference():
     stream = np.random.default_rng(7).integers(0, 500, 5000)
